@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the DVV store on one CUDA card.
+"""Drive the PyTorch port (the DVV store and gemma2-9b serving) on one
+CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,12 +8,25 @@ Phases, each printed as one JSON line; a failure in any phase raises and
 exits non-zero:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-           versions, and the time to build the dvv_ops kernels with nvcc.
+           versions, and the time to build the kernels with nvcc (one
+           nvcc per kernel package, all started together), with ptxas's
+           registers and spills for the flash-attention kernel.
   kernels  each CUDA kernel against its plain torch version on the card,
-           on random clock sets from --seed, at the store's bucket shapes
-           and at one large shape: exact equality (bool and int outputs,
-           so no tolerance), kernel and plain times from CUDA events, and
-           the bound (bytes or int32 operations) computed from the inputs.
+           with kernel and plain times from CUDA events and the bound
+           (bytes or operations) computed from the inputs.  dvv_ops: on
+           random clock sets from --seed, at the store's bucket shapes and
+           at one large shape, exact equality (bool and int outputs, so no
+           tolerance).  flash_attention: at gemma2-9b's prefill shapes
+           (q [1, 8192, 16, 256], k/v with 8 heads, bf16) for a local
+           layer (window 4096, softcap 50), a global layer (causal,
+           softcap 50) and causal without softcap, to max abs err 2e-2 and
+           to BF16_ROW_TOL of each output row's RMS (ref.row_scaled_err);
+           and fp32 at [1, 1024, 16, 256], causal with softcap, to 1e-5.
+           Beside each, one PyTorch call of the same function, timed as a
+           yardstick the port never calls: FlexAttention (compiled, with
+           the softcap as score_mod and a causal or sliding-window block
+           mask) for the softcap rows, scaled_dot_product_attention for
+           the causal row.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -28,6 +42,24 @@ exits non-zero:
            tracing the card only: device-busy seconds against wall seconds
            (the device's idle share) and each kernel's device time per
            launch at the shapes the store gives it.
+  model    gemma2-9b at full width and depth (42 layers, 9.24 B fp32
+           parameters from a torch.Generator seeded by --seed): one warm-up
+           and one timed prefill of tokens [1, 8192] through
+           make_prefill_step, each launching flash_attention exactly 42
+           times (the counts are zeroed just before the timed prefill and
+           read just after); then 8 requests of 16 tokens through
+           BatchScheduler (4 slots, max_len 256) with session state in the
+           port's KVCluster on the card, and every session/<rid> read back
+           with its 16 tokens.  Parameter bytes and peak device memory.
+  model_trace  one prefill and 16 decode steps under torch.profiler on
+           the card: device-busy seconds against the wall seconds of the
+           same traced run (the device's idle share) and the top device
+           events.
+  model_parity  the same config cut to 2 groups (4 layers) at full width
+           with fp32 compute: prefill logits of 4,608 tokens (past the
+           4,096 window) against the same tokens fed one by one through
+           decode_step, to PREFILL_DECODE_TOL (the CPU twin,
+           tests/test_torch_models.py, holds the same bound).
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
@@ -35,19 +67,28 @@ time per call alone.
 
 The last lines are the per-kernel JSON summary, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
-non-zero before printing any result.
+non-zero before printing any result.  Every run of a phase and every read
+of the launch counters happens on the card, in this process.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# torch.compile (the FlexAttention yardstick) caches under build/, compiling
+# in this process
+for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                   ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(_var, str(ROOT / "build" / "torch_compile" / _sub))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 NODES = ("n0", "n1", "n2", "n3", "n4")
 SIDE_A, SIDE_B = frozenset({"n0", "n1"}), frozenset({"n2", "n3", "n4"})
@@ -64,6 +105,29 @@ SUMMARY_SHAPE = (4096, 4, 8)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COLUMN = 2            # one compare and one fold per column
+# Dense peaks of the H100 SXM data sheet: bf16 on the tensor cores, fp32
+# outside them.
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# gemma2-9b serving (src/repro_torch/configs/gemma2_9b.py)
+ARCH = "gemma2-9b"
+PREFILL_TOKENS = 8192         # cut from prefill_32k's [32, 32768]: its fp32
+                              # logits alone would be 1 TB
+SERVE_REQUESTS, SERVE_TOKENS, SERVE_SLOTS, SERVE_MAX_LEN = 8, 16, 4, 256
+TRACE_DECODE_STEPS = 16
+PARITY_GROUPS, PARITY_TOKENS = 2, 4608   # past the 4,096 window, 9 x 512
+#: fp32 prefill against token-by-token decode: max abs logit difference.
+#: The CPU twin (tests/test_torch_models.py::PREFILL_DECODE_TOL) holds the
+#: same bound; logits are softcapped to +-30.
+PREFILL_DECODE_TOL = 2e-3
+# flash_attention rows: (variant, dtype, S, causal, window, softcap, tol)
+FLASH_ROWS = (
+    ("local", "bfloat16", 8192, True, 4096, 50.0, 2e-2),
+    ("global", "bfloat16", 8192, True, 0, 50.0, 2e-2),
+    ("causal", "bfloat16", 8192, True, 0, 0.0, 2e-2),
+    ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5),
+)
+FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM = 16, 8, 256
 
 
 def emit(obj) -> None:
@@ -112,17 +176,20 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_profile(fn):
     """Run ``fn`` under torch.profiler tracing the card only (CUPTI).
-    Returns the total device-busy microseconds and ``{name: (count,
-    total_us)}`` per device event, or ``(0.0, {})`` if the trace holds no
-    device time."""
+    Returns the total device-busy microseconds, ``{name: (count,
+    total_us)}`` per device event (``(0.0, {})`` if the trace holds no
+    device time) and the wall seconds of ``fn`` inside the trace, without
+    the profiler's start and stop."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
     per = {e.key: (e.count, e.self_device_time_total)
            for e in prof.key_averages() if e.self_device_time_total > 0}
-    return sum(us for _, us in per.values()), per
+    return sum(us for _, us in per.values()), per, wall_s
 
 
 def device_ms(fn, reps: int):
@@ -131,13 +198,13 @@ def device_ms(fn, reps: int):
     import torch
     fn()
     torch.cuda.synchronize()
-    busy_us, _ = device_profile(lambda: [fn() for _ in range(reps)])
+    busy_us, _, _ = device_profile(lambda: [fn() for _ in range(reps)])
     return busy_us / reps / 1e3 if busy_us else None
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -147,7 +214,7 @@ def max_abs_err(got, want) -> int:
         if got.numel() else 0
 
 
-def kernels_phase(seed: int):
+def dvv_rows(seed: int):
     import numpy as np
     import torch
     from repro_torch.kernels.dvv_ops import ops, ref
@@ -208,6 +275,108 @@ def kernels_phase(seed: int):
                          "bound_ms": b_ms, "bound_by": b_by,
                          "bytes": nbytes, "int32_ops": nops})
         del vvs, dids, dns, valid, mask, smask, ceil, want_mask, want_ceil
+        torch.cuda.empty_cache()
+    return rows
+
+
+def live_pairs(S: int, causal: bool, window: int) -> int:
+    """(q, k) pairs that pass the masks, positions 0..S-1 on both sides."""
+    if not causal:
+        return S * S
+    if not window:
+        return S * (S + 1) // 2
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flex_attention_call(S: int, window: int, cap: float):
+    """FlexAttention computing a causal row's function on [B, H, S, D]
+    tensors: the softcap as score_mod, causal (and window) as the block
+    mask, GQA by enable_gqa.  Compiled once per variant; the port never
+    calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention,
+    )
+
+    def mask(b, h, qi, ki):
+        ok = ki <= qi
+        return ok & (ki > qi - window) if window else ok
+
+    def score(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+
+    block_mask = create_block_mask(mask, None, None, S, S, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: fn(q, k, v, score_mod=score,
+                              block_mask=block_mask, enable_gqa=True)
+
+
+def flash_rows(seed: int):
+    """flash_attention against its plain version at gemma2-9b's prefill
+    shapes, each row beside one PyTorch call of the same function on the
+    same tensors (a yardstick the port never calls)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_TOL, flash_attention_ref, row_scaled_err,
+    )
+
+    dev = torch.device("cuda")
+    H, KV, D = FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM
+    rows = []
+    for variant, dtype, S, causal, window, cap, tol in FLASH_ROWS:
+        assert causal, "the library calls below are built for causal rows"
+        rng = np.random.default_rng([seed, S, window, int(cap)])
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, S, h, D), dtype=np.float32)).to(dev, getattr(torch, dtype))
+            for h in (H, KV, KV))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = FA.gqa_flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        row_err = row_scaled_err(got, want)
+        row_tol = BF16_ROW_TOL if dtype == "bfloat16" else None
+        if not err <= tol or (row_tol and not row_err <= row_tol):
+            raise AssertionError(
+                f"flash_attention {variant} disagrees with its plain "
+                f"version: max abs err {err} (tolerance {tol}), row-scaled "
+                f"err {row_err} (tolerance {row_tol})")
+        del want
+        pairs = live_pairs(S, causal, window)
+        nbytes = (2 * H + 2 * KV) * S * D * q.element_size()
+        b_ms, b_by = bound(nbytes, 4 * H * D * pairs, FLOPS_PER_S[dtype])
+        row = {"name": "flash_attention", "variant": variant,
+               "shape": [1, S, H, KV, D], "dtype": dtype, **kw,
+               "max_abs_err": err, "tol": tol,
+               "row_scaled_err": row_err, "row_tol": row_tol,
+               "ms": cuda_ms(lambda: FA.gqa_flash_attention(q, k, v, **kw),
+                             10),
+               "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
+                                                               **kw), 3),
+               "device_ms": device_ms(
+                   lambda: FA.gqa_flash_attention(q, k, v, **kw), 10),
+               "bound_ms": b_ms, "bound_by": b_by, "live_pairs": pairs,
+               "flops": 4 * H * D * pairs, "bytes": nbytes}
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if cap:
+            row["library"] = "flex_attention"
+            library = partial(flex_attention_call(S, window, cap),
+                              qt, kt, vt)
+        else:
+            row["library"] = "scaled_dot_product_attention"
+            library = partial(F.scaled_dot_product_attention, qt, kt, vt,
+                              is_causal=True, enable_gqa=True)
+        lib = library().transpose(1, 2)
+        row["library_max_abs_diff"] = float(
+            (lib.float() - got.float()).abs().max())
+        row["library_row_scaled_diff"] = row_scaled_err(lib, got)
+        row["library_ms"] = cuda_ms(library, 10)
+        rows.append(row)
+        del q, k, v, qt, kt, vt, got, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -363,9 +532,7 @@ def trace_phase(n_keys: int, seed: int):
     """The store schedule once more, traced on the card alone: how busy
     the device was over the run's wall time, and per-launch device time
     of each dvv_ops kernel at the main path's own shapes."""
-    t = time.perf_counter()
-    busy_us, per = device_profile(lambda: run_schedule(n_keys, seed))
-    wall_s = time.perf_counter() - t
+    busy_us, per, wall_s = device_profile(lambda: run_schedule(n_keys, seed))
     kernels = {}
     for name in ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq"):
         hits = [(n, us) for key, (n, us) in per.items()
@@ -385,6 +552,197 @@ def trace_phase(n_keys: int, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def requests(cfg, n: int, tokens: int, seed: int):
+    import numpy as np
+    from repro_torch.launch.serve import Request
+    prompts = np.random.default_rng([seed, n]).integers(0, cfg.vocab_size, n)
+    return [Request(rid=i, prompt_token=int(p), max_tokens=tokens)
+            for i, p in enumerate(prompts)]
+
+
+def model_phase(cfg, params, seed: int):
+    """Prefill and serve gemma2-9b on the card through the port's entry
+    points; the launch counters are zeroed just before each run and read
+    just after."""
+    import torch
+    from repro_torch.core import DVV_MECHANISM
+    from repro_torch.kernels import dvv_ops, flash_attention as FA
+    from repro_torch.launch.serve import BatchScheduler, serve_requests
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.store import KVCluster, SimNetwork
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_TOKENS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    out = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "param_bytes": tree_bytes(params),
+           "prefill_tokens": [1, PREFILL_TOKENS]}
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches = [], []
+    for _ in ("warm-up", "timed"):
+        FA.reset_launches()
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        launches.append(FA.launches["flash_attention"])
+        if tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()) or \
+                float(logits.abs().max()) > cfg.final_softcap:
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"are not finite or exceed the softcap")
+        del logits
+    if launches != [cfg.n_layers] * 2:
+        raise AssertionError(f"flash_attention launches per prefill "
+                             f"{launches}, expected {cfg.n_layers}")
+    out.update(prefill_s={"warm_up": secs[0], "timed": secs[1]},
+               prefill_tokens_per_s=PREFILL_TOKENS / secs[1],
+               flash_attention_launches=launches[1],
+               prefill_peak_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+
+    store = KVCluster(("srv1", "srv2"), DVV_MECHANISM,
+                      network=SimNetwork(seed=0))
+    sched = BatchScheduler(cfg, params, SERVE_SLOTS, SERVE_MAX_LEN, store,
+                           "srv1")
+    queue = requests(cfg, SERVE_REQUESTS, SERVE_TOKENS, seed)
+    done = list(queue)
+    FA.reset_launches()
+    dvv_ops.reset_launches()
+    t = time.perf_counter()
+    steps = serve_requests(sched, queue)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    serve_launches = {**FA.launches, **dvv_ops.launches}
+    keys = [f"session/{r.rid}" for r in done]
+    reads = store.get_many(keys, via="srv1")
+    for r in done:
+        got = reads[f"session/{r.rid}"].values
+        if len(got) != 1 or json.loads(got[0])["tokens"] != r.generated \
+                or len(r.generated) != SERVE_TOKENS:
+            raise AssertionError(f"session/{r.rid} read back {got}, "
+                                 f"expected {r.generated}")
+    out.update(serve={
+        "requests": SERVE_REQUESTS, "tokens_each": SERVE_TOKENS,
+        "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+        "decode_steps": steps, "seconds": serve_s,
+        "s_per_decode_step": serve_s / steps,
+        "tokens_per_s": SERVE_REQUESTS * SERVE_TOKENS / serve_s,
+        "launches_while_serving": serve_launches,
+        "read_back_launches": {k: v - serve_launches[k]
+                               for k, v in dvv_ops.launches.items()},
+        "sessions_read_back": len(done)},
+        peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def model_trace_phase(cfg, params, seed: int):
+    """One prefill and TRACE_DECODE_STEPS decode steps, each traced on the
+    card: device-busy seconds and the top device events, and the idle share
+    against the wall seconds of the same traced run (the profiler's cost on
+    the host's side of each launch is in that wall time)."""
+    import torch
+    from repro_torch.launch.serve import BatchScheduler
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.store import KVCluster, SimNetwork
+    from repro_torch.core import DVV_MECHANISM
+
+    toks = torch.zeros((1, PREFILL_TOKENS), dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(cfg)
+    sched = BatchScheduler(
+        cfg, params, SERVE_SLOTS, SERVE_MAX_LEN,
+        KVCluster(("srv1", "srv2"), DVV_MECHANISM,
+                  network=SimNetwork(seed=0)), "srv1")
+    sched.admit(requests(cfg, SERVE_SLOTS, SERVE_MAX_LEN, seed))
+    out = {"phase": "model_trace", "prefill_tokens": [1, PREFILL_TOKENS],
+           "decode_steps": TRACE_DECODE_STEPS}
+    for name, fn in (
+            ("prefill", lambda: prefill(params, {"tokens": toks})),
+            ("decode", lambda: [sched.step()
+                                for _ in range(TRACE_DECODE_STEPS)])):
+        busy_us, per, wall_s = device_profile(fn)
+        out[name] = {
+            "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1 - busy_us / 1e6 / wall_s
+            if busy_us else None,
+            "device_events": sum(c for c, _ in per.values()),
+            "top_device_events": sorted(
+                ({"name": k[:80], "count": c, "us": us}
+                 for k, (c, us) in per.items()),
+                key=lambda e: -e["us"])[:10]}
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_parity_phase(seed: int):
+    """gemma2-9b cut to PARITY_GROUPS groups at full width, fp32 compute:
+    prefill logits at every position against token-by-token decode."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache, init_params
+
+    base = get_config(ARCH)
+    cfg = replace(base, n_layers=PARITY_GROUPS * len(base.pattern),
+                  compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    params = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, PARITY_TOKENS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    FA.reset_launches()
+    t = time.perf_counter()
+    pre = make_prefill_step(cfg)(params, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = FA.launches["flash_attention"]
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, 1, PARITY_TOKENS)
+    errs = torch.empty(PARITY_TOKENS, device="cuda")
+    t = time.perf_counter()
+    for i in range(PARITY_TOKENS):
+        logits, cache = step(params, cache, toks[:, i], i)
+        errs[i] = (logits[0] - pre[i]).abs().max()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    err = float(errs.max())
+    out = {"phase": "model_parity", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype, "tokens": PARITY_TOKENS,
+           "flash_attention_launches": launches,
+           "max_abs_logit_diff": err,
+           "max_abs_logit_diff_past_window": float(
+               errs[base.sliding_window:].max()),
+           "tol": PREFILL_DECODE_TOL, "prefill_s": prefill_s,
+           "decode_s_per_token": decode_s / PARITY_TOKENS}
+    if launches != cfg.n_layers:
+        raise AssertionError(f"parity prefill launched flash_attention "
+                             f"{launches} times, expected {cfg.n_layers}")
+    if not err <= PREFILL_DECODE_TOL:
+        raise AssertionError(f"prefill and decode logits differ by {err} > "
+                             f"{PREFILL_DECODE_TOL}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def ptxas_lines(log: str):
+    """ptxas's registers, spills and shared memory for each kernel."""
+    return [ln.strip() for ln in log.splitlines()
+            if "Compiling entry" in ln or "spill" in ln or "Used" in ln]
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -395,17 +753,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from repro_torch.kernels.dvv_ops import dvv_ops
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import build_info
+    from repro_torch.kernels.dvv_ops import dvv_ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import count_params, init_params
+
+    # IEEE fp32 for every fp32 product, the plain versions' included
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     t = time.perf_counter()
-    dvv_ops.build()
+    builds = (dvv_ops.build, flash_attention.build)
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each, together
+        list(pool.map(lambda build: build(), builds))
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_seconds": time.perf_counter() - t,
-          "nvcc_log": str(dvv_ops.build_info.get("log", ""))[-1500:]})
+          "nvcc_seconds": {n: i["seconds"] for n, i in build_info.items()},
+          "ptxas": {n: ptxas_lines(str(i["log"]))
+                    for n, i in build_info.items()}})
 
-    rows = kernels_phase(args.seed)
+    rows = dvv_rows(args.seed) + flash_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)
@@ -413,26 +784,52 @@ def main() -> int:
     trace = trace_phase(PARITY_KEYS, args.seed)
     emit(trace)
 
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    model = model_phase(cfg, params, args.seed)
+    model.update(param_count=count_params(cfg), init_s=init_s)
+    emit(model)
+    emit(model_trace_phase(cfg, params, args.seed))
+    del params
+    torch.cuda.empty_cache()
+    emit(model_parity_phase(args.seed))
+
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
         "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
         "dvv_leq": "src/repro/kernels/dvv_ops/dvv_ops.py:140",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:93",
     }
     summary = []
     for r in rows:
-        if tuple(r["shape"]) != SUMMARY_SHAPE:
+        if r["name"] == "flash_attention":
+            if r["variant"] != "global":
+                continue
+            launches = model["flash_attention_launches"]
+            source = "src/repro_torch/kernels/flash_attention/csrc/" \
+                     "flash_attention.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": r["library"],
+                     "row_scaled_err": r["row_scaled_err"]}
+        elif tuple(r["shape"]) == SUMMARY_SHAPE:
+            launches = store["launches"][r["name"]]
+            source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
+            extra = {"main_path_device_us_per_launch":
+                     trace["kernels"][r["name"]]["device_us_per_launch"]}
+        else:
             continue
         summary.append({
-            "name": r["name"], "route": "cuda",
-            "source": "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu",
-            "replaces": replaces[r["name"]],
-            "launches": store["launches"][r["name"]],
+            "name": r["name"], "route": "cuda", "source": source,
+            "replaces": replaces[r["name"]], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "shape": r["shape"], "device_ms": r["device_ms"],
-            "main_path_device_us_per_launch":
-                trace["kernels"][r["name"]]["device_us_per_launch"]})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": r["shape"], "device_ms": r["device_ms"], **extra})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,9 +5,14 @@ launches the CUDA source under <name>/csrc/, <name>/ops.py holds the public
 functions (the kernel for CUDA tensors, the plain torch version for CPU
 tensors), and <name>/ref.py the plain torch versions:
 
-  * dvv_ops — batched dotted-version-vector dominance (the paper's clock
-              algebra, vectorized for anti-entropy and quorum reads)
-"""
-from . import dvv_ops
+  * dvv_ops         — batched dotted-version-vector dominance (the paper's
+                      clock algebra, vectorized for anti-entropy and quorum
+                      reads)
+  * flash_attention — forward online-softmax attention with GQA, causal and
+                      sliding-window masks and a logit softcap (prefill)
 
-__all__ = ["dvv_ops"]
+``build.py`` compiles each package with ``nvcc`` at first use.
+"""
+from . import dvv_ops, flash_attention
+
+__all__ = ["dvv_ops", "flash_attention"]

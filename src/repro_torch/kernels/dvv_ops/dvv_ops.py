@@ -4,12 +4,10 @@ The kernels replace the Pallas TPU kernels of the JAX package's
 ``kernels/dvv_ops/dvv_ops.py``; the source note at the top of the ``.cu``
 file says which one each replaces and what bounds it on an H100.
 
-Build: at first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``
-into a shared library with a plain C interface, under
-``build/repro_torch/dvv_ops-<hash>/`` at the repository root, keyed by a
-hash of the sources and flags.  The library is loaded with ``ctypes``:
-each pointer and the stream cross as ``c_void_p``.  There is no fallback:
-without ``nvcc`` the build raises.
+Build: at first use, ``kernels/build.py`` compiles every ``csrc/*.cu``
+for ``sm_90a`` into ``build/repro_torch/dvv_ops-<hash>/`` and the library
+is loaded with ``ctypes``: each pointer and the stream cross as
+``c_void_p``.  There is no fallback: without ``nvcc`` the build raises.
 
 Launch: each wrapper checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty``, launches on PyTorch's current stream
@@ -20,21 +18,15 @@ uint8 bytes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import build as _build
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 THREADS = 256              # kThreads in the .cu source
 MAX_SHARED = 48 * 1024     # static-launch shared-memory limit per block
 
@@ -44,8 +36,6 @@ launches: Dict[str, int] = {"dvv_sync_mask": 0, "dvv_read_sweep": 0,
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
-#: What the last build did: library path, seconds, compiler output.
-build_info: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -53,41 +43,9 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the dvv_ops CUDA kernels are built "
-                       "from csrc/ at first use and need the CUDA toolkit")
-
-
 def build() -> Path:
     """Compile ``csrc/*.cu`` (once per source hash) and return the library."""
-    sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    out_dir = BUILD_ROOT / f"dvv_ops-{digest.hexdigest()[:16]}"
-    lib = out_dir / "libdvv_ops.so"
-    if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, log="(cached)")
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdvv_ops.{os.getpid()}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(path=str(lib), seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
-    return lib
+    return _build.build("dvv_ops", CSRC)
 
 
 def _load() -> ctypes.CDLL:

@@ -1,0 +1,122 @@
+"""Build and launch the hand-written CUDA kernel of
+``csrc/flash_attention.cu``.
+
+The kernel replaces the Pallas TPU kernel ``flash_attention`` of the JAX
+package's ``kernels/flash_attention/flash_attention.py`` (and the KV-head
+``repeat`` of its ``ops.py``); the source note at the top of the ``.cu``
+file says what bounds it on an H100 and what its design does about that.
+
+Build: at first use, ``kernels/build.py`` compiles ``csrc/*.cu`` for
+``sm_90a`` into ``build/repro_torch/flash_attention-<hash>/`` and the
+library is loaded with ``ctypes``.  There is no fallback: without ``nvcc``
+the build raises.
+
+Launch: ``attend`` checks device, dtype, shape and layout, allocates the
+output with ``torch.empty``, launches on PyTorch's current stream without
+synchronising, raises if the C entry point reports a CUDA error, and adds
+one to ``launches["flash_attention"]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from .. import build as _build
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+HEAD_DIMS = (64, 128, 256)       # the kernel's template instances
+DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+
+#: Launches of the kernel since the last ``reset_launches``.
+launches: Dict[str, int] = {"flash_attention": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    launches["flash_attention"] = 0
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` (once per source hash) and return the library."""
+    return _build.build("flash_attention", CSRC)
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.flash_attention_launch.argtypes = [
+                p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p]
+            lib.flash_attention_launch.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype,
+                  device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dimension")
+    vec = 16 // t.element_size()            # bf16 tiles load 16-byte vectors
+    if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+        raise ValueError(f"{name} must be 16-byte aligned with strides that "
+                         f"are multiples of {vec} elements")
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: int = 0, softcap: float = 0.0,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on the card.  q [B,Sq,H,D]; k, v [B,Sk,KV,D] with
+    H % KV == 0 (any strides with D contiguous) -> [B,Sq,H,D] in q's dtype.
+    Query head h reads KV head h // (H // KV); positions count from 0."""
+    if q.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, S, H, D], got {tuple(q.shape)}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes {list(DTYPES)}, "
+                        f"got {q.dtype}")
+    B, Sq, H, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k must be [{B}, Sk, KV, {D}], got "
+                         f"{tuple(k.shape)}")
+    Sk, KV = k.shape[1], k.shape[2]
+    if tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"v has shape {tuple(v.shape)}, expected "
+                         f"{tuple(k.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t, q.dtype, q.device)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or Sk == 0:
+        return out.zero_()
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                    *v.stride()[:3], *out.stride()[:3])
+    lib = _load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, Sq, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
+            float(scale or D ** -0.5), float(softcap), int(bool(causal)),
+            int(window), DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with CUDA "
+                           f"error {err}")
+    launches["flash_attention"] += 1
+    return out

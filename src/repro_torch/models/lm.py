@@ -1,0 +1,309 @@
+"""Language-model assembly: embedding → block groups → head (dense path).
+
+Parameters are nested dicts with the JAX package's names; per-group block
+parameters are *stacked* along a leading ``n_groups`` axis, as the JAX
+package's ``init_params`` builds them.  Where the JAX package runs
+``lax.scan`` over the stack, the port loops over the groups in Python and
+indexes ``[g]`` of each stacked tensor.  Heterogeneous patterns (gemma-2's
+local/global alternation) are unrolled inside each group.
+
+Three entry points per config:
+  * ``forward(params, batch, cfg)``          — logits for training/prefill
+  * ``loss_fn(params, batch, cfg)``          — mean CE
+  * ``decode_step(params, cache, tok, pos, cfg)`` — one-token serve step
+
+Only the dense path is ported: a "mamba" mixer or a "moe" FFN raises
+``NotImplementedError`` (ROADMAP Queue 1 item 6).  The JAX package's
+activation-sharding constraints are no-ops off a mesh and are left out
+until the mesh slice (ROADMAP Queue 1 item 8).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from .attention import (
+    AttnSpec, attention, decode_attention, init_attn_params, init_kv_cache,
+)
+from .config import LayerSpec, ModelConfig
+from .layers import ACTIVATIONS, cross_entropy, rms_norm, softcap
+
+_UNPORTED = {"mamba": "the SSM mixer (ROADMAP Queue 1 item 6, with "
+                      "ssd_scan in Queue 2)",
+             "moe": "the MoE FFN (ROADMAP Queue 1 item 6)"}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for spec in cfg.pattern:
+        for kind in (spec.mixer, spec.ffn):
+            if kind in _UNPORTED:
+                raise NotImplementedError(
+                    f"{cfg.name}: {_UNPORTED[kind]} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Specs
+# ---------------------------------------------------------------------------
+
+def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
+    sliding = cfg.sliding_window if spec.mixer in ("attn_local",) else 0
+    if spec.mixer == "attn" and cfg.sliding_window and not cfg.has_ssm:
+        # archs whose only attention is sliding (none assigned currently)
+        sliding = cfg.sliding_window
+    return AttnSpec(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+        qk_norm=cfg.qk_norm, attn_softcap=cfg.attn_softcap,
+        sliding_window=sliding, causal=cfg.causal, mrope=cfg.mrope)
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+def _init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype, *,
+              lead: Tuple[int, ...] = (), device=None) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+
+    def normal(shape, s):
+        return torch.randn(lead + shape, generator=gen, device=device,
+                           dtype=torch.float32).mul_(s).to(dtype)
+
+    return {"w_gate": normal((d, f), d ** -0.5),
+            "w_up": normal((d, f), d ** -0.5),
+            "w_down": normal((f, d), f ** -0.5)}
+
+
+def _init_group(gen: torch.Generator, cfg: ModelConfig, *,
+                lead: Tuple[int, ...] = (), device=None) -> Dict:
+    """Parameters for the pattern applied once, each with the ``lead``
+    stacking axes in front."""
+    _check_ported(cfg)
+    dtype = _dtype(cfg.param_dtype)
+    out: Dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        layer: Dict[str, Any] = {"pre_norm": torch.ones(
+            lead + (cfg.d_model,), dtype=dtype, device=device)}
+        if spec.mixer.startswith("attn"):
+            layer["attn"] = init_attn_params(
+                gen, cfg.d_model, attn_spec(cfg, spec), dtype, lead=lead,
+                device=device)
+        if spec.ffn == "mlp":
+            layer["ffn_norm"] = torch.ones(lead + (cfg.d_model,),
+                                           dtype=dtype, device=device)
+            layer["mlp"] = _init_mlp(gen, cfg, dtype, lead=lead,
+                                     device=device)
+        out[f"layer{i}"] = layer
+    return out
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device="cuda") -> Dict:
+    """Random parameters with the JAX package's shapes, scales and dtypes,
+    drawn from ``gen`` (whose device must be ``device``).  The numbers
+    differ from JAX's for the same seed."""
+    device = _device(device)
+    dtype = _dtype(cfg.param_dtype)
+    params: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = torch.randn(
+            (cfg.vocab_size, cfg.d_model), generator=gen, device=device,
+            dtype=torch.float32).mul_(0.02).to(dtype)
+    params["blocks"] = _init_group(gen, cfg, lead=(cfg.n_groups,),
+                                   device=device)
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                      device=device)
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
+        params["unembed"] = torch.randn(
+            (cfg.d_model, cfg.vocab_size), generator=gen, device=device,
+            dtype=torch.float32).mul_(cfg.d_model ** -0.5).to(dtype)
+    return params
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device="cuda") -> Dict:
+    """The JAX package's parameters (a nested dict of numpy arrays, stacked
+    over groups as its ``init_params`` builds them) as the port's: the same
+    names, shapes and dtypes, on ``device``."""
+    _check_ported(cfg)
+    device = _device(device)
+
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node)).to(device)
+
+    return convert(tree)
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from the shapes ``init_params`` builds (no
+    allocation).  MoE layers are not ported, so ``active_only`` equals the
+    total."""
+    _check_ported(cfg)
+    total = cfg.d_model                                   # final_norm
+    if cfg.input_mode == "tokens":
+        total += cfg.vocab_size * cfg.d_model
+    if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
+        total += cfg.d_model * cfg.vocab_size
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_group = 0
+    for spec in cfg.pattern:
+        per_group += cfg.d_model                          # pre_norm
+        if spec.mixer.startswith("attn"):
+            per_group += cfg.d_model * (2 * H + 2 * KV) * Dh
+            if cfg.qk_norm:
+                per_group += 2 * Dh
+        if spec.ffn == "mlp":
+            per_group += cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+    return total + cfg.n_groups * per_group
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model's device is 'cuda' but there is no "
+                           "CUDA device; pass device='cpu' to run on the "
+                           "CPU")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+def _mlp(layer: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = ACTIVATIONS[cfg.act]
+    h = act(torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(x.dtype)),
+            torch.einsum("bsd,df->bsf", x, layer["w_up"].to(x.dtype)))
+    return torch.einsum("bsf,fd->bsd", h, layer["w_down"].to(x.dtype))
+
+
+def _index(tree, g: int):
+    """Group ``g`` of a stacked parameter or cache tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
+                 positions) -> torch.Tensor:
+    """Apply the pattern once (every mixer is attention: the entry points
+    refuse the unported ones)."""
+    for i, spec in enumerate(cfg.pattern):
+        layer = group_params[f"layer{i}"]
+        h = rms_norm(x, layer["pre_norm"],
+                     zero_centered=cfg.zero_centered_norm)
+        x = x + attention(layer["attn"], h, attn_spec(cfg, spec),
+                          positions=positions)
+        if spec.ffn == "mlp":
+            h = rms_norm(x, layer["ffn_norm"],
+                         zero_centered=cfg.zero_centered_norm)
+            x = x + _mlp(layer["mlp"], h, cfg)
+    return x
+
+
+def _embed(params: Dict, inputs: torch.Tensor, cfg: ModelConfig,
+           compute: torch.dtype) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        x = params["embed"][inputs.long()].to(compute)
+    else:
+        x = inputs.to(compute)
+    if cfg.embed_scale:
+        # the scale rounds to the compute dtype first (bf16: 59.87 -> 59.75)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute,
+                             device=x.device)
+    return x
+
+
+def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], zero_centered=cfg.zero_centered_norm)
+    if cfg.tie_embeddings and cfg.input_mode == "tokens":
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              params["unembed"].to(x.dtype))
+    logits = logits.float()          # rebinding frees the compute-dtype copy
+    return softcap(logits, cfg.final_softcap)
+
+
+def forward(params: Dict, batch: Dict, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S,V] fp32, aux_loss scalar).
+
+    batch: {"tokens": [B,S] int} or {"embeddings": [B,S,d]};
+    optional {"positions": [B,S] or [3,B,S] for mrope}.
+    """
+    _check_ported(cfg)
+    compute = _dtype(cfg.compute_dtype)
+    inputs = batch["tokens"] if cfg.input_mode == "tokens" \
+        else batch["embeddings"]
+    x = _embed(params, inputs, cfg, compute)
+    positions = batch.get("positions")
+    for g in range(cfg.n_groups):
+        x = _apply_group(cfg, _index(params["blocks"], g), x, positions)
+    logits = _head(params, x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict]:
+    logits, aux = forward(params, batch, cfg)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode with caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Dict:
+    """Nested cache: one stacked entry per layer kind per group."""
+    _check_ported(cfg)
+    device = _device(device)
+    dtype = _dtype(cfg.compute_dtype)
+    return {f"layer{i}": init_kv_cache(batch, max_len, attn_spec(cfg, spec),
+                                       dtype, lead=(cfg.n_groups,),
+                                       device=device)
+            for i, spec in enumerate(cfg.pattern)
+            if spec.mixer.startswith("attn")}
+
+
+def _decode_group(cfg: ModelConfig, group_params: Dict, group_cache: Dict,
+                  x: torch.Tensor, pos: int) -> torch.Tensor:
+    for i, spec in enumerate(cfg.pattern):
+        layer = group_params[f"layer{i}"]
+        h = rms_norm(x, layer["pre_norm"],
+                     zero_centered=cfg.zero_centered_norm)
+        mix, _ = decode_attention(layer["attn"], h, group_cache[f"layer{i}"],
+                                  pos, attn_spec(cfg, spec))
+        x = x + mix
+        if spec.ffn == "mlp":
+            h = rms_norm(x, layer["ffn_norm"],
+                         zero_centered=cfg.zero_centered_norm)
+            x = x + _mlp(layer["mlp"], h, cfg)
+    return x
+
+
+def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos: int,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """One serve step. tokens [B] int (or embeddings [B,d]); pos int.
+    Returns (logits [B,V] fp32, cache): the cache is updated in place (see
+    ``attention.decode_attention``) and returned."""
+    _check_ported(cfg)
+    compute = _dtype(cfg.compute_dtype)
+    inputs = tokens if cfg.input_mode == "tokens" else tokens[:, None, :]
+    x = _embed(params, inputs, cfg, compute)
+    if cfg.input_mode == "tokens":
+        x = x[:, None, :]
+    for g in range(cfg.n_groups):
+        x = _decode_group(cfg, _index(params["blocks"], g),
+                          _index(cache, g), x, pos)
+    return _head(params, x, cfg)[:, 0], cache

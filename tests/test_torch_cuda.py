@@ -1,12 +1,14 @@
-"""The hand-written dvv_ops CUDA kernels against their plain torch versions,
-on the card.  Imports neither jax nor the JAX package, so it runs on a
-machine that has only the port:
+"""The hand-written CUDA kernels (dvv_ops, flash_attention) against their
+plain torch versions, on the card.  Imports neither jax nor the JAX
+package, so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m torch tests/test_torch_cuda.py
 
 Every test needs a CUDA device (the kernels have no CPU mode) and skips
 without one.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,10 @@ import torch
 from repro_torch.core import DVV_MECHANISM
 from repro_torch.core import batched as TB
 from repro_torch.kernels.dvv_ops import ops, ref
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels.flash_attention.ref import (
+    BF16_ROW_TOL, flash_attention_ref, row_scaled_err,
+)
 from repro_torch.store import KVClient, KVCluster
 
 pytestmark = pytest.mark.torch
@@ -102,3 +108,123 @@ def test_cluster_on_the_card_launches_the_kernels(cuda):
     assert all(got[k].values == (k,) for k in keys)
     assert ops.launches["dvv_sync_mask"] > 0
     assert ops.launches["dvv_read_sweep"] > 0
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_MODES = {
+    "causal": dict(causal=True, window=0, softcap=0.0),
+    "window": dict(causal=True, window=100, softcap=0.0),
+    "bidir": dict(causal=False, window=0, softcap=0.0),
+    "softcap": dict(causal=True, window=0, softcap=50.0),
+    "window_softcap": dict(causal=True, window=100, softcap=50.0),
+}
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _assert_flash_close(got, want):
+    """Within FLASH_TOL absolute; bf16 also within BF16_ROW_TOL of each
+    output row's RMS, which shrinks as a row averages more keys."""
+    assert float((got.float() - want.float()).abs().max()) \
+        < FLASH_TOL[got.dtype]
+    if got.dtype == torch.bfloat16:
+        assert row_scaled_err(got, want) < BF16_ROW_TOL
+
+
+def _qkv(B, S, H, KV, D, dtype, device, seed=0):
+    rng = np.random.default_rng([seed, S, H, KV, D])
+    return [torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(
+        np.float32)).to(device=device, dtype=dtype) for h in (H, KV, KV)]
+
+
+@pytest.fixture
+def ieee_fp32():
+    """The plain version's fp32 matmuls must not run in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(16, 8), (4, 1)])
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+def test_flash_kernel_equals_plain_version(cuda, ieee_fp32, dtype, D, heads,
+                                           mode):
+    """S = 320: five 64-row q tiles; window 100 leaves KV tiles that are
+    dead for some rows of a live q tile."""
+    q, k, v = _qkv(2, 320, *heads, D, dtype, cuda)
+    FA.reset_launches()
+    got = FA.gqa_flash_attention(q, k, v, **FLASH_MODES[mode])
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **FLASH_MODES[mode])
+    assert FA.launches == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 100, 129])
+def test_flash_kernel_ragged_lengths(cuda, ieee_fp32, dtype, S):
+    q, k, v = _qkv(1, S, 4, 2, 128, dtype, cuda, seed=1)
+    for mode in ("causal", "bidir", "window_softcap"):
+        got = FA.gqa_flash_attention(q, k, v, **FLASH_MODES[mode])
+        want = flash_attention_ref(q, k, v, **FLASH_MODES[mode])
+        _assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_jax_layout_and_scale(cuda, ieee_fp32, dtype):
+    """[B,H,S,D] tensors with KV pre-expanded, as the JAX kernel takes
+    them, seen as [B,S,H,D] views: the kernel takes the heads axis by
+    strides; an explicit scale, and 0.0 as the default."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(2, 192, 4, 4, 64, dtype, cuda, seed=2))
+    assert not q.is_contiguous()
+    for scale in (0.0, 0.3):
+        got = FA.gqa_flash_attention(q, k, v, causal=True, scale=scale)
+        want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True, scale=scale)
+        assert got.shape == q.shape
+        _assert_flash_close(got, want)
+
+
+def test_flash_wrapper_rejects_bad_inputs(cuda):
+    q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        FA.gqa_flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(q, k[:, :, :1].expand(1, 64, 3, 64), v)
+    with pytest.raises(ValueError):
+        FA.gqa_flash_attention(q, k.cpu(), v)
+
+
+def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32):
+    """gemma2-9b's smoke config with head_dim 64 (the kernel's smallest):
+    fp32 logits on the card equal the CPU run of the same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = replace(get_config("gemma2-9b").smoke(), head_dim=64,
+                  compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    prefill = make_prefill_step(cfg)
+    want = prefill(params, {"tokens": toks})
+    FA.reset_launches()
+    got = prefill(_to(params, cuda), {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,0 +1,158 @@
+"""The port's flash attention on the CPU (its plain torch version, which is
+what the front end runs for CPU tensors) against the JAX package's Pallas
+kernel in interpret mode and its ``mha_ref`` oracle, on the same numpy
+inputs: the sweep of ``tests/test_kernels.py`` (shapes, causal / window /
+bidir / softcap, fp32 at 1e-5 and bf16 at 2e-2, and bf16 also within
+``BF16_ROW_TOL`` of each row's RMS), the GQA wrapper, and a sliding window
+whose first KV tile is dead for some rows of a live q tile.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention import gqa_flash_attention as jax_gqa
+from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
+from repro_torch.kernels.flash_attention import (
+    gqa_flash_attention, launches, reset_launches,
+)
+from repro_torch.kernels.flash_attention import ref as TR
+from repro_torch.kernels.flash_attention.ref import (
+    BF16_ROW_TOL, row_scaled_err,
+)
+
+pytestmark = pytest.mark.torch
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+MODES = {"causal": dict(causal=True, window=0, softcap=0.0),
+         "bidir": dict(causal=False, window=0, softcap=0.0),
+         "softcap": dict(causal=True, window=0, softcap=30.0)}
+
+
+def _kw(mode, S):
+    if mode == "window":
+        return dict(causal=True, window=S // 4, softcap=0.0)
+    return MODES[mode]
+
+
+def _inputs(rng, shape, jdt, tdt):
+    """The same values in both frameworks: numpy, rounded once to the
+    dtype by JAX and carried over bit for bit."""
+    arrs = [jnp.asarray(rng.normal(size=shape), jdt) for _ in range(3)]
+    return arrs, [torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .to(tdt) for a in arrs]
+
+
+def _bhsd(q, k, v, **kw):
+    """The port's attention on the JAX kernel's [B,H,S,D] layout."""
+    return gqa_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def _f32(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t.astype(jnp.float32))
+
+
+def _assert_close(got, want, tol):
+    """Within ``tol`` absolute; a bf16 result also within BF16_ROW_TOL of
+    each output row's RMS."""
+    assert np.abs(_f32(got) - _f32(want)).max() < tol
+    if got.dtype == torch.bfloat16:
+        assert row_scaled_err(got, torch.tensor(_f32(want))) \
+            < BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 2, 128, 64), (2, 4, 256, 64),
+                                   (1, 2, 256, 128)])
+@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
+def test_plain_version_matches_pallas_kernel_and_oracle(dtype, shape, mode):
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng([shape[2], shape[3], len(mode)])
+    (jq, jk, jv), (q, k, v) = _inputs(rng, shape, jdt, tdt)
+    kw = _kw(mode, shape[2])
+    got = _bhsd(q, k, v, block_q=64, block_k=64, **kw)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    pallas = jax_flash(jq, jk, jv, block_q=64, block_k=64, **kw)
+    oracle = jax_mha_ref(jq.astype(jnp.float32), jk.astype(jnp.float32),
+                         jv.astype(jnp.float32), **kw)
+    _assert_close(got, pallas, tol)
+    _assert_close(got, oracle, tol)
+
+
+@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
+def test_mha_ref_twin(mode):
+    rng = np.random.default_rng(3)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, (2, 2, 64, 32), jnp.float32,
+                                      torch.float32)
+    kw = _kw(mode, 64)
+    np.testing.assert_allclose(TR.mha_ref(q, k, v, **kw).numpy(),
+                               np.asarray(jax_mha_ref(jq, jk, jv, **kw)),
+                               atol=1e-6)
+
+
+def test_gqa_wrapper_matches_jax():
+    rng = np.random.default_rng(11)
+    Bn, S, H, KV, D = 2, 128, 8, 2, 64
+    jq = jnp.asarray(rng.normal(size=(Bn, S, H, D)), jnp.float32)
+    jk = jnp.asarray(rng.normal(size=(Bn, S, KV, D)), jnp.float32)
+    jv = jnp.asarray(rng.normal(size=(Bn, S, KV, D)), jnp.float32)
+    q, k, v = (torch.from_numpy(np.array(a)) for a in (jq, jk, jv))
+    got = gqa_flash_attention(q, k, v, block_q=64, block_k=64)
+    want = jax_gqa(jq, jk, jv, block_q=64, block_k=64)
+    assert np.abs(got.numpy() - np.asarray(want)).max() < 1e-5
+    # and against the oracle on KV expanded by repeat, as the JAX test does
+    kx = jnp.repeat(jk.transpose(0, 2, 1, 3), H // KV, axis=1)
+    vx = jnp.repeat(jv.transpose(0, 2, 1, 3), H // KV, axis=1)
+    ref = jax_mha_ref(jq.transpose(0, 2, 1, 3), kx, vx, causal=True)
+    assert np.abs(got.numpy().transpose(0, 2, 1, 3)
+                  - np.asarray(ref)).max() < 1e-5
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_window_with_a_dead_kv_tile_inside_a_live_q_tile(dtype):
+    """Window 40 with 64-row tiles: KV tile 0 is live for q tile 1 (row 64
+    sees keys 25..64) but dead for its rows 104..127, which see garbage
+    p = exp(0) there until tile 1 wipes it with corr = 0."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(40)
+    shape = (1, 2, 256, 64)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, shape, jdt, tdt)
+    kw = dict(causal=True, window=40, softcap=50.0)
+    got = _bhsd(q, k, v, **kw)
+    pallas = jax_flash(jq, jk, jv, block_q=64, block_k=64, **kw)
+    oracle = jax_mha_ref(jq.astype(jnp.float32), jk.astype(jnp.float32),
+                         jv.astype(jnp.float32), **kw)
+    assert np.isfinite(_f32(got)).all()
+    _assert_close(got, pallas, tol)
+    _assert_close(got, oracle, tol)
+
+
+def test_plain_version_equals_the_model_paths():
+    """Three-way agreement, as in the JAX package: flash == the model's
+    chunked == naive attention, all of the port."""
+    from repro_torch.models.attention import (
+        AttnSpec, _attend_chunked, _attend_naive, _group_q,
+    )
+    rng = np.random.default_rng(5)
+    Bn, S, H, KV, D = 2, 128, 4, 2, 64
+    spec = AttnSpec(n_heads=H, n_kv_heads=KV, head_dim=D)
+    q = torch.from_numpy(rng.normal(size=(Bn, S, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(Bn, S, KV, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(Bn, S, KV, D)).astype(np.float32))
+    pos = torch.arange(S, dtype=torch.int32)
+    naive = _attend_naive(_group_q(q, KV), k, v, pos, pos, spec)
+    chunked = _attend_chunked(_group_q(q, KV), k, v, pos, pos, spec, 32)
+    flash = gqa_flash_attention(q, k, v).reshape(naive.shape)
+    assert (naive - chunked).abs().max() < 1e-5
+    assert (naive - flash).abs().max() < 1e-5
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    reset_launches()
+    q = torch.zeros((1, 64, 4, 64))
+    gqa_flash_attention(q, q[:, :, :2], q[:, :, :2])
+    assert launches == {"flash_attention": 0}

@@ -38,7 +38,10 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                          capture_output=True, text=True, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.store.cluster" in got["modules"]
-    assert "repro_torch.kernels.dvv_ops.dvv_ops" in got["modules"]
+    for name in ("repro_torch.kernels.dvv_ops.dvv_ops",
+                 "repro_torch.kernels.flash_attention.flash_attention",
+                 "repro_torch.models.lm", "repro_torch.launch.serve"):
+        assert name in got["modules"]
     assert got["leaked"] == []
     assert got["cuda_initialized"] is False
 
@@ -54,6 +57,33 @@ def test_default_device_cluster_needs_a_card():
             KVCluster(("a", "b"), DVV_MECHANISM)
     assert KVCluster(("a", "b"), DVV_MECHANISM,
                      device="cpu").device.type == "cpu"
+
+
+def test_default_device_model_needs_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+
+    cfg = get_config("gemma2-9b").smoke()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init_cache(cfg, 1, 8)
+    assert init_cache(cfg, 1, 8, device="cpu")["layer0"]["k"].device.type \
+        == "cpu"
+
+
+def test_cpu_prefill_never_launches_a_kernel():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config("gemma2-9b").smoke()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    flash_attention.reset_launches()
+    logits = make_prefill_step(cfg)(
+        params, {"tokens": torch.zeros((1, 32), dtype=torch.int32)})
+    assert logits.shape == (1, 32, cfg.vocab_size)
+    assert flash_attention.launches == {"flash_attention": 0}
 
 
 def test_cpu_cluster_never_launches_a_kernel():

@@ -1,0 +1,312 @@
+"""The port's dense LM serving path on the CPU against the JAX package, on
+the same numpy inputs and the same parameters (the JAX package's, carried
+over by ``params_from_numpy``):
+
+  * ``layers``: RMSNorm (both conventions), softcap, GeGLU / SwiGLU, RoPE,
+    M-RoPE, cross entropy;
+  * ``attention`` against JAX ``attention(use_pallas=True)`` and
+    ``(use_pallas=False)``, and ``decode_attention``;
+  * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b and
+    gemma-2b against JAX ``forward(use_pallas=True)``: <= 1e-4 in fp32,
+    <= 0.05 in bf16 (the bound of ``tests/test_kernels.py:224``);
+  * 8 ``decode_step``s, logits and cache;
+  * the two ``BatchScheduler``s side by side: identical tokens and
+    identical session values in the two stores;
+  * prefill against token-by-token decode, the CPU twin of
+    ``chip_smoke.py``'s ``model_parity`` phase, which sets its tolerance.
+"""
+import importlib
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as JC
+from repro.models import layers as JL
+from repro.models import lm as JM
+from repro_torch import configs as TC
+from repro_torch.models import layers as TL
+from repro_torch.models import lm as TM
+
+# the packages' ``attention`` functions shadow their modules' names
+JA = importlib.import_module("repro.models.attention")
+TA = importlib.import_module("repro_torch.models.attention")
+
+pytestmark = pytest.mark.torch
+
+DENSE = ("gemma2-9b", "granite-8b", "gemma-2b")
+#: prefill vs token-by-token decode, fp32 logits (final softcap 30 bounds
+#: them to +-30): the bound ``chip_smoke.py``'s model_parity phase holds at
+#: full width.  At smoke size the two agree far inside it.
+PREFILL_DECODE_TOL = 2e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def _cfgs(arch, compute="float32", **kw):
+    jc = replace(JC.get_config(arch).smoke(), compute_dtype=compute, **kw)
+    tc = replace(TC.get_config(arch).smoke(), compute_dtype=compute, **kw)
+    return jc, tc
+
+
+def _params(jc, tc, seed=0):
+    jp = JM.init_params(jax.random.key(seed), jc)
+    return jp, TM.params_from_numpy(jax.tree.map(np.asarray, jp), tc,
+                                    device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def _layer_case(name, rng):
+    x = rng.normal(size=(2, 8, 4, 16)).astype(np.float32)
+    w = rng.normal(size=(16,)).astype(np.float32) * 0.1
+    pos = rng.integers(0, 50, size=(2, 8)).astype(np.int32)
+    cases = {
+        "rms_norm": lambda L, T: L.rms_norm(T(x), T(w)),
+        "rms_norm_zero_centered": lambda L, T: L.rms_norm(
+            T(x), T(w), zero_centered=True),
+        "softcap": lambda L, T: L.softcap(T(x * 40), 30.0),
+        "geglu": lambda L, T: L.geglu(T(x), T(x[::-1].copy())),
+        "swiglu": lambda L, T: L.swiglu(T(x), T(x[::-1].copy())),
+        "rope_freqs": lambda L, T: L.rope_freqs(16, 10000.0),
+        "rope": lambda L, T: L.apply_rope(T(x), T(pos), theta=1e4),
+        "mrope": lambda L, T: L.apply_mrope(
+            T(x), T(np.stack([pos, pos * 2, pos + 3])), theta=1e6),
+        "cross_entropy": lambda L, T: L.cross_entropy(
+            T(x.reshape(16, 64)), T(pos.reshape(16))),
+        "cross_entropy_masked": lambda L, T: L.cross_entropy(
+            T(x.reshape(16, 64)), T(pos.reshape(16)),
+            T((pos.reshape(16) % 3 > 0).astype(np.float32))),
+    }
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", [
+    "rms_norm", "rms_norm_zero_centered", "softcap", "geglu", "swiglu",
+    "rope_freqs", "rope", "mrope", "cross_entropy", "cross_entropy_masked"])
+def test_layers_match_jax(name):
+    case = _layer_case(name, np.random.default_rng(len(name)))
+    got = case(TL, _t)
+    want = case(JL, jnp.asarray)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+def test_embed_scale_rounds_in_bf16_as_jax():
+    """sqrt(3584) = 59.866 rounds to the bf16 grid (step 0.25) first."""
+    s = TM._embed({"embed": torch.ones(4, 3584)}, torch.tensor([1]),
+                  TC.get_config("gemma2-9b"), torch.bfloat16)
+    assert float(s[0, 0]) == float(jnp.asarray(3584 ** 0.5, jnp.bfloat16)) \
+        == 59.75
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+SPECS = {
+    "gqa_causal": dict(n_heads=4, n_kv_heads=2, head_dim=16),
+    "window_softcap": dict(n_heads=4, n_kv_heads=2, head_dim=16,
+                           sliding_window=12, attn_softcap=50.0),
+    "mqa_qk_norm": dict(n_heads=4, n_kv_heads=1, head_dim=16, qk_norm=True),
+    "bidir": dict(n_heads=4, n_kv_heads=4, head_dim=16, causal=False),
+    "mrope": dict(n_heads=4, n_kv_heads=2, head_dim=16, mrope=True,
+                  rope_theta=1e6),
+}
+
+
+def _attn_inputs(name, seed=0):
+    spec_kw = SPECS[name]
+    jspec, tspec = JA.AttnSpec(**spec_kw), TA.AttnSpec(**spec_kw)
+    jp = JA.init_attn_params(jax.random.key(seed), 32, jspec, jnp.float32)
+    tp = {k: _t(v) for k, v in jp.items()}
+    x = np.random.default_rng(seed).normal(size=(2, 32, 32)).astype(
+        np.float32)
+    return jspec, tspec, jp, tp, x
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_attention_matches_jax(name, use_pallas):
+    jspec, tspec, jp, tp, x = _attn_inputs(name)
+    want = JA.attention(jp, jnp.asarray(x), jspec, use_pallas=use_pallas)
+    got = TA.attention(tp, _t(x), tspec)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(SPECS)[:3])
+def test_decode_attention_matches_jax(name):
+    jspec, tspec, jp, tp, x = _attn_inputs(name, seed=2)
+    rng = np.random.default_rng(9)
+    cache = {k: rng.normal(size=(2, 24, jspec.n_kv_heads, 16)).astype(
+        np.float32) for k in ("k", "v")}
+    for pos in (0, 5, 23):
+        xs = x[:, pos:pos + 1]
+        jout, jcache = JA.decode_attention(
+            jp, jnp.asarray(xs), {k: jnp.asarray(v) for k, v in
+                                  cache.items()},
+            jnp.asarray(pos, jnp.int32), jspec)
+        tcache = {k: _t(v) for k, v in cache.items()}
+        tout, tcache = TA.decode_attention(tp, _t(xs), tcache, pos, tspec)
+        np.testing.assert_allclose(_np(tout), _np(jout), atol=1e-5,
+                                   rtol=1e-5)
+        for k in cache:
+            np.testing.assert_allclose(_np(tcache[k]), _np(jcache[k]),
+                                       atol=1e-6)
+        cache = {k: np.array(v) for k, v in jcache.items()}
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_count_params_from_shapes_matches_jax(arch):
+    jc, tc = JC.get_config(arch), TC.get_config(arch)
+    assert TM.count_params(tc) == JM.count_params(jc)
+    assert TM.count_params(tc.smoke()) == JM.count_params(jc.smoke())
+    if arch == "gemma2-9b":
+        assert TM.count_params(tc) == 9_241_404_928
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "qwen3-moe-30b-a3b", "mamba2-780m"])
+def test_unported_mixers_raise_naming_the_roadmap(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.init_params(torch.Generator().manual_seed(0),
+                       TC.get_config(arch).smoke(), device="cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_params_has_the_jax_shapes_and_dtypes(arch):
+    jc, tc = JC.get_config(arch).smoke(), TC.get_config(arch).smoke()
+    want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
+                        JM.param_specs(jc))
+    got = TM.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
+    flat = jax.tree.map(lambda t: (tuple(t.shape),
+                                   str(t.dtype).replace("torch.", "")), got)
+    assert flat == want
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("compute,tol", [("float32", 1e-4),
+                                         ("bfloat16", 0.05)])
+def test_forward_matches_jax_pallas_path(arch, compute, tol):
+    jc, tc = _cfgs(arch, compute)
+    jp, tp = _params(jc, tc)
+    toks = np.random.default_rng(0).integers(0, jc.vocab_size, (2, 32))
+    want, _ = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                         replace(jc, use_pallas=True))
+    got, aux = TM.forward(tp, {"tokens": _t(toks.astype(np.int32))}, tc)
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert np.abs(_np(got) - _np(want)).max() <= tol
+
+
+def test_loss_fn_matches_jax():
+    jc, tc = _cfgs("granite-8b")
+    jp, tp = _params(jc, tc)
+    rng = np.random.default_rng(1)
+    toks, labels = (rng.integers(0, jc.vocab_size, (2, 16)).astype(np.int32)
+                    for _ in range(2))
+    want, _ = JM.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                              "labels": jnp.asarray(labels)}, jc)
+    got, _ = TM.loss_fn(tp, {"tokens": _t(toks), "labels": _t(labels)}, tc)
+    assert abs(float(got) - float(want)) < 1e-4
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_steps_match_jax(arch):
+    jc, tc = _cfgs(arch)
+    jp, tp = _params(jc, tc, seed=3)
+    B, max_len = 3, 24
+    jcache = JM.init_cache(jc, B, max_len)
+    tcache = TM.init_cache(tc, B, max_len, device="cpu")
+    rng = np.random.default_rng(4)
+    for pos in range(8):
+        toks = rng.integers(0, jc.vocab_size, (B,)).astype(np.int32)
+        jl, jcache = JM.decode_step(jp, jcache, jnp.asarray(toks),
+                                    jnp.asarray(pos, jnp.int32), jc)
+        tl, tcache = TM.decode_step(tp, tcache, _t(toks), pos, tc)
+        assert np.abs(_np(tl) - _np(jl)).max() < 1e-4
+    for layer in jcache:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(_np(tcache[layer][kv]),
+                                       _np(jcache[layer][kv]), atol=1e-5)
+
+
+def test_batch_schedulers_serve_identical_tokens_and_sessions():
+    import json
+
+    from repro.core import DVV_MECHANISM as JDVV
+    from repro.launch import serve as JS
+    from repro.store import KVCluster as JCluster, SimNetwork as JNet
+    from repro_torch.core import DVV_MECHANISM as TDVV
+    from repro_torch.launch import serve as TS
+    from repro_torch.store import KVCluster as TCluster, SimNetwork as TNet
+
+    jc, tc = _cfgs("gemma2-9b")
+    jp, tp = _params(jc, tc, seed=5)
+    jstore = JCluster(("srv1", "srv2"), JDVV, network=JNet(seed=0))
+    tstore = TCluster(("srv1", "srv2"), TDVV, network=TNet(seed=0),
+                      device="cpu")
+    jsched = JS.BatchScheduler(jc, jp, 4, 64, jstore, "srv1")
+    tsched = TS.BatchScheduler(tc, tp, 4, 64, tstore, "srv1")
+    jq = [JS.Request(rid=i, prompt_token=i * 7 % 256, max_tokens=16)
+          for i in range(8)]
+    tq = [TS.Request(rid=i, prompt_token=i * 7 % 256, max_tokens=16)
+          for i in range(8)]
+    steps = 0
+    while jq or any(jsched.slot_req):
+        jsched.admit(jq)
+        jsched.step()
+        steps += 1
+    assert TS.serve_requests(tsched, tq) == steps == 32
+    for i in range(8):
+        jr = jstore.get(f"session/{i}", via="srv1")
+        tr = tstore.get(f"session/{i}", via="srv1")
+        assert tr.values == jr.values
+        assert tr.context.to_bytes() == jr.context.to_bytes()
+        assert len(json.loads(tr.values[0])["tokens"]) == 16
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_matches_token_by_token_decode(arch):
+    """The CPU twin of chip_smoke.py's model_parity phase: fp32 prefill
+    logits at every position against the same tokens fed one by one
+    through decode_step, past the sliding window."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    _, tc = _cfgs(arch)
+    tp = TM.init_params(torch.Generator().manual_seed(6), tc, device="cpu")
+    S = 48                                   # window 16 at smoke size
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tc.vocab_size, (1, S)).astype(np.int32))
+    pre = make_prefill_step(tc)(tp, {"tokens": toks})[0]
+    step = make_decode_step(tc)
+    cache = TM.init_cache(tc, 1, S, device="cpu")
+    dec = torch.stack([step(tp, cache, toks[:, i], i)[0][0]
+                       for i in range(S)])
+    err = float((pre - dec).abs().max())
+    assert err < PREFILL_DECODE_TOL / 10, err
+
+
+def test_serve_main_on_the_cpu(capsys):
+    from repro_torch.launch import serve as TS
+
+    assert TS.main(["--store-workload"]) == 2
+    assert TS.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                    "--requests", "3", "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "served 3 requests in 4 decode steps" in out
+    assert "r2: 4 tokens" in out
