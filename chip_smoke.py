@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the DVV store and gemma2-9b serving) on one
-CUDA card.
+"""Drive the PyTorch port (the DVV store, gemma2-9b serving and
+mamba2-780m serving) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -10,7 +10,7 @@ exits non-zero:
   device   the card (nvidia-smi name and power limit), torch and CUDA
            versions, and the time to build the kernels with nvcc (one
            nvcc per kernel package, all started together), with ptxas's
-           registers and spills for the flash-attention kernel.
+           registers and spills for every kernel.
   kernels  each CUDA kernel against its plain torch version on the card,
            with kernel and plain times from CUDA events and the bound
            (bytes or operations) computed from the inputs.  dvv_ops: on
@@ -26,7 +26,13 @@ exits non-zero:
            yardstick the port never calls: FlexAttention (compiled, with
            the softcap as score_mod and a causal or sliding-window block
            mask) for the softcap rows, scaled_dot_product_attention for
-           the causal row.
+           the causal row.  ssd_scan: at mamba2-780m's widths (48 heads
+           of 64, state 128, chunk 256) on inputs drawn as
+           tests/test_kernels.py draws them, bf16 [1, 32768] and fp32
+           [1, 4096], and bf16 at the main path's [4, 32768]; y and
+           h_final to 5e-2 (bf16) or 1e-5 (fp32) of the largest value,
+           against the plain version run in fp32 on the upcast inputs.
+           No PyTorch call computes the SSD scan: no library yardstick.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -60,10 +66,25 @@ exits non-zero:
            4,096 window) against the same tokens fed one by one through
            decode_step, to PREFILL_DECODE_TOL (the CPU twin,
            tests/test_torch_models.py, holds the same bound).
+  ssm_model  mamba2-780m at full width and depth (48 layers, 780 M fp32
+           parameters from --seed, bf16 compute), after gemma2-9b's
+           parameters are freed: one warm-up and one timed prefill of
+           tokens [4, 32768], each launching ssd_scan exactly 48 times;
+           then the same 8 requests of 16 tokens through BatchScheduler,
+           sessions in a KVCluster on the card, all read back.
+  ssm_trace  as model_trace, for mamba2-780m at [4, 32768].
+  ssm_parity  mamba2-780m cut to 4 layers at full width, fp32 compute:
+           prefill logits of 1,024 tokens (four chunks) against
+           token-by-token decode (decode_ssm's recurrence), to
+           PREFILL_DECODE_TOL.
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
-time per call alone.
+time of one launch of the kernel alone, the mean over the launches the
+trace recorded ("device_launches_traced" of "device_reps").  The model
+phases report the peak device memory of the timed prefill itself, before
+the checks of its logits (isfinite builds temporaries as large as the
+logits), and of serving.
 
 The last lines are the per-kernel JSON summary, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
@@ -128,6 +149,21 @@ FLASH_ROWS = (
     ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5),
 )
 FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM = 16, 8, 256
+
+# mamba2-780m serving (src/repro_torch/configs/mamba2_780m.py)
+SSM_ARCH = "mamba2-780m"
+SSM_PREFILL = (4, 32768)      # cut from prefill_32k's [32, 32768]: its fp32
+                              # logits alone would be 211 GB (26.4 GB here)
+SSM_PARITY_LAYERS, SSM_PARITY_TOKENS = 4, 1024   # 4 chunks of 256
+# ssd_scan rows at mamba2-780m's widths: (variant, dtype, B, S, tol); the
+# error is max |y - y_ref| / max |y_ref| (and the same for h_final) against
+# the plain version run in fp32 on the upcast inputs (tests/test_kernels.py)
+SSD_ROWS = (
+    ("prefill_bf16", "bfloat16", 1, 32768, 5e-2),
+    ("fp32", "float32", 1, 4096, 1e-5),
+    ("main_path", "bfloat16", *SSM_PREFILL, 5e-2),
+)
+SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 256
 
 
 def emit(obj) -> None:
@@ -202,6 +238,22 @@ def device_ms(fn, reps: int):
     return busy_us / reps / 1e3 if busy_us else None
 
 
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """The device milliseconds of one launch of ``kernel`` (a substring of
+    its symbol), from ``reps`` calls of ``fn`` under the profiler after one
+    warm-up: the mean over the launches the trace recorded, which can be
+    fewer than ``reps`` (dividing the busy time by ``reps`` then reads
+    low).  Returns the row's ``device_ms`` and ``device_launches_traced``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    _, per, _ = device_profile(lambda: [fn() for _ in range(reps)])
+    hits = [(n, us) for key, (n, us) in per.items() if kernel in key]
+    n = sum(c for c, _ in hits)
+    return {"device_ms": sum(us for _, us in hits) / n / 1e3 if n else None,
+            "device_launches_traced": n, "device_reps": reps}
+
+
 def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -270,7 +322,7 @@ def dvv_rows(seed: int):
                          "max_abs_err": errs[name],
                          "ms": cuda_ms(kern, reps),
                          "plain_ms": cuda_ms(plain, plain_reps),
-                         "device_ms": device_ms(kern, reps),
+                         **kernel_device_ms(kern, reps, f"{name}_kernel"),
                          "plain_device_ms": device_ms(plain, plain_reps),
                          "bound_ms": b_ms, "bound_by": b_by,
                          "bytes": nbytes, "int32_ops": nops})
@@ -357,8 +409,9 @@ def flash_rows(seed: int):
                              10),
                "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
                                                                **kw), 3),
-               "device_ms": device_ms(
-                   lambda: FA.gqa_flash_attention(q, k, v, **kw), 10),
+               **kernel_device_ms(
+                   lambda: FA.gqa_flash_attention(q, k, v, **kw), 10,
+                   "flash_fwd_"),
                "bound_ms": b_ms, "bound_by": b_by, "live_pairs": pairs,
                "flops": 4 * H * D * pairs, "bytes": nbytes}
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -377,6 +430,79 @@ def flash_rows(seed: int):
         row["library_ms"] = cuda_ms(library, 10)
         rows.append(row)
         del q, k, v, qt, kt, vt, got, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_inputs(B: int, S: int, dtype, seed: int):
+    """tests/test_kernels.py's distribution, drawn on the card: x, B, C, D
+    ~ N(0, 1), dt in [0.01, 0.2], A in [-2, -0.5]; xh is the [B,S,H,P]
+    view of a [B,S,H*P] tensor, as ssm_forward passes it."""
+    import torch
+    H, P, N = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def uniform(lo, hi, *shape):
+        return (torch.rand(shape, generator=g, device="cuda")
+                * (hi - lo) + lo).to(dtype)
+
+    return (normal(B, S, H * P).view(B, S, H, P), uniform(0.01, 0.2, B, S, H),
+            -uniform(0.5, 2.0, H), normal(B, S, N), normal(B, S, N),
+            normal(H))
+
+
+def ssd_ops(B: int, S: int) -> int:
+    """c^2 N + c^2 P + 4 c P N per (batch, head, chunk): C.B^T and
+    scores.x on the lower triangle, C.h^T and the state update."""
+    c, P, N = SSD_CHUNK, SSD_HEAD_DIM, SSD_STATE
+    return B * SSD_HEADS * (S // c) * (c * c * N + c * c * P + 4 * c * P * N)
+
+
+def ssd_rows(seed: int):
+    """ssd_scan against its plain version at mamba2-780m's widths (48
+    heads of 64, state 128, chunk 256).  No single PyTorch call computes
+    the SSD scan, so there is no library yardstick."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    rows = []
+    for i, (variant, dtype, B, S, tol) in enumerate(SSD_ROWS):
+        args = ssd_inputs(B, S, getattr(torch, dtype), seed + i)
+        y, h = SS.ssd_scan(*args, chunk=SSD_CHUNK)
+        torch.cuda.synchronize()
+        want_y, want_h = ssd_chunked(*(a.float() for a in args), SSD_CHUNK)
+        err = {}
+        for key, got, want in (("y", y, want_y), ("h_final", h, want_h)):
+            err[key] = float((got.float() - want).abs().max()
+                             / want.abs().max())
+            err[f"max_abs_{key}"] = float(want.abs().max())
+        abs_err = float((y.float() - want_y).abs().max())
+        del want_y, want_h
+        torch.cuda.empty_cache()
+        if not (err["y"] < tol and err["h_final"] < tol):
+            raise AssertionError(f"ssd_scan {variant} disagrees with its "
+                                 f"plain version: {err} (tolerance {tol})")
+        elem = args[0].element_size()
+        nbytes = (2 * B * S * SSD_HEADS * SSD_HEAD_DIM + B * S * SSD_HEADS
+                  + 2 * B * S * SSD_STATE + 2 * SSD_HEADS) * elem \
+            + B * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE * 4
+        nops = ssd_ops(B, S)
+        b_ms, b_by = bound(nbytes, nops, FLOPS_PER_S[dtype])
+        kern = partial(SS.ssd_scan, *args, chunk=SSD_CHUNK)
+        plain = partial(ssd_chunked, *args, SSD_CHUNK)
+        rows.append({"name": "ssd_scan", "variant": variant,
+                     "shape": [B, S, SSD_HEADS, SSD_HEAD_DIM, SSD_STATE],
+                     "chunk": SSD_CHUNK, "dtype": dtype,
+                     "max_abs_err": abs_err, "rel_err": err, "tol": tol,
+                     "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
+                     **kernel_device_ms(kern, 5, "ssd_scan_kernel"),
+                     "bound_ms": b_ms, "bound_by": b_by, "flops": nops,
+                     "bytes": nbytes, "library": None, "library_ms": None})
+        del args, y, h, kern, plain
         torch.cuda.empty_cache()
     return rows
 
@@ -569,10 +695,12 @@ def requests(cfg, n: int, tokens: int, seed: int):
             for i, p in enumerate(prompts)]
 
 
-def model_phase(cfg, params, seed: int):
-    """Prefill and serve gemma2-9b on the card through the port's entry
+def model_phase(cfg, params, seed: int, *, phase="model",
+                tokens=(1, PREFILL_TOKENS), kernel=None):
+    """Prefill and serve ``cfg`` on the card through the port's entry
     points; the launch counters are zeroed just before each run and read
-    just after."""
+    just after.  ``kernel`` is the kernel package every layer's prefill
+    must launch once (flash_attention by default)."""
     import torch
     from repro_torch.core import DVV_MECHANISM
     from repro_torch.kernels import dvv_ops, flash_attention as FA
@@ -580,36 +708,42 @@ def model_phase(cfg, params, seed: int):
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.store import KVCluster, SimNetwork
 
+    kernel = kernel or FA
+    (name,) = kernel.launches
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_TOKENS),
-                         generator=gen, device="cuda", dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, tokens, generator=gen,
+                         device="cuda", dtype=torch.int32)
     prefill = make_prefill_step(cfg)
-    out = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
+    out = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "param_bytes": tree_bytes(params),
-           "prefill_tokens": [1, PREFILL_TOKENS]}
-    torch.cuda.reset_peak_memory_stats()
+           "prefill_tokens": list(tokens)}
     secs, launches = [], []
     for _ in ("warm-up", "timed"):
-        FA.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.reset_launches()
         t = time.perf_counter()
         logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-        launches.append(FA.launches["flash_attention"])
-        if tuple(logits.shape) != (1, PREFILL_TOKENS, cfg.vocab_size) or \
+        launches.append(kernel.launches[name])
+        peak = torch.cuda.max_memory_allocated()   # before the checks' own
+        if tuple(logits.shape) != (*tokens, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()) or \
-                float(logits.abs().max()) > cfg.final_softcap:
+                (cfg.final_softcap and
+                 float(logits.abs().max()) > cfg.final_softcap):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  f"are not finite or exceed the softcap")
         del logits
     if launches != [cfg.n_layers] * 2:
-        raise AssertionError(f"flash_attention launches per prefill "
-                             f"{launches}, expected {cfg.n_layers}")
-    out.update(prefill_s={"warm_up": secs[0], "timed": secs[1]},
-               prefill_tokens_per_s=PREFILL_TOKENS / secs[1],
-               flash_attention_launches=launches[1],
-               prefill_peak_bytes=torch.cuda.max_memory_allocated())
+        raise AssertionError(f"{name} launches per prefill {launches}, "
+                             f"expected {cfg.n_layers}")
+    n_tok = tokens[0] * tokens[1]
+    out.update({"prefill_s": {"warm_up": secs[0], "timed": secs[1]},
+                "prefill_tokens_per_s": n_tok / secs[1],
+                f"{name}_launches": launches[1],
+                "prefill_peak_bytes": peak})
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     store = KVCluster(("srv1", "srv2"), DVV_MECHANISM,
                       network=SimNetwork(seed=0))
@@ -617,13 +751,13 @@ def model_phase(cfg, params, seed: int):
                            "srv1")
     queue = requests(cfg, SERVE_REQUESTS, SERVE_TOKENS, seed)
     done = list(queue)
-    FA.reset_launches()
+    kernel.reset_launches()
     dvv_ops.reset_launches()
     t = time.perf_counter()
     steps = serve_requests(sched, queue)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
-    serve_launches = {**FA.launches, **dvv_ops.launches}
+    serve_launches = {**kernel.launches, **dvv_ops.launches}
     keys = [f"session/{r.rid}" for r in done]
     reads = store.get_many(keys, via="srv1")
     for r in done:
@@ -642,11 +776,12 @@ def model_phase(cfg, params, seed: int):
         "read_back_launches": {k: v - serve_launches[k]
                                for k, v in dvv_ops.launches.items()},
         "sessions_read_back": len(done)},
-        peak_bytes=torch.cuda.max_memory_allocated())
+        serve_peak_bytes=torch.cuda.max_memory_allocated())
     return out
 
 
-def model_trace_phase(cfg, params, seed: int):
+def model_trace_phase(cfg, params, seed: int, *, phase="model_trace",
+                      tokens=(1, PREFILL_TOKENS)):
     """One prefill and TRACE_DECODE_STEPS decode steps, each traced on the
     card: device-busy seconds and the top device events, and the idle share
     against the wall seconds of the same traced run (the profiler's cost on
@@ -657,14 +792,14 @@ def model_trace_phase(cfg, params, seed: int):
     from repro_torch.store import KVCluster, SimNetwork
     from repro_torch.core import DVV_MECHANISM
 
-    toks = torch.zeros((1, PREFILL_TOKENS), dtype=torch.int32, device="cuda")
+    toks = torch.zeros(tokens, dtype=torch.int32, device="cuda")
     prefill = make_prefill_step(cfg)
     sched = BatchScheduler(
         cfg, params, SERVE_SLOTS, SERVE_MAX_LEN,
         KVCluster(("srv1", "srv2"), DVV_MECHANISM,
                   network=SimNetwork(seed=0)), "srv1")
     sched.admit(requests(cfg, SERVE_SLOTS, SERVE_MAX_LEN, seed))
-    out = {"phase": "model_trace", "prefill_tokens": [1, PREFILL_TOKENS],
+    out = {"phase": phase, "prefill_tokens": list(tokens),
            "decode_steps": TRACE_DECODE_STEPS}
     for name, fn in (
             ("prefill", lambda: prefill(params, {"tokens": toks})),
@@ -736,6 +871,61 @@ def model_parity_phase(seed: int):
     return out
 
 
+def ssm_parity_phase(seed: int):
+    """mamba2-780m cut to SSM_PARITY_LAYERS layers at full width, fp32
+    compute: prefill logits of SSM_PARITY_TOKENS tokens (four chunks, so
+    the state crosses chunk boundaries in the kernel) against the same
+    tokens fed one by one through decode_step (decode_ssm's recurrence)."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache, init_params
+
+    cfg = replace(get_config(SSM_ARCH), n_layers=SSM_PARITY_LAYERS,
+                  compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    params = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, SSM_PARITY_TOKENS),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    SS.reset_launches()
+    t = time.perf_counter()
+    pre = make_prefill_step(cfg)(params, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = SS.launches["ssd_scan"]
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, 1, SSM_PARITY_TOKENS)
+    errs = torch.empty(SSM_PARITY_TOKENS, device="cuda")
+    t = time.perf_counter()
+    for i in range(SSM_PARITY_TOKENS):
+        logits, cache = step(params, cache, toks[:, i], i)
+        errs[i] = (logits[0] - pre[i]).abs().max()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    err = float(errs.max())
+    out = {"phase": "ssm_parity", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype, "tokens": SSM_PARITY_TOKENS,
+           "chunk": cfg.ssm_chunk, "ssd_scan_launches": launches,
+           "max_abs_logit_diff": err,
+           "max_abs_logit_diff_per_chunk": [
+               float(errs[i:i + cfg.ssm_chunk].max())
+               for i in range(0, SSM_PARITY_TOKENS, cfg.ssm_chunk)],
+           "max_abs_logit": float(pre.abs().max()),
+           "tol": PREFILL_DECODE_TOL, "prefill_s": prefill_s,
+           "decode_s_per_token": decode_s / SSM_PARITY_TOKENS}
+    if launches != cfg.n_layers:
+        raise AssertionError(f"parity prefill launched ssd_scan {launches} "
+                             f"times, expected {cfg.n_layers}")
+    if not err <= PREFILL_DECODE_TOL:
+        raise AssertionError(f"prefill and decode logits differ by {err} > "
+                             f"{PREFILL_DECODE_TOL}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def ptxas_lines(log: str):
@@ -758,15 +948,17 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import build_info
     from repro_torch.kernels.dvv_ops import dvv_ops
+    from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan.ssd_scan import build as build_ssd
     from repro_torch.models import count_params, init_params
 
     # IEEE fp32 for every fp32 product, the plain versions' included
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
-    t = time.perf_counter()
-    builds = (dvv_ops.build, flash_attention.build)
+    start = t = time.perf_counter()
+    builds = (dvv_ops.build, flash_attention.build, build_ssd)
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each, together
         list(pool.map(lambda build: build(), builds))
     emit({"phase": "device", "nvidia_smi": smi,
@@ -776,7 +968,7 @@ def main() -> int:
           "ptxas": {n: ptxas_lines(str(i["log"]))
                     for n, i in build_info.items()}})
 
-    rows = dvv_rows(args.seed) + flash_rows(args.seed)
+    rows = dvv_rows(args.seed) + flash_rows(args.seed) + ssd_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)
@@ -798,12 +990,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(model_parity_phase(args.seed))
 
+    cfg = get_config(SSM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    ssm = model_phase(cfg, params, args.seed, phase="ssm_model",
+                      tokens=SSM_PREFILL, kernel=SS)
+    ssm.update(param_count=count_params(cfg), init_s=init_s)
+    emit(ssm)
+    emit(model_trace_phase(cfg, params, args.seed, phase="ssm_trace",
+                           tokens=SSM_PREFILL))
+    del params
+    torch.cuda.empty_cache()
+    emit(ssm_parity_phase(args.seed))
+
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
         "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
         "dvv_leq": "src/repro/kernels/dvv_ops/dvv_ops.py:140",
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
     }
     summary = []
     for r in rows:
@@ -816,6 +1025,13 @@ def main() -> int:
             extra = {"variant": r["variant"], "dtype": r["dtype"],
                      "library": r["library"],
                      "row_scaled_err": r["row_scaled_err"]}
+        elif r["name"] == "ssd_scan":
+            if r["variant"] != "main_path":
+                continue
+            launches = ssm["ssd_scan_launches"]
+            source = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": None, "rel_err": r["rel_err"]}
         elif tuple(r["shape"]) == SUMMARY_SHAPE:
             launches = store["launches"][r["name"]]
             source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
@@ -830,6 +1046,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "shape": r["shape"], "device_ms": r["device_ms"], **extra})
+    emit({"phase": "wall", "seconds": time.perf_counter() - start})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

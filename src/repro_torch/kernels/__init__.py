@@ -10,9 +10,11 @@ tensors), and <name>/ref.py the plain torch versions:
                       reads)
   * flash_attention — forward online-softmax attention with GQA, causal and
                       sliding-window masks and a logit softcap (prefill)
+  * ssd_scan        — the Mamba-2 SSD chunked forward scan (prefill of
+                      every SSM layer)
 
 ``build.py`` compiles each package with ``nvcc`` at first use.
 """
-from . import dvv_ops, flash_attention
+from . import dvv_ops, flash_attention, ssd_scan
 
-__all__ = ["dvv_ops", "flash_attention"]
+__all__ = ["dvv_ops", "flash_attention", "ssd_scan"]

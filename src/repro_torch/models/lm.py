@@ -1,4 +1,4 @@
-"""Language-model assembly: embedding → block groups → head (dense path).
+"""Language-model assembly: embedding → block groups → head.
 
 Parameters are nested dicts with the JAX package's names; per-group block
 parameters are *stacked* along a leading ``n_groups`` axis, as the JAX
@@ -12,10 +12,10 @@ Three entry points per config:
   * ``loss_fn(params, batch, cfg)``          — mean CE
   * ``decode_step(params, cache, tok, pos, cfg)`` — one-token serve step
 
-Only the dense path is ported: a "mamba" mixer or a "moe" FFN raises
-``NotImplementedError`` (ROADMAP Queue 1 item 6).  The JAX package's
-activation-sharding constraints are no-ops off a mesh and are left out
-until the mesh slice (ROADMAP Queue 1 item 8).
+Attention and Mamba-2 mixers and the dense MLP are ported; a "moe" FFN
+raises ``NotImplementedError`` (ROADMAP Queue 1 item 6).  The JAX
+package's activation-sharding constraints are no-ops off a mesh and are
+left out until the mesh slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -29,10 +29,11 @@ from .attention import (
 )
 from .config import LayerSpec, ModelConfig
 from .layers import ACTIVATIONS, cross_entropy, rms_norm, softcap
+from .ssm import (
+    SSMSpec, decode_ssm, init_ssm_cache, init_ssm_params, ssm_forward,
+)
 
-_UNPORTED = {"mamba": "the SSM mixer (ROADMAP Queue 1 item 6, with "
-                      "ssd_scan in Queue 2)",
-             "moe": "the MoE FFN (ROADMAP Queue 1 item 6)"}
+_UNPORTED = {"moe": "the MoE FFN (ROADMAP Queue 1 item 6)"}
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -61,6 +62,12 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm, attn_softcap=cfg.attn_softcap,
         sliding_window=sliding, causal=cfg.causal, mrope=cfg.mrope)
+
+
+def ssm_spec(cfg: ModelConfig) -> SSMSpec:
+    return SSMSpec(d_inner=cfg.d_inner, n_heads=cfg.ssm_heads,
+                   headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                   conv_width=cfg.ssm_conv_width, chunk=cfg.ssm_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +100,10 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, *,
         if spec.mixer.startswith("attn"):
             layer["attn"] = init_attn_params(
                 gen, cfg.d_model, attn_spec(cfg, spec), dtype, lead=lead,
+                device=device)
+        elif spec.mixer == "mamba":
+            layer["mamba"] = init_ssm_params(
+                gen, cfg.d_model, ssm_spec(cfg), dtype, lead=lead,
                 device=device)
         if spec.ffn == "mlp":
             layer["ffn_norm"] = torch.ones(lead + (cfg.d_model,),
@@ -153,6 +164,8 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     if not (cfg.tie_embeddings and cfg.input_mode == "tokens"):
         total += cfg.d_model * cfg.vocab_size
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Din, SH, N, W = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, \
+        cfg.ssm_conv_width
     per_group = 0
     for spec in cfg.pattern:
         per_group += cfg.d_model                          # pre_norm
@@ -160,6 +173,11 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
             per_group += cfg.d_model * (2 * H + 2 * KV) * Dh
             if cfg.qk_norm:
                 per_group += 2 * Dh
+        elif spec.mixer == "mamba":
+            per_group += (cfg.d_model * (2 * Din + 2 * N + SH)  # in_*
+                          + (W + 1) * (Din + 2 * N)            # conv_*
+                          + 3 * SH + Din                       # dt, A, D, norm
+                          + Din * cfg.d_model)                 # out_proj
         if spec.ffn == "mlp":
             per_group += cfg.d_model + 3 * cfg.d_model * cfg.d_ff
     return total + cfg.n_groups * per_group
@@ -194,14 +212,20 @@ def _index(tree, g: int):
 
 def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
                  positions) -> torch.Tensor:
-    """Apply the pattern once (every mixer is attention: the entry points
-    refuse the unported ones)."""
+    """Apply the pattern once (the entry points refuse the unported
+    FFNs)."""
     for i, spec in enumerate(cfg.pattern):
         layer = group_params[f"layer{i}"]
         h = rms_norm(x, layer["pre_norm"],
                      zero_centered=cfg.zero_centered_norm)
-        x = x + attention(layer["attn"], h, attn_spec(cfg, spec),
-                          positions=positions)
+        if spec.mixer.startswith("attn"):
+            mix = attention(layer["attn"], h, attn_spec(cfg, spec),
+                            positions=positions)
+        elif spec.mixer == "mamba":
+            mix = ssm_forward(layer["mamba"], h, ssm_spec(cfg))
+        else:
+            raise ValueError(spec.mixer)
+        x = x + mix
         if spec.ffn == "mlp":
             h = rms_norm(x, layer["ffn_norm"],
                          zero_centered=cfg.zero_centered_norm)
@@ -265,15 +289,22 @@ def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict:
-    """Nested cache: one stacked entry per layer kind per group."""
+    """Nested cache: one stacked entry per layer kind per group, in the
+    compute dtype (attention: k/v; mamba: conv windows and SSD state)."""
     _check_ported(cfg)
     device = _device(device)
     dtype = _dtype(cfg.compute_dtype)
-    return {f"layer{i}": init_kv_cache(batch, max_len, attn_spec(cfg, spec),
-                                       dtype, lead=(cfg.n_groups,),
-                                       device=device)
-            for i, spec in enumerate(cfg.pattern)
-            if spec.mixer.startswith("attn")}
+    lead = (cfg.n_groups,)
+    cache: Dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        if spec.mixer.startswith("attn"):
+            cache[f"layer{i}"] = init_kv_cache(
+                batch, max_len, attn_spec(cfg, spec), dtype, lead=lead,
+                device=device)
+        elif spec.mixer == "mamba":
+            cache[f"layer{i}"] = init_ssm_cache(
+                batch, ssm_spec(cfg), dtype, lead=lead, device=device)
+    return cache
 
 
 def _decode_group(cfg: ModelConfig, group_params: Dict, group_cache: Dict,
@@ -282,8 +313,13 @@ def _decode_group(cfg: ModelConfig, group_params: Dict, group_cache: Dict,
         layer = group_params[f"layer{i}"]
         h = rms_norm(x, layer["pre_norm"],
                      zero_centered=cfg.zero_centered_norm)
-        mix, _ = decode_attention(layer["attn"], h, group_cache[f"layer{i}"],
-                                  pos, attn_spec(cfg, spec))
+        if spec.mixer.startswith("attn"):
+            mix, _ = decode_attention(layer["attn"], h,
+                                      group_cache[f"layer{i}"], pos,
+                                      attn_spec(cfg, spec))
+        else:
+            mix, _ = decode_ssm(layer["mamba"], h, group_cache[f"layer{i}"],
+                                ssm_spec(cfg))
         x = x + mix
         if spec.ffn == "mlp":
             h = rms_norm(x, layer["ffn_norm"],
@@ -296,7 +332,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos: int,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """One serve step. tokens [B] int (or embeddings [B,d]); pos int.
     Returns (logits [B,V] fp32, cache): the cache is updated in place (see
-    ``attention.decode_attention``) and returned."""
+    ``attention.decode_attention`` and ``ssm.decode_ssm``) and returned."""
     _check_ported(cfg)
     compute = _dtype(cfg.compute_dtype)
     inputs = tokens if cfg.input_mode == "tokens" else tokens[:, None, :]

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (dvv_ops, flash_attention) against their
-plain torch versions, on the card.  Imports neither jax nor the JAX
-package, so it runs on a machine that has only the port:
+"""The hand-written CUDA kernels (dvv_ops, flash_attention, ssd_scan)
+against their plain torch versions, on the card.  Imports neither jax nor
+the JAX package, so it runs on a machine that has only the port:
 
     PYTHONPATH=src python -m pytest -q -m torch tests/test_torch_cuda.py
 
@@ -228,3 +228,134 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(B, S, H, P, N, dtype, device, seed=0):
+    """test_kernels.py's distribution; xh is the [B,S,H,P] view of a
+    [B,S,H*P] tensor, as ssm_forward passes it."""
+    rng = np.random.default_rng([seed, B, S, H, P, N])
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+
+    xh = t(rng.normal(size=(B, S, H * P))).view(B, S, H, P)
+    return [xh, t(rng.uniform(0.01, 0.2, size=(B, S, H))),
+            t(-rng.uniform(0.5, 2.0, size=(H,))),
+            t(rng.normal(size=(B, S, N))), t(rng.normal(size=(B, S, N))),
+            t(rng.normal(size=(H,)))]
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / (want.double().abs().max() + 1e-9))
+
+
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}   # test_kernels.py
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [8, 64, 256])
+@pytest.mark.parametrize("P", [16, 64])
+@pytest.mark.parametrize("N", [16, 128])
+def test_ssd_kernel_equals_plain_version(cuda, ieee_fp32, dtype, chunk, P,
+                                         N):
+    """y and h_final within SSD_TOL (relative to the largest value) of the
+    plain version run in fp32 on the upcast inputs; B x H from 1 x 2 to
+    2 x 48, several chunks a sequence."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    B, H = {8: (1, 2), 64: (2, 5), 256: (2, 48)}[chunk]
+    S = 8 * chunk if chunk < 64 else 3 * chunk
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda)
+    SS.reset_launches()
+    y, h = SS.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SS.launches == {"ssd_scan": 1}
+    assert y.dtype == dtype and y.shape == (B, S, H, P)
+    assert h.dtype == torch.float32 and h.shape == (B, H, P, N)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    want_y, want_h = ssd_chunked(*(a.float() for a in args), chunk)
+    assert _rel(y, want_y) < SSD_TOL[dtype]
+    assert _rel(h, want_h) < SSD_TOL[dtype]
+
+
+def test_ssd_kernel_mixed_scalar_dtypes(cuda, ieee_fp32):
+    """bf16 streams with fp32 A and D, as the wrapper accepts them."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    args = _ssd_inputs(1, 128, 4, 64, 128, torch.bfloat16, cuda, seed=1)
+    args[2], args[5] = args[2].float(), args[5].float()
+    y, h = SS.ssd_scan(*args, chunk=64)
+    want_y, want_h = ssd_chunked(*(a.float() for a in args), 64)
+    assert _rel(y, want_y) < 5e-2 and _rel(h, want_h) < 5e-2
+
+
+def test_ssd_wrapper_rejects_bad_inputs(cuda):
+    from repro_torch.kernels import ssd_scan as SS
+
+    args = _ssd_inputs(1, 64, 2, 16, 16, torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        SS.ssd_scan(*(a.half() for a in args), chunk=16)
+    with pytest.raises(TypeError):
+        SS.ssd_scan(args[0], args[1].float(), *args[2:], chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        SS.ssd_scan(*args, chunk=48)
+    with pytest.raises(ValueError):
+        SS.ssd_scan(args[0], args[1], args[2], args[3].cpu(), *args[4:],
+                    chunk=16)
+    with pytest.raises(ValueError):
+        SS.ssd_scan(*_ssd_inputs(1, 64, 2, 128, 16, torch.bfloat16, cuda),
+                    chunk=16)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        SS.ssd_scan(*args, chunk=2)
+
+
+def test_mamba_prefill_on_the_card_runs_the_kernel_once_per_layer(
+        cuda, ieee_fp32):
+    """mamba2-780m cut to 4 layers at full width, fp32 compute, 512 tokens
+    (two chunks): logits on the card within 1e-4 of the largest logit of
+    the CPU run of the same parameters (cuBLAS and the kernel sum in other
+    orders than the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = replace(get_config("mamba2-780m"), n_layers=4,
+                  compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 512)).astype(np.int32))
+    prefill = make_prefill_step(cfg)
+    want = prefill(params, {"tokens": toks})
+    SS.reset_launches()
+    got = prefill(_to(params, cuda), {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert SS.launches["ssd_scan"] == cfg.n_layers
+    assert _rel(got.cpu(), want) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_unaligned_streams(cuda, ieee_fp32, dtype):
+    """Widths whose rows are not whole 16-byte vectors (P 12, N 20) and an
+    xh that starts 4 bytes into its buffer: the kernel's element-by-element
+    loads, and for bf16 its FMA scores (N % 16 != 0)."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    B, S, H, P, N = 2, 64, 3, 12, 20
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=4)
+    wide = torch.zeros((B, S, H * P + 2), dtype=dtype, device=cuda)
+    wide[..., 2:] = args[0].reshape(B, S, H * P)
+    args[0] = wide[..., 2:].view(B, S, H, P)
+    assert args[0].data_ptr() % 16
+    y, h = SS.ssd_scan(*args, chunk=16)
+    want_y, want_h = ssd_chunked(*(a.float() for a in args), 16)
+    assert _rel(y, want_y) < SSD_TOL[dtype]
+    assert _rel(h, want_h) < SSD_TOL[dtype]

@@ -40,7 +40,9 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     assert "repro_torch.store.cluster" in got["modules"]
     for name in ("repro_torch.kernels.dvv_ops.dvv_ops",
                  "repro_torch.kernels.flash_attention.flash_attention",
-                 "repro_torch.models.lm", "repro_torch.launch.serve"):
+                 "repro_torch.kernels.ssd_scan.ssd_scan",
+                 "repro_torch.models.lm", "repro_torch.models.ssm",
+                 "repro_torch.launch.serve"):
         assert name in got["modules"]
     assert got["leaked"] == []
     assert got["cuda_initialized"] is False
@@ -83,6 +85,24 @@ def test_cpu_prefill_never_launches_a_kernel():
     logits = make_prefill_step(cfg)(
         params, {"tokens": torch.zeros((1, 32), dtype=torch.int32)})
     assert logits.shape == (1, 32, cfg.vocab_size)
+    assert flash_attention.launches == {"flash_attention": 0}
+
+
+def test_cpu_mamba_prefill_never_launches_a_kernel():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-780m").smoke()
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    flash_attention.reset_launches()
+    ssd_scan.reset_launches()
+    logits = make_prefill_step(cfg)(
+        params, {"tokens": torch.zeros((1, 32), dtype=torch.int32)})
+    assert logits.shape == (1, 32, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert ssd_scan.launches == {"ssd_scan": 0}
     assert flash_attention.launches == {"flash_attention": 0}
 
 

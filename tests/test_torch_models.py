@@ -1,17 +1,20 @@
-"""The port's dense LM serving path on the CPU against the JAX package, on
-the same numpy inputs and the same parameters (the JAX package's, carried
-over by ``params_from_numpy``):
+"""The port's LM serving path (dense and Mamba-2) on the CPU against the
+JAX package, on the same numpy inputs and the same parameters (the JAX
+package's, carried over by ``params_from_numpy``):
 
   * ``layers``: RMSNorm (both conventions), softcap, GeGLU / SwiGLU, RoPE,
     M-RoPE, cross entropy;
   * ``attention`` against JAX ``attention(use_pallas=True)`` and
     ``(use_pallas=False)``, and ``decode_attention``;
-  * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b and
-    gemma-2b against JAX ``forward(use_pallas=True)``: <= 1e-4 in fp32,
-    <= 0.05 in bf16 (the bound of ``tests/test_kernels.py:224``);
-  * 8 ``decode_step``s, logits and cache;
-  * the two ``BatchScheduler``s side by side: identical tokens and
-    identical session values in the two stores;
+  * ``ssm_forward`` and ``decode_ssm`` on one layer;
+  * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b,
+    gemma-2b and mamba2-780m against JAX ``forward(use_pallas=True)``:
+    <= 1e-4 in fp32, <= 0.05 in bf16 (the bound of
+    ``tests/test_kernels.py:224``);
+  * 8 ``decode_step``s, logits and cache (k/v, or the SSM's conv windows
+    and state);
+  * the two ``BatchScheduler``s side by side (gemma2-9b and mamba2-780m):
+    identical tokens and identical session values in the two stores;
   * prefill against token-by-token decode, the CPU twin of
     ``chip_smoke.py``'s ``model_parity`` phase, which sets its tolerance.
 """
@@ -34,10 +37,13 @@ from repro_torch.models import lm as TM
 # the packages' ``attention`` functions shadow their modules' names
 JA = importlib.import_module("repro.models.attention")
 TA = importlib.import_module("repro_torch.models.attention")
+JS = importlib.import_module("repro.models.ssm")
+TS = importlib.import_module("repro_torch.models.ssm")
 
 pytestmark = pytest.mark.torch
 
 DENSE = ("gemma2-9b", "granite-8b", "gemma-2b")
+MODELS = DENSE + ("mamba2-780m",)
 #: prefill vs token-by-token decode, fp32 logits (final softcap 30 bounds
 #: them to +-30): the bound ``chip_smoke.py``'s model_parity phase holds at
 #: full width.  At smoke size the two agree far inside it.
@@ -168,27 +174,88 @@ def test_decode_attention_matches_jax(name):
 
 
 # ---------------------------------------------------------------------------
+# the SSM mixer
+# ---------------------------------------------------------------------------
+
+def _ssm_inputs(seed=0):
+    jc = JC.get_config("mamba2-780m").smoke()
+    jspec = JM.ssm_spec(jc)
+    tspec = TS.SSMSpec(**vars(jspec))
+    jp = JS.init_ssm_params(jax.random.key(seed), jc.d_model, jspec,
+                            jnp.float32)
+    tp = {k: _t(v) for k, v in jp.items()}
+    x = np.random.default_rng(seed).normal(size=(2, 32, jc.d_model)).astype(
+        np.float32)
+    return jspec, tspec, jp, tp, x
+
+
+def test_ssm_forward_matches_jax():
+    jspec, tspec, jp, tp, x = _ssm_inputs()
+    want = JS.ssm_forward(jp, jnp.asarray(x), jspec)
+    got = TS.ssm_forward(tp, _t(x), tspec)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_decode_ssm_matches_jax():
+    jspec, tspec, jp, tp, x = _ssm_inputs(seed=1)
+    rng = np.random.default_rng(2)
+    cache = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in
+             JS.init_ssm_cache(2, jspec, jnp.float32).items()}
+    for pos in (0, 5, 31):
+        xs = x[:, pos:pos + 1]
+        jout, jcache = JS.decode_ssm(
+            jp, jnp.asarray(xs), {k: jnp.asarray(v) for k, v in
+                                  cache.items()}, jspec)
+        tcache = {k: _t(v) for k, v in cache.items()}
+        tout, tcache = TS.decode_ssm(tp, _t(xs), tcache, tspec)
+        np.testing.assert_allclose(_np(tout), _np(jout), atol=1e-5,
+                                   rtol=1e-5)
+        for k in cache:
+            np.testing.assert_allclose(_np(tcache[k]), _np(jcache[k]),
+                                       atol=1e-5, rtol=1e-5)
+        cache = {k: np.array(v) for k, v in jcache.items()}
+
+
+def test_init_ssm_params_stacks_the_jax_shapes():
+    jc = JC.get_config("mamba2-780m").smoke()
+    jspec = JM.ssm_spec(jc)
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+            JS.init_ssm_params(jax.random.key(0), jc.d_model, jspec,
+                               jnp.bfloat16).items()}
+    got = TS.init_ssm_params(torch.Generator().manual_seed(0), jc.d_model,
+                             TS.SSMSpec(**vars(jspec)), torch.bfloat16,
+                             lead=(3,))
+    assert {k: (tuple(v.shape[1:]), str(v.dtype).replace("torch.", ""))
+            for k, v in got.items()} == want
+    assert all(v.shape[0] == 3 for v in got.values())
+    np.testing.assert_allclose(_np(got["A_log"][2]),
+                               np.log(np.arange(1, jspec.n_heads + 1)))
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_count_params_from_shapes_matches_jax(arch):
     jc, tc = JC.get_config(arch), TC.get_config(arch)
     assert TM.count_params(tc) == JM.count_params(jc)
     assert TM.count_params(tc.smoke()) == JM.count_params(jc.smoke())
     if arch == "gemma2-9b":
         assert TM.count_params(tc) == 9_241_404_928
+    if arch == "mamba2-780m":
+        assert TM.count_params(tc) == 780_148_992
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "qwen3-moe-30b-a3b", "mamba2-780m"])
+                                  "qwen3-moe-30b-a3b"])
 def test_unported_mixers_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_params(torch.Generator().manual_seed(0),
                        TC.get_config(arch).smoke(), device="cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_init_params_has_the_jax_shapes_and_dtypes(arch):
     jc, tc = JC.get_config(arch).smoke(), TC.get_config(arch).smoke()
     want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
@@ -199,7 +266,7 @@ def test_init_params_has_the_jax_shapes_and_dtypes(arch):
     assert flat == want
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 @pytest.mark.parametrize("compute,tol", [("float32", 1e-4),
                                          ("bfloat16", 0.05)])
 def test_forward_matches_jax_pallas_path(arch, compute, tol):
@@ -225,7 +292,7 @@ def test_loss_fn_matches_jax():
     assert abs(float(got) - float(want)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_decode_steps_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=3)
@@ -240,12 +307,23 @@ def test_decode_steps_match_jax(arch):
         tl, tcache = TM.decode_step(tp, tcache, _t(toks), pos, tc)
         assert np.abs(_np(tl) - _np(jl)).max() < 1e-4
     for layer in jcache:
-        for kv in ("k", "v"):
+        assert set(tcache[layer]) == set(jcache[layer])
+        for kv in jcache[layer]:
             np.testing.assert_allclose(_np(tcache[layer][kv]),
                                        _np(jcache[layer][kv]), atol=1e-5)
 
 
 def test_batch_schedulers_serve_identical_tokens_and_sessions():
+    _serve_side_by_side("gemma2-9b")
+
+
+def test_batch_schedulers_serve_identical_mamba_tokens_and_sessions():
+    """The same on mamba2-780m's smoke config: the SSM caches of both
+    schedulers carry every slot through 32 steps."""
+    _serve_side_by_side("mamba2-780m")
+
+
+def _serve_side_by_side(arch):
     import json
 
     from repro.core import DVV_MECHANISM as JDVV
@@ -255,7 +333,7 @@ def test_batch_schedulers_serve_identical_tokens_and_sessions():
     from repro_torch.launch import serve as TS
     from repro_torch.store import KVCluster as TCluster, SimNetwork as TNet
 
-    jc, tc = _cfgs("gemma2-9b")
+    jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=5)
     jstore = JCluster(("srv1", "srv2"), JDVV, network=JNet(seed=0))
     tstore = TCluster(("srv1", "srv2"), TDVV, network=TNet(seed=0),
@@ -280,11 +358,12 @@ def test_batch_schedulers_serve_identical_tokens_and_sessions():
         assert len(json.loads(tr.values[0])["tokens"]) == 16
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", MODELS)
 def test_prefill_matches_token_by_token_decode(arch):
     """The CPU twin of chip_smoke.py's model_parity phase: fp32 prefill
     logits at every position against the same tokens fed one by one
-    through decode_step, past the sliding window."""
+    through decode_step, past the sliding window (mamba2: six chunks of
+    8, the state crossing chunk boundaries)."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
     _, tc = _cfgs(arch)
@@ -310,3 +389,8 @@ def test_serve_main_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests in 4 decode steps" in out
     assert "r2: 4 tokens" in out
+    assert TS.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                    "--requests", "5", "--tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "served 5 requests in 6 decode steps" in out
+    assert "r4: 3 tokens" in out
