@@ -929,9 +929,12 @@ def ssm_parity_phase(seed: int):
 # ---------------------------------------------------------------------------
 
 def ptxas_lines(log: str):
-    """ptxas's registers, spills and shared memory for each kernel."""
+    """ptxas's registers, spills and shared memory for each kernel, and
+    its warnings and performance notes (an ignored setmaxnreg, wgmma
+    serialised by the compiler)."""
     return [ln.strip() for ln in log.splitlines()
-            if "Compiling entry" in ln or "spill" in ln or "Used" in ln]
+            if any(w in ln for w in ("Compiling entry", "spill", "Used",
+                                     "warning", "Performance"))]
 
 
 def main() -> int:

@@ -11,9 +11,10 @@
 //   window: j <= i - window); out_i = sum_j p_ij v_j / sum_j p_ij with the
 //   online-softmax recurrence of the TPU kernel.  Positions count from 0 on
 //   both sides.  Numerics follow the TPU kernel: q and k enter the product
-//   as fp32 (bf16 products are exact in fp32), the running max m, the
-//   denominator l and the accumulator are fp32, p is rounded to v's dtype
-//   before p.v, l is clamped at 1e-30, and the output is in q's dtype.
+//   as bf16 with an fp32 sum (bf16 products are exact in fp32), the running
+//   max m, the denominator l and the accumulator are fp32, p is rounded to
+//   v's dtype before p.v, l is clamped at 1e-30, and the output is in q's
+//   dtype.
 //
 // The masked value is the finite NEG_INF = -1e38, never -inf.  A row whose
 // entries are all masked in a live tile gets m_new = NEG_INF and
@@ -23,35 +24,59 @@
 //
 // What bounds it on an H100 SXM: operations.  A causal layer of gemma2-9b's
 // prefill (B=1, H=16, D=256, S=8192) has 33.6 M live (q, k) pairs per head,
-// 4*D FLOP each: 5.5e11 FLOP, 0.56 ms at the 989 TFLOP/s of the bf16
+// 4*D FLOP each: 5.5e11 FLOP, 0.556 ms at the 989 TFLOP/s of the bf16
 // tensor cores, against 0.10 ms to move q, k, v and o once at 3.35 TB/s.
+// Only wgmma reaches that rate, so both products run on it.
 //
-// The design is simple and right first.  The TPU walks KV blocks in a
-// sequential grid dimension and carries m, l and acc in VMEM scratch; here
-// one thread block owns one (b*h, 64-row q tile) and loops over the KV
-// tiles itself, skipping tiles that are causally or window-dead, so nothing
-// crosses blocks.  The heaviest causal q tiles are scheduled first.
-//   bf16: 4 warps, 16 q rows each.  Q, K and V tiles of 64 rows sit in
-//     dynamic shared memory (3 x 64 x (D + 8) bf16: 101 KB at D = 256, over
-//     the 48 KB static limit); each row is padded by 16 bytes so fragment
-//     loads hit distinct banks.  Tiles arrive by cp.async, every copy of a
-//     tile in flight at once, and V's copies land while QK^T and the
-//     softmax run.  QK^T and PV run on the tensor cores through
-//     mma.sync m16n8k16 (bf16 in, fp32 accumulate); the S accumulator is
-//     reused in registers as the A operand of PV, and the 16 x D fp32 output
-//     accumulator of a warp lives in registers (D / 2 floats a thread).
+// The TPU walks KV blocks in a sequential grid dimension and carries m, l
+// and acc in VMEM scratch; here one thread block owns one (b*h, q tile)
+// and loops over the KV tiles itself, skipping tiles that are causally or
+// window-dead, so nothing crosses blocks.  Blocks run heaviest causal q
+// tiles first, over all heads, before any lighter one.
+//   bf16 (D = 64, 128, 256; one kernel): 128 q rows a block, three
+//     warpgroups.  A producer warpgroup (40 registers a thread after
+//     setmaxnreg) has one thread start every copy by TMA
+//     (cp.async.bulk.tensor, 128-byte swizzle, zero fill past the ends of
+//     the sequence): Q once, then K and V tiles of 80 keys through a ring
+//     of stages (2 at D = 256, 4 at D = 128, 8 at D = 64), each stage with
+//     mbarriers for "K full", "V full" and "empty", so the next tile loads
+//     while this one is used.  A row of D = 256 is 512 bytes, so each tile
+//     arrives as D / 64 boxes of 64 columns.  Two consumer warpgroups (232
+//     registers) own 64 q rows each: S = Q K^T by wgmma m64n80k16 with Q
+//     and K from shared memory (both K-major), the softmax in registers,
+//     then O += P V by wgmma m64nDk16 with P from registers (bf16) and V
+//     from shared memory through the transpose bit; the D / 2 fp32
+//     accumulators of O stay in registers.  Masks are applied only on edge
+//     tiles (the causal diagonal, the window's lower edge, the ragged end
+//     of the keys); interior tiles skip the compares.  The softmax works
+//     in log2 units: scale * log2(e) is one multiply, the exponentials are
+//     ex2.approx, and the softcap cap * tanh(s / cap) is formed as in
+//     softcap_log2 (two ex2 a score, the reciprocal on the FMA pipe, tanh
+//     within 3e-7 of libm's).
+//     The two consumer warpgroups wait on the same tile and run in step,
+//     so the softmax is not hidden behind the other's products (on the
+//     H100, PERF.md: 0.75 ms of products and loads plus 0.1-0.3 ms of
+//     softmax for a gemma2-9b layer).  Ping-pong turns between them
+//     measured no faster at N = 64 once ptxas no longer serialised their
+//     wgmma; issuing S(j+1) before softmax(j) stayed serialised and slower.
+//     80-key tiles (the most that two stages fit at D = 256) are 2-8%
+//     faster than 64.  A branch whose
+//     condition ptxas cannot prove uniform, or an operand register written
+//     between wgmma.fence and the wait, makes ptxas serialise the wgmma
+//     ("Potential Performance Loss" in -Xptxas -v): keep each product's
+//     fence .. wait window straight-line.
 //   fp32: 8 warps, plain IEEE fp32 FMAs (no TF32), 32-key tiles loaded by
 //     cp.async; four threads share a q row, each holding 8 scores and D / 4
 //     accumulators.
-// wgmma, TMA and warp specialisation are later work.
-#include <cuda_runtime.h>
+#include <cuda.h>                     // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1.0e38f;   // _flash_kernel's NEG_INF
-constexpr int kBQ = 64;               // q rows per block
+constexpr int kBQ = 64;               // q rows per block (fp32)
 
 struct Params {
   const void* q;
@@ -101,13 +126,10 @@ template <int BYTES>
 __device__ __forceinline__ void copy_async(void* dst, const void* src,
                                            bool in_range) {
   const uint32_t saddr = (uint32_t)__cvta_generic_to_shared(dst);
-  const int n = in_range ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(n) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(saddr), "l"(src), "r"(n) : "memory");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(saddr), "l"(src), "n"(BYTES),
+                  "r"(in_range ? BYTES : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void copy_commit() {
@@ -121,187 +143,467 @@ __device__ __forceinline__ void copy_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: wgmma fed by TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kBK16 = 64;             // keys per tile
-constexpr int kWarps16 = 4;
+constexpr int kBQ16 = 128;            // q rows per block: 2 warpgroups of 64
+constexpr int kBK16 = 80;             // keys per KV tile
+constexpr int kThreads16 = 384;       // producer + two consumer warpgroups
+constexpr int kBox = 64;              // columns per TMA box: 128 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Stages of the K/V ring: what fits in 227 KB beside the 128-row Q tile
+// (D = 256: 64 KB of Q and 2 x 80 KB of K and V, 230,456 bytes in all).
+template <int D>
+__host__ __device__ constexpr int ring_stages() {
+  return D == 256 ? 2 : D == 128 ? 4 : 8;
+}
+
+// Q, the K and V rings, 3 mbarriers a stage plus Q's, and slack to align
+// the tiles to 1024 bytes (the 128-byte swizzle's period).
+template <int D>
+constexpr size_t bf16_smem_bytes() {
+  return 1024 + 2 * (size_t)D * (kBQ16 + 2 * ring_stages<D>() * kBK16) +
+         8 * (1 + 3 * ring_stages<D>());
+}
+
+struct Bf16Params {
+  void* o;
+  int64_t o_b, o_s, o_h;              // output strides in elements
+  int H, KV, Sq, Sk;
+  int causal, window, softcap;        // softcap: nonzero when a cap is set
+  float score_mul;                    // (softcap ? cap : scale) * log2(e)
+  float tanh_mul;                     // 2 log2(e) scale / cap
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// d += a . b for one m16n8k16 tile: bf16 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// cap * log2(e) * tanh(s / cap) for the raw dot product q.k, s = dot *
+// scale: with u = 2^(dot * k) = e^(2 s / cap) (k = 2 log2(e) scale / cap),
+// tanh = 1 - 2 / (1 + u), which saturates to +-1 without NaN.  The
+// reciprocal runs on the FMA pipe (a bit-trick seed within 5%, then three
+// Newton steps: relative error under 1e-7, tanh within 3e-7) so that a
+// score costs two MUFU ops (both ex2.approx), not three.
+__device__ __forceinline__ float softcap_log2(float dot, float k, float sm) {
+  const float y = fminf(1.f + ex2(dot * k), 1e30f);
+  float r = __int_as_float(0x7EF311C3 - __float_as_int(y));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fmaf(r, fmaf(-y, r, 1.f), r);
+  return fmaf(r, -2.f * sm, sm);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transfers to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-d tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// Start copying 64 rows of D bf16 (16-byte vectors) into a padded smem
-// tile and commit them as one group; rows at or past `limit` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile16(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src,
-                                            int64_t row_stride, int row0,
-                                            int limit) {
-  constexpr int LD = D + 8;
-  constexpr int V = D / 8;
-  for (int idx = threadIdx.x; idx < 64 * V; idx += kWarps16 * 32) {
-    const int r = idx / V, c = (idx % V) * 8;
-    const bool in = row0 + r < limit;
-    copy_async<16>(dst + r * LD + c,
-                   in ? src + (row0 + r) * row_stride + c : src, in);
-  }
-  copy_commit();
+// A wgmma shared-memory descriptor of a tile in the 128-byte swizzle that
+// TMA writes: start address, leading and stride byte offsets (16-byte
+// units), layout type 1 (128B swizzle) in bits 62-63.  K-major operands
+// ignore the leading offset; the stride offset steps 8 rows (1024 bytes).
+// For the MN-major V the leading offset steps between 64-column boxes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// between the asynchronous product's start and its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (+)= A.B for one m64n80k16 step, A and B from shared memory (K-major
+// both); acc == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da,
+                                             uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A.B for one m64n64k16 step: A (bf16) from registers, B from shared
+// memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A.B for one m64n128k16 step: A (bf16) from registers, B from shared
+// memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A.B for one m64n256k16 step: A (bf16) from registers, B from shared
+// memory MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps16 * 32, 1)
-flash_fwd_bf16_kernel(const Params p) {
-  constexpr int LD = D + 8;
+__global__ void __launch_bounds__(kThreads16, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const Bf16Params p) {
+  constexpr int NST = ring_stages<D>();
+  constexpr uint32_t QBYTES = 2 * kBQ16 * D, TBYTES = 2 * kBK16 * D;
+  constexpr uint32_t QBOX = 2 * kBQ16 * kBox, TBOX = 2 * kBK16 * kBox;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * LD;
-  __nv_bfloat16* Vs = Ks + kBK16 * LD;
+  const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023) &
+                      ~1023u;
+  const uint32_t sK = sQ + QBYTES;          // stage s at sK + s * TBYTES
+  const uint32_t sV = sK + NST * TBYTES;
+  const uint32_t bar_q = sV + NST * TBYTES;
+  const uint32_t full_k = bar_q + 8;        // stage s at + 8 * s
+  const uint32_t full_v = full_k + 8 * NST;
+  const uint32_t empty = full_v + 8 * NST;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;    // heaviest tiles first
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.KV);
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  const __nv_bfloat16* qg = (const __nv_bfloat16*)p.q + b * p.q_b + h * p.q_h;
-  const __nv_bfloat16* kg = (const __nv_bfloat16*)p.k + b * p.k_b + hk * p.k_h;
-  const __nv_bfloat16* vg = (const __nv_bfloat16*)p.v + b * p.v_b + hk * p.v_h;
-  load_tile16<D>(Qs, qg, p.q_s, q0, p.Sq);
-
-  // rows g and g + 8 of this warp's 16
-  const int qp0 = q0 + warp * 16 + g, qp1 = qp0 + 8;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int nk = (p.Sk + kBK16 - 1) / kBK16;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK16;
-    if (!tile_live(p, q0, k0, kBK16)) continue;
-    __syncthreads();                      // the last tile's reads are done
-    load_tile16<D>(Ks, kg, p.k_s, k0, p.Sk);
-    load_tile16<D>(Vs, vg, p.v_s, k0, p.Sk);
-    copy_wait<1>();                       // Q and K have landed; V may not
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBK16 / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK16 / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const __nv_bfloat16* qw = Qs + (warp * 16) * LD;
-#pragma unroll 4
-    for (int kd = 0; kd < D; kd += 16) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qw + g * LD + kd + 2 * t);
-      a[1] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + kd + 2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(qw + g * LD + kd + 8 + 2 * t);
-      a[3] = *reinterpret_cast<const uint32_t*>(qw + (g + 8) * LD + kd + 8 + 2 * t);
-#pragma unroll
-      for (int j = 0; j < kBK16 / 8; ++j) {
-        const __nv_bfloat16* kr = Ks + (j * 8 + g) * LD + kd + 2 * t;
-        mma_bf16(s[j], a, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // scale, softcap, mask; then the online-softmax update per row
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK16 / 8; ++j) {
-      const int kp = k0 + j * 8 + 2 * t;
-      s[j][0] = score(p, s[j][0], qp0, kp);
-      s[j][1] = score(p, s[j][1], qp0, kp + 1);
-      s[j][2] = score(p, s[j][2], qp1, kp);
-      s[j][3] = score(p, s[j][3], qp1, kp + 1);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK16 / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    // l stays a per-thread partial sum (every thread of a row scales by the
-    // same corr); the four partials of a row are added at the end.
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= c0;
-      acc[j][1] *= c0;
-      acc[j][2] *= c1;
-      acc[j][3] *= c1;
-    }
-
-    copy_wait<0>();                       // V has landed
-    __syncthreads();
-    // acc += bf16(P) V: the S accumulator of n-tiles 2kk, 2kk+1 is the A
-    // fragment of the kk-th 16-key step.
-#pragma unroll
-    for (int kk = 0; kk < kBK16 / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* vr = v0 + j * 8;
-        mma_bf16(acc[j], a, pack_bf16(vr[0], vr[LD]),
-                 pack_bf16(vr[8 * LD], vr[9 * LD]));
-      }
-    }
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;   // heaviest first
+  // the KV tiles live for some row of the block: [lo, hi]
+  int lo = 0, hi = (p.Sk + kBK16 - 1) / kBK16 - 1;
+  if (p.causal) hi = min(hi, (q0 + kBQ16 - 1) / kBK16);
+  if (p.window) {
+    const int first = q0 - p.window - kBK16 + 2;  // least live tile start
+    if (first > 0) lo = (first + kBK16 - 1) / kBK16;
   }
 
-  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  __nv_bfloat16* og = (__nv_bfloat16*)p.o + b * p.o_b + h * p.o_h;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);          // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread starts every load; the ring's "empty" barriers
+    // hold it until both consumer warpgroups are done with a stage.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, QBYTES);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load(sQ + c * QBOX, &tm_q, bar_q, c * kBox, q0, h, b);
+      for (int j = lo, it = 0; j <= hi; ++j, ++it) {
+        const int s = it % NST, round = it / NST;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        mbar_expect_tx(full_k + 8 * s, TBYTES);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sK + s * TBYTES + c * TBOX, &tm_k, full_k + 8 * s,
+                   c * kBox, j * kBK16, hk, b);
+        mbar_expect_tx(full_v + 8 * s, TBYTES);
+        for (int c = 0; c < D / kBox; ++c)
+          tma_load(sV + s * TBYTES + c * TBOX, &tm_v, full_v + 8 * s,
+                   c * kBox, j * kBK16, hk, b);
+      }
+    }
+  } else {
+    // Consumers: warpgroup cw owns q rows r0 .. r0 + 63; thread (warp,
+    // g, t) holds rows row0 = r0 + 16 warp + g and row1 = row0 + 8, and in
+    // every 8-column chunk j of S and O the columns 8j + 2t and 8j + 2t + 1
+    // (the wgmma accumulator layout).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = q0 + 64 * cw;
+    const int row0 = r0 + 16 * warp + g, row1 = row0 + 8;
+    const uint32_t qa = sQ + 64 * cw * 128;
+
+    float o[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (qp0 < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + qp0 * p.o_s + d) =
-          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
-    if (qp1 < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(og + qp1 * p.o_s + d) =
-          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    mbar_wait(bar_q, 0);
+
+    for (int j = lo, it = 0; j <= hi; ++j, ++it) {
+      const int s = it % NST;
+      const uint32_t par = (it / NST) & 1;
+      const int k0 = j * kBK16;
+      const uint32_t ks = sK + s * TBYTES, vs = sV + s * TBYTES;
+      bool live = true;                     // for this warpgroup's rows
+      if (p.causal) live = k0 <= r0 + 63;
+      if (p.window) live = live && (k0 + kBK16 - 1 > r0 - p.window);
+      mbar_wait(full_k + 8 * s, par);
+      if (live) {
+        // S = Q K^T: 64 x kBK16, D / 16 steps of k16
+        float sc[kBK16 / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kd = 0; kd < D; kd += 16)
+          wgmma_ss_n80(sc,
+                       sw128_desc(qa + (kd / kBox) * QBOX + (kd % kBox) * 2,
+                                  16, 1024),
+                       sw128_desc(ks + (kd / kBox) * TBOX + (kd % kBox) * 2,
+                                  16, 1024),
+                       kd > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+
+        // scores in log2 units: s * scale * log2(e), or the softcap's
+        if (p.softcap) {
+#pragma unroll
+          for (int i = 0; i < kBK16 / 2; ++i)
+            sc[i] = softcap_log2(sc[i], p.tanh_mul, p.score_mul);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kBK16 / 2; ++i) sc[i] *= p.score_mul;
+        }
+        // masks only on edge tiles: the ragged end of the keys, the causal
+        // diagonal, the window's lower edge
+        const bool edge = k0 + kBK16 > p.Sk ||
+                          (p.causal && k0 + kBK16 - 1 > r0) ||
+                          (p.window && k0 <= r0 + 63 - p.window);
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < kBK16 / 2; ++i) {
+            const int kp = k0 + (i / 4) * 8 + 2 * t + (i & 1);
+            const int qp = (i & 2) ? row1 : row0;
+            bool ok = kp < p.Sk;
+            if (p.causal) ok = ok && kp <= qp;
+            if (p.window) ok = ok && kp > qp - p.window;
+            if (!ok) sc[i] = kNegInf;
+          }
+        }
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int i = 0; i < kBK16 / 2; i += 4) {
+          mx0 = fmaxf(mx0, fmaxf(sc[i], sc[i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[i + 2], sc[i + 3]));
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0));
+        const float mn1 = fmaxf(m1, quad_max(mx1));
+        const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kBK16 / 2; i += 4) {
+          sc[i] = ex2(sc[i] - mn0);
+          sc[i + 1] = ex2(sc[i + 1] - mn0);
+          sc[i + 2] = ex2(sc[i + 2] - mn1);
+          sc[i + 3] = ex2(sc[i + 3] - mn1);
+          sum0 += sc[i] + sc[i + 1];
+          sum1 += sc[i + 2] + sc[i + 3];
+        }
+        // l stays a per-thread partial sum (every thread of a row scales by
+        // the same corr); the four partials of a row are added at the end.
+        l0 = l0 * c0 + sum0;
+        l1 = l1 * c1 + sum1;
+        // bf16(P) as wgmma's register A operand: the accumulator chunks
+        // 2kk and 2kk + 1 of S are the 16 keys of step kk
+        uint32_t pa[kBK16 / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK16 / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4) {
+          o[i] *= c0;
+          o[i + 1] *= c0;
+          o[i + 2] *= c1;
+          o[i + 3] *= c1;
+        }
+
+        // O += P V: 4 steps of 16 keys, V MN-major (D contiguous)
+        mbar_wait(full_v + 8 * s, par);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK16 / 16; ++kk)
+          wgmma_rs(o, pa[kk], sw128_desc(vs + kk * 16 * 128, TBOX, 1024));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+      } else {
+        mbar_wait(full_v + 8 * s, par);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    __nv_bfloat16* og = (__nv_bfloat16*)p.o + b * p.o_b + h * p.o_h;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 4) {
+      const int d = 2 * i + 2 * t;          // chunk i / 4: columns 8 (i/4)
+      if (row0 < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(og + row0 * p.o_s + d) =
+            __floats2bfloat162_rn(o[i] * inv0, o[i + 1] * inv0);
+      if (row1 < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.o_s + d) =
+            __floats2bfloat162_rn(o[i + 2] * inv1, o[i + 3] * inv1);
+    }
   }
 }
-
 // ---------------------------------------------------------------------------
 // fp32: IEEE FMAs
 // ---------------------------------------------------------------------------
@@ -421,12 +723,89 @@ int launch(Kernel kernel, int threads, size_t smem, const Params& p, int B,
   return (int)cudaGetLastError();
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
+// library needs no -lcuda.
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d map {D, S, heads, B} of a [B, S, heads, D] bf16 view (strides in
+// elements, D contiguous) with a box of `rows` positions by 64 columns of
+// one (b, head), 128-byte swizzled; positions past S read as zeros.  The
+// stride of an axis of length 1 is never used: it is replaced by D so that
+// TMA's rule (a positive multiple of 16 bytes) holds for any view.
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
+                int S, int heads, int B, int64_t s_stride, int64_t h_stride,
+                int64_t b_stride, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {
+      2 * (cuuint64_t)(S > 1 ? s_stride : D),
+      2 * (cuuint64_t)(heads > 1 ? h_stride : D),
+      2 * (cuuint64_t)(B > 1 ? b_stride : D)};
+  const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(encode, &tq, p.q, D, p.Sq, p.H, B, p.q_s, p.q_h, p.q_b,
+                  kBQ16) ||
+      !encode_map(encode, &tk, p.k, D, p.Sk, p.KV, B, p.k_s, p.k_h, p.k_b,
+                  kBK16) ||
+      !encode_map(encode, &tv, p.v, D, p.Sk, p.KV, B, p.v_s, p.v_h, p.v_b,
+                  kBK16))
+    return (int)cudaErrorInvalidValue;
+  Bf16Params bp;
+  bp.o = p.o;
+  bp.o_b = p.o_b; bp.o_s = p.o_s; bp.o_h = p.o_h;
+  bp.H = p.H; bp.KV = p.KV; bp.Sq = p.Sq; bp.Sk = p.Sk;
+  bp.causal = p.causal; bp.window = p.window;
+  bp.softcap = p.softcap != 0.f;
+  bp.score_mul = (bp.softcap ? p.softcap : p.scale) * kLog2e;
+  bp.tanh_mul = bp.softcap ? 2.f * kLog2e * p.scale / p.softcap : 0.f;
+  const size_t smem = bf16_smem_bytes<D>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * p.H, (p.Sq + kBQ16 - 1) / kBQ16);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads16, smem, stream>>>(tq, tk, tv,
+                                                                bp);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_d(const Params& p, int B, int bf16, cudaStream_t stream) {
-  if (bf16)
-    return launch(flash_fwd_bf16_kernel<D>, kWarps16 * 32,
-                  sizeof(__nv_bfloat16) * (kBQ + 2 * kBK16) * (D + 8), p, B,
-                  stream);
+  if (bf16) return launch_bf16<D>(p, B, stream);
   return launch(flash_fwd_f32_kernel<D>, kThreads32,
                 sizeof(float) * ((kBQ + kBK32) * (D + 1) + kBK32 * D +
                                  kBQ * (kBK32 + 1)),
@@ -438,8 +817,8 @@ int launch_d(const Params& p, int B, int bf16, cudaStream_t stream) {
 // Plain C entry point, loaded with ctypes.  q, k, v and o are [B, S, heads,
 // D] views given by their strides (D contiguous); dtype_bf16 selects bf16
 // (else fp32).  Launches on `stream` and returns the CUDA error (0 when the
-// launch was accepted); an unsupported head_dim returns
-// cudaErrorInvalidValue.
+// launch was accepted); an unsupported head_dim, or a bf16 view that TMA
+// cannot map, returns cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int Sq, int Sk, int D, const int64_t* strides, float scale,

@@ -5,6 +5,9 @@ The kernel replaces the Pallas TPU kernel ``flash_attention`` of the JAX
 package's ``kernels/flash_attention/flash_attention.py`` (and the KV-head
 ``repeat`` of its ``ops.py``); the source note at the top of the ``.cu``
 file says what bounds it on an H100 and what its design does about that.
+bf16 runs on Hopper's ``wgmma`` with K and V tiles brought by TMA (the
+Tensor Memory Accelerator) through a ring of shared-memory stages, fed by a
+producer warpgroup; fp32 runs on plain IEEE FMAs.
 
 Build: at first use, ``kernels/build.py`` compiles ``csrc/*.cu`` for
 ``sm_90a`` into ``build/repro_torch/flash_attention-<hash>/`` and the
@@ -14,7 +17,11 @@ the build raises.
 Launch: ``attend`` checks device, dtype, shape and layout, allocates the
 output with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the C entry point reports a CUDA error, and adds
-one to ``launches["flash_attention"]``.
+one to ``launches["flash_attention"]``.  The bf16 kernel reads q, k and v
+through TMA tensor maps built on the host from the views' strides, so every
+view (of either dtype) must follow TMA's rules: a 16-byte aligned start
+and, on every axis but the last, a stride that is a multiple of 16 bytes
+and, where the axis is longer than 1, not 0.
 """
 from __future__ import annotations
 
@@ -47,16 +54,22 @@ def build() -> Path:
     return _build.build("flash_attention", CSRC)
 
 
+def load(path) -> ctypes.CDLL:
+    """Load a library built from a ``flash_attention.cu`` and declare its C
+    entry point."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [
+        p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.flash_attention_launch.argtypes = [
-                p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p]
-            lib.flash_attention_launch.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
@@ -68,18 +81,24 @@ def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name} must have a contiguous last dimension")
-    vec = 16 // t.element_size()            # bf16 tiles load 16-byte vectors
+    vec = 16 // t.element_size()            # TMA: 16-byte address, strides
     if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
         raise ValueError(f"{name} must be 16-byte aligned with strides that "
                          f"are multiples of {vec} elements")
+    if any(s == 0 and n > 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+        raise ValueError(f"{name} broadcasts an axis (stride 0): TMA maps "
+                         f"take positive strides")
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0, softcap: float = 0.0,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None,
+           lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """Flash attention on the card.  q [B,Sq,H,D]; k, v [B,Sk,KV,D] with
-    H % KV == 0 (any strides with D contiguous) -> [B,Sq,H,D] in q's dtype.
-    Query head h reads KV head h // (H // KV); positions count from 0."""
+    H % KV == 0 (strides as ``_check_layout`` takes them, D contiguous) ->
+    [B,Sq,H,D] in q's dtype.  Query head h reads KV head h // (H // KV);
+    positions count from 0.  ``lib`` is another build of the kernel (from
+    ``load``) to launch instead of the package's, for comparing designs."""
     if q.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {q.device}")
     if q.dim() != 4:
@@ -107,7 +126,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out.zero_()
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
-    lib = _load()
+    lib = _load() if lib is None else lib
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -191,6 +191,62 @@ def test_flash_kernel_jax_layout_and_scale(cuda, ieee_fp32, dtype):
         _assert_flash_close(got, want)
 
 
+#: Shapes that exercise the bf16 kernel's TMA ring and edge tiles (128 q
+#: rows a block, 80-key tiles, a ring of 2, 4 or 8 stages at D = 256, 128,
+#: 64): (S, (H, KV), window, softcap).
+FLASH_EDGE_CASES = {
+    # S not a multiple of the tiles: TMA zero-fills keys (S = 200) and q
+    # rows (both) past the end, and the last q tile is ragged
+    "S200": (200, (4, 2), 0, 50.0),
+    "S4160": (4160, (2, 1), 0, 0.0),
+    # the window's lower edge crosses 128-row q tiles; the ring wraps many
+    # times in every block
+    "S4608_window4096": (4608, (2, 1), 4096, 50.0),
+    # rows 119..127 see none of keys 0..79, a live edge tile of their
+    # warpgroup (rows 64..127): fully masked rows inside a live tile
+    "window40": (256, (2, 2), 40, 0.0),
+    # H // KV in {1, 2, 4}
+    "gqa1": (320, (4, 4), 0, 50.0),
+    "gqa2": (320, (4, 2), 100, 0.0),
+    "gqa4": (320, (8, 2), 0, 0.0),
+}
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", list(FLASH_EDGE_CASES))
+def test_flash_kernel_edge_shapes(cuda, D, case):
+    S, (H, KV), window, cap = FLASH_EDGE_CASES[case]
+    q, k, v = _qkv(1, S, H, KV, D, torch.bfloat16, cuda, seed=3)
+    kw = dict(causal=True, window=window, softcap=cap)
+    got = FA.gqa_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["fused_projection", "padded"])
+def test_flash_kernel_strided_views(cuda, ieee_fp32, dtype, layout):
+    """Views whose tensor maps take non-contiguous strides: q, k and v cut
+    from one fused [B, S, H + 2 KV, D] projection (position stride
+    (H + 2 KV) D, head stride D), or padded along every axis."""
+    B, S, H, KV, D = 2, 192, 4, 2, 128
+    if layout == "fused_projection":
+        x = _qkv(B, S, H + 2 * KV, 1, D, dtype, cuda, seed=5)[0]
+        q, k, v = x[:, :, :H], x[:, :, H:H + KV], x[:, :, H + KV:]
+    else:
+        q, k, v = (t[:, 3:S + 3, 1:h + 1, :D] for t, h in zip(
+            _qkv(B, S + 8, H + 2, KV + 2, D + 64, dtype, cuda, seed=6),
+            (H, KV, KV)))
+    assert not q.is_contiguous() and not k.is_contiguous()
+    for mode in ("causal", "window_softcap"):
+        got = FA.gqa_flash_attention(q, k, v, **FLASH_MODES[mode])
+        want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **FLASH_MODES[mode])
+        _assert_flash_close(got, want)
+
+
 def test_flash_wrapper_rejects_bad_inputs(cuda):
     q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16, cuda)
     with pytest.raises(TypeError):
@@ -201,6 +257,11 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         FA.gqa_flash_attention(q, k[:, :, :1].expand(1, 64, 3, 64), v)
     with pytest.raises(ValueError):
         FA.gqa_flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="stride 0"):
+        FA.gqa_flash_attention(q, k[:, :, :1].expand(1, 64, 2, 64), v)
+    shifted = torch.zeros(v.numel() + 4, dtype=v.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):                # 8 bytes
+        FA.gqa_flash_attention(q, k, shifted[4:].view_as(v))
 
 
 def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32):

@@ -156,3 +156,45 @@ def test_cpu_tensors_never_launch_the_kernel():
     q = torch.zeros((1, 64, 4, 64))
     gqa_flash_attention(q, q[:, :, :2], q[:, :, :2])
     assert launches == {"flash_attention": 0}
+
+
+@pytest.mark.parametrize("S, heads", [(200, (4, 2)), (128, (4, 4)),
+                                      (128, (4, 2)), (128, (8, 2))])
+def test_edge_shapes_match_pallas_kernel(S, heads):
+    """The card tests' edge shapes at CPU size (``FLASH_EDGE_CASES`` of
+    tests/test_torch_cuda.py): a length that is no multiple of 64, and
+    H // KV in {1, 2, 4}, in bf16 against the JAX GQA wrapper (Pallas in
+    interpret mode) with a window and a softcap."""
+    H, KV = heads
+    rng = np.random.default_rng([S, H, KV])
+    arrs = [jnp.asarray(rng.normal(size=(1, S, h, 64)), jnp.bfloat16)
+            for h in (H, KV, KV)]
+    q, k, v = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+               .to(torch.bfloat16) for a in arrs)
+    kw = dict(causal=True, window=S // 3, softcap=50.0)
+    got = gqa_flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (1, S, H, 64)
+    _assert_close(got, jax_gqa(*arrs, **kw), 2e-2)
+
+
+def test_layout_check_takes_what_tma_maps():
+    """The wrapper's layout rules (TMA's): a 16-byte aligned start, strides
+    in multiples of 16 bytes, no broadcast (stride 0) axis longer than 1."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _check_layout,
+    )
+    cpu, bf16 = torch.device("cpu"), torch.bfloat16
+    x = torch.zeros((1, 64, 4, 64), dtype=bf16)
+    for ok in (x, x.transpose(1, 2).contiguous().transpose(1, 2),
+               x[:, :, :1], x[:, 8:40, 1:3]):
+        _check_layout("q", ok, bf16, cpu)
+    with pytest.raises(ValueError, match="stride 0"):
+        _check_layout("k", x[:, :, :1].expand(1, 64, 2, 64), bf16, cpu)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_layout("v", torch.zeros(x.numel() + 4, dtype=bf16)[4:]
+                      .view_as(x), bf16, cpu)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_layout("v", torch.zeros((1, 64, 4, 68), dtype=bf16)[..., :64],
+                      bf16, cpu)
+    with pytest.raises(TypeError):
+        _check_layout("v", x.float(), bf16, cpu)

@@ -48,6 +48,34 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     assert got["cuda_initialized"] is False
 
 
+_SCRIPT_PROBE = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("script", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import torch
+print(json.dumps({
+    "leaked": sorted(m for m in sys.modules
+                     if m in ("jax", "repro") or m.startswith(("jax.",
+                                                              "repro."))),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tools/flash_attention_probe.py",
+                                    "tools/ssd_scan_probe.py"])
+def test_chip_scripts_import_no_jax_and_no_repro(script):
+    """The scripts that run on the card, loaded as modules (their main()
+    not run), pull in neither jax nor the JAX package."""
+    path = SRC.parent / script
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, str(path)],
+                         env=env, capture_output=True, text=True, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "cuda_initialized": False}
+
+
 def test_default_device_cluster_needs_a_card():
     from repro_torch.core import DVV_MECHANISM
     from repro_torch.store import KVCluster
