@@ -32,7 +32,10 @@ exits non-zero:
            [1, 4096], and bf16 at the main path's [4, 32768]; y and
            h_final to 5e-2 (bf16) or 1e-5 (fp32) of the largest value,
            against the plain version run in fp32 on the upcast inputs.
-           No PyTorch call computes the SSD scan: no library yardstick.
+           The bf16 rows take the wgmma path (three passes, three CUDA
+           kernels a call), fp32 the simple kernel; each row names its
+           path.  No PyTorch call computes the SSD scan: no library
+           yardstick.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -59,8 +62,9 @@ exits non-zero:
            with its 16 tokens.  Parameter bytes and peak device memory.
   model_trace  one prefill and 16 decode steps under torch.profiler on
            the card: device-busy seconds against the wall seconds of the
-           same traced run (the device's idle share) and the top device
-           events.
+           same traced run (the device's idle share), the top device
+           events, and the device seconds and share of the hand-written
+           kernel (flash_fwd_*) by kernel name.
   model_parity  the same config cut to 2 groups (4 layers) at full width
            with fp32 compute: prefill logits of 4,608 tokens (past the
            4,096 window) against the same tokens fed one by one through
@@ -72,7 +76,8 @@ exits non-zero:
            tokens [4, 32768], each launching ssd_scan exactly 48 times;
            then the same 8 requests of 16 tokens through BatchScheduler,
            sessions in a KVCluster on the card, all read back.
-  ssm_trace  as model_trace, for mamba2-780m at [4, 32768].
+  ssm_trace  as model_trace, for mamba2-780m at [4, 32768]; the kernel
+           share sums the SSD scan's kernels (ssd_*).
   ssm_parity  mamba2-780m cut to 4 layers at full width, fp32 compute:
            prefill logits of 1,024 tokens (four chunks) against
            token-by-token decode (decode_ssm's recurrence), to
@@ -80,8 +85,11 @@ exits non-zero:
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
-time of one launch of the kernel alone, the mean over the launches the
-trace recorded ("device_launches_traced" of "device_reps").  The model
+time of one call: for each CUDA kernel of the call, the mean over the
+launches the trace recorded ("device_launches_traced" of "device_reps"
+calls), summed over the call's kernels ("device_kernels_ms" gives each;
+the SSD scan's wgmma path has three, every other call one).  The trace
+phases give the kernels' share of traced prefill device time.  The model
 phases report the peak device memory of the timed prefill itself, before
 the checks of its logits (isfinite builds temporaries as large as the
 logits), and of serving.
@@ -96,6 +104,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -164,6 +173,8 @@ SSD_ROWS = (
     ("main_path", "bfloat16", *SSM_PREFILL, 5e-2),
 )
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 256
+#: the common part of the names of the SSD scan's CUDA kernels (both paths)
+SSD_KERNELS = "ssd_"
 
 
 def emit(obj) -> None:
@@ -238,20 +249,35 @@ def device_ms(fn, reps: int):
     return busy_us / reps / 1e3 if busy_us else None
 
 
+def kernel_name(key: str, kernel: str):
+    """The bare name (no namespace, template arguments or parameters) of
+    the profiler's device event ``key`` if it contains ``kernel``."""
+    found = re.search(r"\w*" + re.escape(kernel) + r"\w*", key)
+    return found.group(0) if found else None
+
+
 def kernel_device_ms(fn, reps: int, kernel: str):
-    """The device milliseconds of one launch of ``kernel`` (a substring of
-    its symbol), from ``reps`` calls of ``fn`` under the profiler after one
-    warm-up: the mean over the launches the trace recorded, which can be
-    fewer than ``reps`` (dividing the busy time by ``reps`` then reads
-    low).  Returns the row's ``device_ms`` and ``device_launches_traced``."""
+    """The device milliseconds of one call of ``fn``, from ``reps`` calls
+    under the profiler after one warm-up.  Each CUDA kernel whose symbol
+    contains ``kernel`` is averaged over the launches the trace recorded,
+    which can be fewer than ``reps`` (dividing the busy time by ``reps``
+    then reads low), and a call launches each once: ``device_ms`` is the
+    sum of those means, ``device_kernels_ms`` each mean by kernel name."""
     import torch
     fn()
     torch.cuda.synchronize()
     _, per, _ = device_profile(lambda: [fn() for _ in range(reps)])
-    hits = [(n, us) for key, (n, us) in per.items() if kernel in key]
-    n = sum(c for c, _ in hits)
-    return {"device_ms": sum(us for _, us in hits) / n / 1e3 if n else None,
-            "device_launches_traced": n, "device_reps": reps}
+    by = {}
+    for key, (n, us) in per.items():
+        name = kernel_name(key, kernel)
+        if name:
+            c, t = by.get(name, (0, 0.0))
+            by[name] = (c + n, t + us)
+    each = {name: us / n / 1e3 for name, (n, us) in by.items()}
+    return {"device_ms": sum(each.values()) if each else None,
+            "device_kernels_ms": each,
+            "device_launches_traced": sum(n for n, _ in by.values()),
+            "device_reps": reps}
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S):
@@ -468,6 +494,7 @@ def ssd_rows(seed: int):
     import torch
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import wgmma_path
 
     rows = []
     for i, (variant, dtype, B, S, tol) in enumerate(SSD_ROWS):
@@ -497,9 +524,11 @@ def ssd_rows(seed: int):
         rows.append({"name": "ssd_scan", "variant": variant,
                      "shape": [B, S, SSD_HEADS, SSD_HEAD_DIM, SSD_STATE],
                      "chunk": SSD_CHUNK, "dtype": dtype,
+                     "path": wgmma_path(args[0], args[3], args[4],
+                                        SSD_CHUNK),
                      "max_abs_err": abs_err, "rel_err": err, "tol": tol,
                      "ms": cuda_ms(kern, 5), "plain_ms": cuda_ms(plain, 2),
-                     **kernel_device_ms(kern, 5, "ssd_scan_kernel"),
+                     **kernel_device_ms(kern, 5, SSD_KERNELS),
                      "bound_ms": b_ms, "bound_by": b_by, "flops": nops,
                      "bytes": nbytes, "library": None, "library_ms": None})
         del args, y, h, kern, plain
@@ -781,11 +810,13 @@ def model_phase(cfg, params, seed: int, *, phase="model",
 
 
 def model_trace_phase(cfg, params, seed: int, *, phase="model_trace",
-                      tokens=(1, PREFILL_TOKENS)):
+                      tokens=(1, PREFILL_TOKENS), kernel="flash_fwd_"):
     """One prefill and TRACE_DECODE_STEPS decode steps, each traced on the
-    card: device-busy seconds and the top device events, and the idle share
+    card: device-busy seconds and the top device events, the idle share
     against the wall seconds of the same traced run (the profiler's cost on
-    the host's side of each launch is in that wall time)."""
+    the host's side of each launch is in that wall time), and the device
+    time and share of the hand-written kernels whose symbols contain
+    ``kernel``, by kernel name."""
     import torch
     from repro_torch.launch.serve import BatchScheduler
     from repro_torch.launch.steps import make_prefill_step
@@ -806,9 +837,17 @@ def model_trace_phase(cfg, params, seed: int, *, phase="model_trace",
             ("decode", lambda: [sched.step()
                                 for _ in range(TRACE_DECODE_STEPS)])):
         busy_us, per, wall_s = device_profile(fn)
+        mine = {}
+        for key, (c, us) in per.items():
+            kname = kernel_name(key, kernel)
+            if kname:
+                mine[kname] = mine.get(kname, 0.0) + us / 1e6
         out[name] = {
             "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall_s
+            if busy_us else None,
+            "kernel_device_s": mine,
+            "kernel_share": sum(mine.values()) / (busy_us / 1e6)
             if busy_us else None,
             "device_events": sum(c for c, _ in per.values()),
             "top_device_events": sorted(
@@ -1004,7 +1043,7 @@ def main() -> int:
     ssm.update(param_count=count_params(cfg), init_s=init_s)
     emit(ssm)
     emit(model_trace_phase(cfg, params, args.seed, phase="ssm_trace",
-                           tokens=SSM_PREFILL))
+                           tokens=SSM_PREFILL, kernel=SSD_KERNELS))
     del params
     torch.cuda.empty_cache()
     emit(ssm_parity_phase(args.seed))
@@ -1032,9 +1071,12 @@ def main() -> int:
             if r["variant"] != "main_path":
                 continue
             launches = ssm["ssd_scan_launches"]
-            source = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+            source = "src/repro_torch/kernels/ssd_scan/csrc/" + (
+                "ssd_passes.cu" if r["path"] == "wgmma" else "ssd_scan.cu")
             extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "library": None, "rel_err": r["rel_err"]}
+                     "library": None, "rel_err": r["rel_err"],
+                     "path": r["path"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
         elif tuple(r["shape"]) == SUMMARY_SHAPE:
             launches = store["launches"][r["name"]]
             source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"

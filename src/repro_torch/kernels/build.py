@@ -21,7 +21,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: What the last build of each package did: library path, seconds and the
-#: compiler's output (``-Xptxas -v``: registers, shared memory, spills).
+#: compiler's output (``-Xptxas -v``: registers, shared memory, spills),
+#: which a cached build reads back from beside its library.
 build_info: Dict[str, Dict[str, object]] = {}
 
 
@@ -44,8 +45,11 @@ def build(name: str, csrc: Path) -> Path:
     for src in sources:
         digest.update(src.name.encode() + src.read_bytes())
     lib = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+    log = lib.with_name("nvcc.log")
     if lib.exists():
-        build_info[name] = dict(path=str(lib), seconds=0.0, log="(cached)")
+        build_info[name] = dict(path=str(lib), seconds=0.0,
+                                log=log.read_text() if log.exists()
+                                else "(cached)")
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"lib{name}.{os.getpid()}.so")
@@ -56,6 +60,7 @@ def build(name: str, csrc: Path) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"
                            f"{proc.stdout}")
+    log.write_text(proc.stdout)
     os.replace(tmp, lib)
     build_info[name] = dict(path=str(lib), seconds=time.perf_counter() - t,
                             log=proc.stdout)

@@ -1,9 +1,13 @@
-// Mamba-2 SSD chunked forward scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked forward scan for Hopper (sm_90a): the simple path.
 //
 // Replaces the Pallas TPU kernel ssd_scan_pallas (_ssd_kernel) of
 // src/repro/kernels/ssd_scan/ssd_scan.py, and with it the transpose of x
 // and the broadcast of B and C over heads in its wrapper: this kernel reads
 // x [B,S,H,P] and dt [B,S,H] by strides and B, C [B,S,N] by (b, s) alone.
+// It runs every call that ssd_passes.cu's three wgmma passes do not tile
+// (ssd_scan.wgmma_path in the wrapper decides): fp32, which needs IEEE
+// fp32 products, and other widths, chunks or unaligned views.  bf16 at
+// mamba2-780m's widths, the main path, takes the passes.
 //
 // What it computes, for each (batch b, head h), chunk by chunk in order
 // (c = chunk, acs = the cumulative sum of a_t = dt_t * A within the chunk,

@@ -1,27 +1,38 @@
-"""Build and launch the hand-written CUDA kernel of ``csrc/ssd_scan.cu``.
+"""Build and launch the hand-written CUDA kernels of ``csrc/``.
 
-The kernel replaces the Pallas TPU kernel ``ssd_scan_pallas`` of the JAX
-package's ``kernels/ssd_scan/ssd_scan.py`` (with its wrapper's transpose of
-x and broadcast of B and C over heads); the source note at the top of the
-``.cu`` file says what bounds it on an H100 and what its design does about
-that.
+They replace the Pallas TPU kernel ``ssd_scan_pallas`` of the JAX package's
+``kernels/ssd_scan/ssd_scan.py`` (with its wrapper's transpose of x and
+broadcast of B and C over heads).  Two paths, chosen by ``wgmma_path``
+from dtype, shape and layout alone:
+
+- ``"wgmma"`` (``csrc/ssd_passes.cu``): bf16 at P 64, N 128, a chunk that
+  is a multiple of 64 up to 256, views TMA can map (mamba2-780m's
+  prefill).  Mamba-2's chunk-parallel form in three passes on Hopper's
+  ``wgmma``: chunk states, the state across chunk boundaries, chunk outputs.
+  The wrapper allocates their scratch (``scratch_shapes``).
+- ``"simple"`` (``csrc/ssd_scan.cu``): every other call, fp32 among them;
+  one block walks a (batch, head)'s chunks in order.
+
+The source notes at the top of the ``.cu`` files say what bounds each on an
+H100 and what its design does about that.
 
 Build: at first use, ``kernels/build.py`` compiles ``csrc/*.cu`` for
 ``sm_90a`` into ``build/repro_torch/ssd_scan-<hash>/`` and the library is
 loaded with ``ctypes``.  There is no fallback: without ``nvcc`` the build
 raises.
 
-Launch: ``scan`` checks device, dtype, shape and layout, allocates ``y``
-and ``h_final`` with ``torch.empty``, launches on PyTorch's current stream
-without synchronising, raises if the C entry point reports a CUDA error,
-and adds one to ``launches["ssd_scan"]``.
+Launch: ``scan`` checks device, dtype, shape and layout, allocates ``y``,
+``h_final`` and the scratch with ``torch.empty``, launches on PyTorch's
+current stream without synchronising, raises if a C entry point reports a
+CUDA error, and adds one to ``launches["ssd_scan"]`` (one per call,
+whatever the number of CUDA kernels) and to ``path_launches[path]``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,9 +41,13 @@ from .. import build as _build
 CSRC = Path(__file__).resolve().parent / "csrc"
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 MAX_P, MAX_N, TILE, MAX_CHUNK = 64, 128, 64, 1024
+#: What the wgmma passes tile: head dim, state, chunk multiple and limit.
+WGMMA_P, WGMMA_N, WGMMA_TILE, WGMMA_MAX_CHUNK = 64, 128, 64, 256
 
-#: Launches of the kernel since the last ``reset_launches``.
+#: Launches of the kernel since the last ``reset_launches``: one per scan.
 launches: Dict[str, int] = {"ssd_scan": 0}
+#: The same calls by path (``wgmma_path``).
+path_launches: Dict[str, int] = {"wgmma": 0, "simple": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -40,6 +55,8 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches["ssd_scan"] = 0
+    for k in path_launches:
+        path_launches[k] = 0
 
 
 def build() -> Path:
@@ -47,16 +64,32 @@ def build() -> Path:
     return _build.build("ssd_scan", CSRC)
 
 
+def load(path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/`` (or from an earlier
+    ``ssd_scan.cu`` alone, which has only ``ssd_scan_launch``) and declare
+    its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_launch.argtypes = [
+        p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, p]
+    lib.ssd_scan_launch.restype = ctypes.c_int
+    if hasattr(lib, "ssd_chunk_state_launch"):
+        lib.ssd_chunk_state_launch.argtypes = [
+            p, p, p, p, p, p, i, i, i, i, i, i, p, i, p]
+        lib.ssd_state_pass_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.ssd_chunk_out_launch.argtypes = [
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, p]
+        for fn in (lib.ssd_chunk_state_launch, lib.ssd_state_pass_launch,
+                   lib.ssd_chunk_out_launch):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.ssd_scan_launch.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, p]
-            lib.ssd_scan_launch.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
@@ -68,13 +101,44 @@ def check_chunk(S: int, chunk: int) -> None:
                          f"chunk {chunk}")
 
 
-def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-         Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor, *,
-         chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan on the card.  xh [B,S,H,P]; dt [B,S,H]; Bc, Cc [B,S,N]
-    (xh, dt, Bc and Cc in one dtype, bf16 or fp32, any strides with the last
-    axis of xh, Bc and Cc contiguous); A, D [H] in bf16 or fp32.  Returns
-    y [B,S,H,P] in xh's dtype and h_final [B,H,P,N] in fp32."""
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA's rules for a bf16 view: a 16-byte aligned start, the last axis
+    contiguous, and every other axis longer than 1 with a positive stride
+    that is a multiple of 16 bytes."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and
+            all(n == 1 or (s > 0 and s % vec == 0)
+                for s, n in zip(t.stride()[:-1], t.shape[:-1])))
+
+
+def wgmma_path(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+               chunk: int) -> str:
+    """``"wgmma"`` where the Hopper passes of ``csrc/ssd_passes.cu`` tile
+    the call (bf16; P 64; N 128; a chunk that is a multiple of 64 up to 256;
+    x, B and C as TMA maps them; a sequence that is not empty), else
+    ``"simple"`` (``csrc/ssd_scan.cu``).  Pure Python on the arguments'
+    dtype, shapes and strides."""
+    S, P, N = xh.shape[1], xh.shape[-1], Bc.shape[-1]
+    if (xh.dtype == torch.bfloat16 and S > 0 and P == WGMMA_P
+            and N == WGMMA_N and chunk % WGMMA_TILE == 0
+            and chunk <= WGMMA_MAX_CHUNK
+            and all(_tma_ok(t) for t in (xh, Bc, Cc))):
+        return "wgmma"
+    return "simple"
+
+
+def scratch_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The wgmma path's scratch, allocated by the wrapper: the fp32 chunk
+    states (pass 1), each chunk's total log decay (pass 1), and the bf16
+    state before each chunk (pass 2, the operand of pass 3)."""
+    nc = S // chunk
+    return {"states": ((B, nc, H, P, N), torch.float32),
+            "chunk_sum": ((B, H, nc), torch.float32),
+            "h_before": ((B, nc, H, P, N), torch.bfloat16)}
+
+
+def _check(xh, dt, A, Bc, Cc, D, chunk) -> Tuple[int, int, int, int, int]:
     if xh.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {xh.device}")
     if xh.dim() != 4:
@@ -110,24 +174,119 @@ def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan takes a chunk that is a multiple of 4, "
                          f"at most {TILE} or a multiple of {TILE} up to "
                          f"{MAX_CHUNK}; got {chunk}")
-    y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
-    h_final = torch.empty((B, H, P, N), dtype=torch.float32,
-                          device=xh.device)
-    if B * H == 0:
-        return y, h_final
-    A, D = A.contiguous(), D.contiguous()
-    strides = (ctypes.c_int64 * 13)(*xh.stride()[:3], *dt.stride(),
-                                    *Bc.stride()[:2], *Cc.stride()[:2],
-                                    *y.stride()[:3])
-    lib = _load()
-    with torch.cuda.device(xh.device):
-        err = lib.ssd_scan_launch(
-            xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), D.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-            B, S, H, P, N, chunk, ctypes.cast(strides, ctypes.c_void_p),
-            DTYPES[xh.dtype], DTYPES[A.dtype], DTYPES[D.dtype],
-            torch.cuda.current_stream(xh.device).cuda_stream)
+    return B, S, H, P, N
+
+
+def _strides(xh, dt, Bc, Cc, y):
+    return (ctypes.c_int64 * 13)(*xh.stride()[:3], *dt.stride(),
+                                 *Bc.stride()[:2], *Cc.stride()[:2],
+                                 *y.stride()[:3])
+
+
+def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed with CUDA error {err}")
+        raise RuntimeError(f"{what} launch failed with CUDA error {err}")
+
+
+def _passes(lib, xh, dt, A, Bc, Cc, D, chunk, dims, events):
+    B, S, H, P, N = dims
+    out = {name: torch.empty(shape, dtype=dtype, device=xh.device)
+           for name, (shape, dtype) in
+           scratch_shapes(B, S, H, P, N, chunk).items()}
+    out["y"] = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
+    out["h_final"] = torch.empty((B, H, P, N), dtype=torch.float32,
+                                 device=xh.device)
+    held = _strides(xh, dt, Bc, Cc, out["y"])     # alive until the launches
+    strides = ctypes.cast(held, ctypes.c_void_p)
+    a16, d16 = DTYPES[A.dtype], DTYPES[D.dtype]
+    stream = torch.cuda.current_stream(xh.device).cuda_stream
+
+    def mark():
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    mark()
+    _raise_on(lib.ssd_chunk_state_launch(
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+        out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
+        B, S, H, P, N, chunk, strides, a16, stream), "ssd_chunk_state")
+    mark()
+    _raise_on(lib.ssd_state_pass_launch(
+        out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
+        out["h_before"].data_ptr(), out["h_final"].data_ptr(),
+        B, S // chunk, H, P, N, stream), "ssd_state_pass")
+    mark()
+    _raise_on(lib.ssd_chunk_out_launch(
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+        Cc.data_ptr(), D.data_ptr(), out["h_before"].data_ptr(),
+        out["y"].data_ptr(), B, S, H, P, N, chunk, strides, a16, d16,
+        stream), "ssd_chunk_out")
+    mark()
+    return out
+
+
+def passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor, *,
+           chunk: int, lib: Optional[ctypes.CDLL] = None,
+           events: Optional[List[torch.cuda.Event]] = None
+           ) -> Dict[str, torch.Tensor]:
+    """The wgmma path with every intermediate: ``states``, ``chunk_sum``
+    (pass 1), ``h_before``, ``h_final`` (pass 2) and ``y`` (pass 3), for
+    holding each pass against its plain version (``ref.py``).  Raises
+    ``ValueError`` where ``wgmma_path`` is not ``"wgmma"``.  ``events``,
+    where given, receives a recorded CUDA event before each pass and one
+    after the last; counts no launch."""
+    dims = _check(xh, dt, A, Bc, Cc, D, chunk)
+    if wgmma_path(xh, Bc, Cc, chunk) != "wgmma":
+        raise ValueError("the wgmma passes do not tile this call")
+    with torch.cuda.device(xh.device):
+        return _passes(lib or _load(), xh, dt, A.contiguous(), Bc, Cc,
+                       D.contiguous(), chunk, dims, events)
+
+
+def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor, *,
+         chunk: int, lib: Optional[ctypes.CDLL] = None,
+         path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan on the card.  xh [B,S,H,P]; dt [B,S,H]; Bc, Cc [B,S,N]
+    (xh, dt, Bc and Cc in one dtype, bf16 or fp32, any strides with the last
+    axis of xh, Bc and Cc contiguous); A, D [H] in bf16 or fp32.  Returns
+    y [B,S,H,P] in xh's dtype and h_final [B,H,P,N] in fp32.  ``path``
+    (default ``wgmma_path``'s choice) and ``lib`` (another build, from
+    ``load``) are for comparing designs: ``path="simple"`` runs
+    ``csrc/ssd_scan.cu``'s kernel at any shape."""
+    B, S, H, P, N = _check(xh, dt, A, Bc, Cc, D, chunk)
+    tiled = wgmma_path(xh, Bc, Cc, chunk)
+    path = path or tiled
+    if path not in path_launches:
+        raise ValueError(f"unknown ssd_scan path {path!r}")
+    if path == "wgmma" and tiled != "wgmma":
+        raise ValueError("the wgmma passes do not tile this call")
+    if B * H == 0:
+        y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
+        return y, torch.empty((B, H, P, N), dtype=torch.float32,
+                              device=xh.device)
+    A, D = A.contiguous(), D.contiguous()
+    lib = lib or _load()
+    with torch.cuda.device(xh.device):
+        if path == "wgmma":
+            out = _passes(lib, xh, dt, A, Bc, Cc, D, chunk,
+                          (B, S, H, P, N), None)
+            y, h_final = out["y"], out["h_final"]
+        else:
+            y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
+            h_final = torch.empty((B, H, P, N), dtype=torch.float32,
+                                  device=xh.device)
+            held = _strides(xh, dt, Bc, Cc, y)
+            _raise_on(lib.ssd_scan_launch(
+                xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+                Cc.data_ptr(), D.data_ptr(), y.data_ptr(),
+                h_final.data_ptr(), B, S, H, P, N, chunk,
+                ctypes.cast(held, ctypes.c_void_p),
+                DTYPES[xh.dtype], DTYPES[A.dtype], DTYPES[D.dtype],
+                torch.cuda.current_stream(xh.device).cuda_stream),
+                "ssd_scan")
     launches["ssd_scan"] += 1
+    path_launches[path] += 1
     return y, h_final

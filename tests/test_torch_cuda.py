@@ -420,3 +420,71 @@ def test_ssd_kernel_unaligned_streams(cuda, ieee_fp32, dtype):
     want_y, want_h = ssd_chunked(*(a.float() for a in args), 16)
     assert _rel(y, want_y) < SSD_TOL[dtype]
     assert _rel(h, want_h) < SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("chunk,H", [(64, 5), (256, 48)])
+def test_ssd_passes_equal_plain_versions(cuda, ieee_fp32, chunk, H):
+    """Each pass of the bf16 wgmma path against its plain version (ref.py,
+    with the kernel's bf16 operand rounding) on the same inputs: the chunk
+    states and totals of pass 1 from the scan's inputs; h_before and
+    h_final of pass 2 from the kernel's states and totals; y of pass 3 from
+    the kernel's h_before.  1e-2 of the largest value (ex2.approx and the
+    order of fp32 sums against torch's exp and cumsum, which can flip a
+    bf16 rounding of an operand)."""
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import passes
+
+    args = _ssd_inputs(2, 4 * chunk, H, 64, 128, torch.bfloat16, cuda,
+                       seed=2)
+    got = passes(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    bf = torch.bfloat16
+    states, chunk_sum = ref.chunk_state(*args[:4], chunk, bf)
+    assert _rel(got["states"], states) < 1e-2
+    assert _rel(got["chunk_sum"], chunk_sum) < 1e-5
+    h_before, h_final = ref.state_pass(got["states"], got["chunk_sum"], bf)
+    assert got["h_before"].dtype == bf
+    assert _rel(got["h_before"], h_before) < 1e-2
+    assert _rel(got["h_final"], h_final) < 1e-5
+    y = ref.chunk_out(*args, got["h_before"], chunk, bf)
+    assert _rel(got["y"], y) < 1e-2
+
+
+def test_ssd_main_widths_take_the_wgmma_path(cuda, ieee_fp32):
+    """mamba2-780m's widths (48 heads of 64, state 128, chunk 256) at
+    [1, 4096] bf16 go through the wgmma passes, one launch counted."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ssd_scan import path_launches, wgmma_path
+
+    args = _ssd_inputs(1, 4096, 48, 64, 128, torch.bfloat16, cuda)
+    assert wgmma_path(args[0], args[3], args[4], 256) == "wgmma"
+    SS.reset_launches()
+    SS.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert SS.launches == {"ssd_scan": 1}
+    assert path_launches == {"wgmma": 1, "simple": 0}
+
+
+def test_ssd_main_widths_bf16(cuda, ieee_fp32):
+    """[1, 4096] bf16 at mamba2-780m's widths against the plain version run
+    in fp32 on the upcast inputs, to test_kernels.py's 5e-2."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    args = _ssd_inputs(1, 4096, 48, 64, 128, torch.bfloat16, cuda, seed=3)
+    y, h = SS.ssd_scan(*args, chunk=256)
+    want_y, want_h = ssd_chunked(*(a.float() for a in args), 256)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert _rel(y, want_y) < 5e-2 and _rel(h, want_h) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs give bitwise-equal y and h_final (no
+    atomics, no order that changes from run to run)."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    args = _ssd_inputs(2, 1024, 48, 64, 128, dtype, cuda, seed=5)
+    y0, h0 = SS.ssd_scan(*args, chunk=256)
+    y1, h1 = SS.ssd_scan(*args, chunk=256)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)

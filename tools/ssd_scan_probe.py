@@ -1,29 +1,50 @@
-"""Build the ssd_scan CUDA kernel and time it alone on one card.
+"""Build the ssd_scan CUDA kernels and time them alone on one card.
 
-    python tools/ssd_scan_probe.py
+    python tools/ssd_scan_probe.py [--baseline FILE.cu [FILE.cu ...]]
+                                   [--rows VARIANT ...] [--reps 5] [--seed 0]
 
 Prints the card (nvidia-smi: name, power limit, SM clock, power draw,
-temperature) before and after, the nvcc seconds and ptxas's registers
-and spills, then for
-mamba2-780m's widths (48 heads of 64, state 128, chunk 256) at fp32
-[1, 4096], bf16 [1, 32768] and bf16 [4, 32768]: the kernel's mean CUDA-event
-milliseconds over 3 calls after one warm-up and, for batch 1, its error
-(max |got - want| / max |want| for y and h_final) against the plain version
-run in fp32 on the upcast inputs.  Inputs are drawn on the card: x, B, C,
-D ~ N(0, 1), dt in [0.01, 0.2], A in [-2, -0.5].  A quick check of a kernel
-change; chip_smoke.py is the full run.
+temperature) before and after, the nvcc seconds and ptxas's registers,
+spills and performance notes of each library, then one JSON line per row
+of chip_smoke.py's ssd_scan rows (mamba2-780m's widths: 48 heads of 64,
+state 128, chunk 256; fp32 [1, 4096], bf16 [1, 32768] and bf16 at the main
+path's [4, 32768]) on inputs drawn as chip_smoke.py draws them from
+--seed: the path the wrapper takes, the error (max |got - want| / max
+|want| for y and h_final) against the plain version run in fp32 on the
+upcast inputs, the bound, and CUDA-event milliseconds per call (mean of
+--reps calls after one warm-up) of the kernel and of the plain version;
+on the wgmma path also each pass's CUDA-event milliseconds (events
+recorded between the passes' launches, mean over --reps calls).
+--rows keeps only the named rows (prefill_bf16, fp32, main_path).
+
+--baseline builds a second library from other sources (for example the
+parent commit's ssd_scan.cu, saved under build/, which is gitignored and
+copied to the card) and times it in turns with the package's kernels on
+the same inputs: baseline, kernel, kernel, baseline.  A baseline that has
+the passes' entry points takes the same path as the package; one built
+from ssd_scan.cu alone (whose entry point ssd_scan_launch keeps its
+signature) runs its one kernel.  A quick check of a kernel change;
+chip_smoke.py is the full run.
 """
+import argparse
 import importlib
+import json
+import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-from repro_torch.kernels.build import build_info  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+import chip_smoke as CS  # noqa: E402
+from repro_torch.kernels import build as _build  # noqa: E402
+SS = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 
 
@@ -34,49 +55,101 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def build_baseline(sources) -> Path:
+    """Compile ``sources`` alone into their own library under build/."""
+    csrc = _build.BUILD_ROOT / "ssd_scan_baseline_src"
+    shutil.rmtree(csrc, ignore_errors=True)
+    csrc.mkdir(parents=True)
+    for src in sources:
+        shutil.copyfile(src, csrc / Path(src).name)
+    return _build.build("ssd_scan_baseline", csrc)
+
+
+def pass_ms(args, lib, reps: int) -> dict:
+    """CUDA-event milliseconds of each pass of the wgmma path, the mean
+    over ``reps`` calls after one warm-up."""
+    names = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+    SS.passes(*args, chunk=CS.SSD_CHUNK, lib=lib)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        events = []
+        SS.passes(*args, chunk=CS.SSD_CHUNK, lib=lib, events=events)
+        runs.append(events)
+    torch.cuda.synchronize()
+    return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in runs) / reps
+            for i, name in enumerate(names)}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, nargs="+")
+    ap.add_argument("--rows", nargs="+")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ssd_scan_probe: no CUDA device", file=sys.stderr)
         return 2
     print(card(), flush=True)
-    importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan").build()
-    print(build_info["ssd_scan"]["seconds"], flush=True)
-    print("\n".join(ln for ln in str(build_info["ssd_scan"]["log"])
-                    .splitlines()
-                    if "Used" in ln or "spill" in ln or "entry" in ln),
-          flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    H, P, N, c = 48, 64, 128, 256
-    for B, S, dtype in ((1, 4096, torch.float32), (1, 32768, torch.bfloat16),
-                        (4, 32768, torch.bfloat16)):
-        g = torch.Generator(device="cuda").manual_seed(0)
-        x = torch.randn(B, S, H * P, device="cuda", generator=g).to(
-            dtype).view(B, S, H, P)
-        dt = (torch.rand(B, S, H, device="cuda", generator=g) * 0.19
-              + 0.01).to(dtype)
-        A = -(torch.rand(H, device="cuda", generator=g) * 1.5 + 0.5).to(dtype)
-        Bc = torch.randn(B, S, N, device="cuda", generator=g).to(dtype)
-        Cc = torch.randn(B, S, N, device="cuda", generator=g).to(dtype)
-        D = torch.randn(H, device="cuda", generator=g).to(dtype)
-        y, h = ssd_scan(x, dt, A, Bc, Cc, D, chunk=c)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(3):
-            ssd_scan(x, dt, A, Bc, Cc, D, chunk=c)
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / 3
-        ry = rh = None
-        if B == 1:
-            wy, wh = ssd_chunked(*(t.float() for t in (x, dt, A, Bc, Cc, D)),
-                                 c)
-            ry = float((y.float() - wy).abs().max() / wy.abs().max())
-            rh = float((h - wh).abs().max() / wh.abs().max())
-            del wy, wh
-        print(B, S, dtype, "ms", ms, "rel y", ry, "rel h", rh, flush=True)
-        del x, dt, Bc, Cc, y, h
+    builds = {"ssd_scan": SS.build}
+    if args.baseline:
+        builds["ssd_scan_baseline"] = partial(build_baseline, args.baseline)
+    with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each
+        paths = dict(zip(builds, pool.map(lambda b: b(), builds.values())))
+    for name in builds:
+        info = _build.build_info[name]
+        print(name, "nvcc seconds", info["seconds"], flush=True)
+        print("\n".join(CS.ptxas_lines(str(info["log"]))), flush=True)
+    libs = {"kernel": SS.load(paths["ssd_scan"])}
+    if args.baseline:
+        libs["baseline"] = SS.load(paths["ssd_scan_baseline"])
+    order = ["baseline", "kernel", "kernel", "baseline"] if args.baseline \
+        else ["kernel", "kernel"]
+
+    for i, (variant, dtype, B, S, tol) in enumerate(CS.SSD_ROWS):
+        if args.rows and variant not in args.rows:
+            continue
+        inputs = CS.ssd_inputs(B, S, getattr(torch, dtype), args.seed + i)
+        path = SS.wgmma_path(inputs[0], inputs[3], inputs[4], CS.SSD_CHUNK)
+        want_y, want_h = ssd_chunked(*(a.float() for a in inputs),
+                                     CS.SSD_CHUNK)
+        row = {"variant": variant, "dtype": dtype,
+               "shape": [B, S, CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE],
+               "chunk": CS.SSD_CHUNK, "path": path, "tol": tol}
+        calls = {}
+        for name, lib in libs.items():
+            run = "wgmma" if path == "wgmma" and hasattr(
+                lib, "ssd_chunk_state_launch") else "simple"
+            calls[name] = partial(SS.scan, *inputs, chunk=CS.SSD_CHUNK,
+                                  lib=lib, path=run)
+            y, h = calls[name]()
+            row[f"{name}_path"] = run
+            row[f"{name}_rel_err"] = {
+                "y": float((y.float() - want_y).abs().max()
+                           / want_y.abs().max()),
+                "h_final": float((h - want_h).abs().max()
+                                 / want_h.abs().max())}
+            del y, h
+        del want_y, want_h
+        torch.cuda.empty_cache()
+        for name in order:
+            row.setdefault(f"{name}_ms", []).append(
+                CS.cuda_ms(calls[name], args.reps))
+        row["plain_ms"] = CS.cuda_ms(
+            partial(ssd_chunked, *inputs, CS.SSD_CHUNK), 2)
+        if path == "wgmma":
+            row["kernel_pass_ms"] = pass_ms(inputs, libs["kernel"],
+                                            args.reps)
+        elem = inputs[0].element_size()
+        H, P, N = CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE
+        nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N + 2 * H) \
+            * elem + B * H * P * N * 4
+        row["bound_ms"], row["bound_by"] = CS.bound(
+            nbytes, CS.ssd_ops(B, S), CS.FLOPS_PER_S[dtype])
+        print(json.dumps(row), flush=True)
+        del inputs, calls
         torch.cuda.empty_cache()
     print(card(), flush=True)
     return 0
