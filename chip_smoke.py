@@ -16,18 +16,27 @@ exits non-zero:
            (bytes or operations) computed from the inputs.  dvv_ops: on
            random clock sets from --seed, at the store's bucket shapes and
            at one large shape, exact equality (bool and int outputs, so no
-           tolerance).  flash_attention: at gemma2-9b's prefill shapes
-           (q [1, 8192, 16, 256], k/v with 8 heads, bf16) for a local
+           tolerance), each row naming the path the wrapper took (tiled or
+           general); beside each sweep a front_end row: the store's front
+           end (numpy in, numpy out: one pinned copy in, the kernel, one
+           copy out, one wait) timed by the host's clock per call, its
+           result equal to the kernel's.  flash_attention: at gemma2-9b's
+           prefill shapes (q [1, 8192, 16, 256], k/v with 8 heads, bf16)
+           for a local
            layer (window 4096, softcap 50), a global layer (causal,
            softcap 50) and causal without softcap, to max abs err 2e-2 and
            to BF16_ROW_TOL of each output row's RMS (ref.row_scaled_err);
-           and fp32 at [1, 1024, 16, 256], causal with softcap, to 1e-5.
+           fp32 at [1, 1024, 16, 256], causal with softcap, to 1e-5; and
+           masked by M-RoPE-style positions at qwen2-vl-7b's widths (q
+           [1, 8192, 28, 128], 4 KV heads, bf16, causal; an image of 4,096
+           patches sharing one temporal id between text runs).
            Beside each, one PyTorch call of the same function, timed as a
            yardstick the port never calls: FlexAttention (compiled, with
            the softcap as score_mod and a causal or sliding-window block
-           mask) for the softcap rows, scaled_dot_product_attention for
-           the causal row.  ssd_scan: at mamba2-780m's widths (48 heads
-           of 64, state 128, chunk 256) on inputs drawn as
+           mask) for the softcap rows and with the positions' mask for the
+           M-RoPE row, scaled_dot_product_attention for the causal row.
+           ssd_scan: at mamba2-780m's widths (48 heads of 64, state 128,
+           chunk 256) on inputs drawn as
            tests/test_kernels.py draws them, bf16 [1, 32768] and fp32
            [1, 4096], and bf16 at the main path's [4, 32768]; y and
            h_final to 5e-2 (bf16) or 1e-5 (fp32) of the largest value,
@@ -49,8 +58,9 @@ exits non-zero:
            value roots for every store, identical reads.
   trace    the 16,384-key schedule once more under torch.profiler,
            tracing the card only: device-busy seconds against wall seconds
-           (the device's idle share) and each kernel's device time per
-           launch at the shapes the store gives it.
+           (the device's idle share), each kernel's device time per
+           launch at the shapes the store gives it, and the host-to-device
+           and device-to-host copies per sweep (at most one each).
   model    gemma2-9b at full width and depth (42 layers, 9.24 B fp32
            parameters from a torch.Generator seeded by --seed): one warm-up
            and one timed prefill of tokens [1, 8192] through
@@ -128,6 +138,8 @@ BATCH = 4096
 VALUE_BYTES = 64
 KERNEL_SHAPES = ((64, 2, 8), (4096, 4, 8), (16384, 4, 8), (1048576, 8, 8))
 SUMMARY_SHAPE = (4096, 4, 8)
+#: the dvv_ops kernels' names in profiler traces contain these
+DVV_KERNELS = ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): 3.35 TB/s of
 # HBM3; int32 outside the tensor cores is 64 lanes per SM on 132 SMs at the
@@ -158,6 +170,11 @@ FLASH_ROWS = (
     ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5),
 )
 FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM = 16, 8, 256
+# the M-RoPE row: qwen2-vl-7b's attention (src/repro_torch/configs/
+# qwen2_vl_7b.py: 28 heads, 4 KV heads, head_dim 128), bf16, causal, masked
+# by the temporal positions of text, an image of 4,096 patches, text
+MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM = 28, 4, 128
+MROPE_TEXT, MROPE_IMAGE, MROPE_S = 512, 4096, 8192
 
 # mamba2-780m serving (src/repro_torch/configs/mamba2_780m.py)
 SSM_ARCH = "mamba2-780m"
@@ -292,17 +309,27 @@ def max_abs_err(got, want) -> int:
         if got.numel() else 0
 
 
+def front_ms(front, args, reps: int) -> float:
+    """Host milliseconds per call of a front end (numpy in, numpy out; it
+    waits for the card itself), after one warm-up."""
+    front(*args)
+    t = time.perf_counter()
+    for _ in range(reps):
+        front(*args)
+    return (time.perf_counter() - t) / reps * 1e3
+
+
 def dvv_rows(seed: int):
     import numpy as np
     import torch
-    from repro_torch.kernels.dvv_ops import ops, ref
+    from repro_torch.kernels.dvv_ops import dvv_ops as C, ops, ref
 
     dev = torch.device("cuda")
     rows = []
     for N, K, R in KERNEL_SHAPES:
         rng = np.random.default_rng([seed, N, K, R])
-        vvs, dids, dns, valid = (torch.from_numpy(a).to(dev)
-                                 for a in clock_sets(rng, N, K, R))
+        host = clock_sets(rng, N, K, R)
+        vvs, dids, dns, valid = (torch.from_numpy(a).to(dev) for a in host)
         nv = valid.sum(dim=1, dtype=torch.int64)
         pairs = int((nv * (nv - 1)).sum())      # ordered valid pairs
         sweep_ops = 2 * pairs * R * OPS_PER_COLUMN
@@ -338,20 +365,41 @@ def dvv_rows(seed: int):
                 lambda: ref.leq_ref(vx, ix, nx, vy, iy, ny),
                 N * (8 * R + 16) + N, N * R * OPS_PER_COLUMN),
         }
+        fronts = {"dvv_sync_mask": ops.BucketedSweep(dev),
+                  "dvv_read_sweep": ops.BucketedReadSweep(dev)}
+        got = fronts["dvv_read_sweep"](*host)
+        if not (np.array_equal(fronts["dvv_sync_mask"](*host),
+                               mask.cpu().numpy())
+                and np.array_equal(got[0], mask.cpu().numpy())
+                and np.array_equal(got[1], ceil.cpu().numpy())):
+            raise AssertionError(f"a front end disagrees with the kernels "
+                                 f"at {(N, K, R)}")
         for name, (kern, plain, nbytes, nops) in specs.items():
             if errs[name]:
                 raise AssertionError(
                     f"{name} disagrees with its plain version at "
                     f"{(N, K, R)}: max abs err {errs[name]}")
             b_ms, b_by = bound(nbytes, nops)
+            C.reset_launches()
+            kern()
+            path = [p for p, n in C.path_launches.items() if n]
             rows.append({"name": name, "shape": [N, K, R],
+                         "path": path[0] if path else None,
                          "max_abs_err": errs[name],
                          "ms": cuda_ms(kern, reps),
                          "plain_ms": cuda_ms(plain, plain_reps),
-                         **kernel_device_ms(kern, reps, f"{name}_kernel"),
+                         **kernel_device_ms(kern, reps, name),
                          "plain_device_ms": device_ms(plain, plain_reps),
                          "bound_ms": b_ms, "bound_by": b_by,
                          "bytes": nbytes, "int32_ops": nops})
+            if name in fronts:
+                front = fronts[name]
+                rows.append({"name": name, "variant": "front_end",
+                             "shape": [N, K, R], "max_abs_err": 0,
+                             "ms": front_ms(front, host, reps),
+                             "h2d_copies": front.h2d_copies,
+                             "d2h_copies": front.d2h_copies,
+                             "calls": front.hits + front.misses})
         del vvs, dids, dns, valid, mask, smask, ceil, want_mask, want_ceil
         torch.cuda.empty_cache()
     return rows
@@ -458,6 +506,81 @@ def flash_rows(seed: int):
         del q, k, v, qt, kt, vt, got, lib
         torch.cuda.empty_cache()
     return rows
+
+
+def mrope_positions(S: int = MROPE_S):
+    """The temporal row of M-RoPE positions: MROPE_TEXT text tokens, an
+    image of MROPE_IMAGE patches sharing the next id, then text again."""
+    import numpy as np
+    t = MROPE_TEXT
+    return np.concatenate([np.arange(t), np.full(MROPE_IMAGE, t),
+                           np.arange(t + 1, t + 1 + S - t - MROPE_IMAGE)]
+                          ).astype(np.int32)
+
+
+def flash_mrope_row(seed: int):
+    """flash_attention masked by positions at qwen2-vl-7b's widths against
+    its plain version, beside FlexAttention with the same mask."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_TOL, flash_attention_ref, row_scaled_err,
+    )
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention,
+    )
+
+    H, KV, D, S = MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM, MROPE_S
+    rng = np.random.default_rng([seed, S, H])
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, S, h, D), dtype=np.float32)).to("cuda", torch.bfloat16)
+        for h in (H, KV, KV))
+    pos_np = mrope_positions(S)
+    pos = torch.from_numpy(pos_np).cuda()
+    kw = dict(causal=True, positions=pos)
+    got = FA.gqa_flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    row_err = row_scaled_err(got, want)
+    if not (err <= 2e-2 and row_err <= BF16_ROW_TOL):
+        raise AssertionError(f"flash_attention with positions disagrees "
+                             f"with its plain version: {err}, {row_err}")
+    del want
+    srt = np.sort(pos_np)
+    pairs = int(np.searchsorted(srt, pos_np, side="right").sum())
+    nbytes = (2 * H + 2 * KV) * S * D * 2 + S * 4
+    b_ms, b_by = bound(nbytes, 4 * H * D * pairs, FLOPS_PER_S["bfloat16"])
+    call = partial(FA.gqa_flash_attention, q, k, v, **kw)
+    row = {"name": "flash_attention", "variant": "mrope_positions",
+           "shape": [1, S, H, KV, D], "dtype": "bfloat16", "causal": True,
+           "positions": f"text {MROPE_TEXT}, image {MROPE_IMAGE}, text",
+           "max_abs_err": err, "tol": 2e-2, "row_scaled_err": row_err,
+           "row_tol": BF16_ROW_TOL, "ms": cuda_ms(call, 10),
+           "plain_ms": cuda_ms(partial(flash_attention_ref, q, k, v, **kw),
+                               3),
+           **kernel_device_ms(call, 10, "flash_fwd_"),
+           "bound_ms": b_ms, "bound_by": b_by, "live_pairs": pairs,
+           "flops": 4 * H * D * pairs, "bytes": nbytes,
+           "library": "flex_attention"}
+
+    def mask(b, h, qi, ki):
+        return pos[ki] <= pos[qi]
+
+    block_mask = create_block_mask(mask, None, None, S, S, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library = partial(fn, qt, kt, vt, block_mask=block_mask,
+                      enable_gqa=True)
+    lib = library().transpose(1, 2)
+    row["library_max_abs_diff"] = float((lib.float() - got.float()).abs()
+                                        .max())
+    row["library_row_scaled_diff"] = row_scaled_err(lib, got)
+    row["library_ms"] = cuda_ms(library, 10)
+    del q, k, v, qt, kt, vt, got, lib
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def ssd_inputs(B: int, S: int, dtype, seed: int):
@@ -641,11 +764,16 @@ def check_reads(keys, expect, reads) -> None:
 
 def store_phase(n_keys: int, seed: int, device="cuda"):
     from repro_torch.kernels import dvv_ops
+    from repro_torch.kernels.dvv_ops.dvv_ops import path_launches
 
+    fronts = {"sync_mask": dvv_ops.dvv_sync_mask_bucketed(device),
+              "read_sweep": dvv_ops.dvv_read_sweep_bucketed(device)}
+    copies0 = {k: (f.h2d_copies, f.d2h_copies) for k, f in fronts.items()}
     dvv_ops.reset_launches()
     c, keys, forked, expect, reads, acked, rounds, secs = run_schedule(
         n_keys, seed, device=device)
     launches = dict(dvv_ops.launches)
+    paths = dict(path_launches)
     check_reads(keys, expect, reads)
     if c.device.type == "cuda":
         for name in ("dvv_sync_mask", "dvv_read_sweep"):
@@ -654,7 +782,11 @@ def store_phase(n_keys: int, seed: int, device="cuda"):
                                      f"phase: {launches}")
     return {"phase": "store", "keys": n_keys, "forked": len(forked),
             "acked_writes": acked, "delta_rounds": rounds,
-            "seconds": secs, "launches": launches,
+            "seconds": secs, "launches": launches, "path_launches": paths,
+            "front_end_copies": {
+                k: {"h2d": f.h2d_copies - copies0[k][0],
+                    "d2h": f.d2h_copies - copies0[k][1]}
+                for k, f in fronts.items()},
             "buckets": {
                 "sync_mask": dvv_ops.dvv_sync_mask_bucketed(device)
                 .cache_info(),
@@ -689,17 +821,25 @@ def trace_phase(n_keys: int, seed: int):
     of each dvv_ops kernel at the main path's own shapes."""
     busy_us, per, wall_s = device_profile(lambda: run_schedule(n_keys, seed))
     kernels = {}
-    for name in ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq"):
+    for name in DVV_KERNELS:
         hits = [(n, us) for key, (n, us) in per.items()
-                if f"{name}_kernel" in key]
+                if kernel_name(key, name)]
         n = sum(c for c, _ in hits)
         kernels[name] = {"launches": n, "device_us_per_launch":
                          sum(us for _, us in hits) / n if n else None}
+    sweeps = sum(k["launches"] for k in kernels.values())
+    copies = {way: sum(c for key, (c, _) in per.items()
+                       if key.startswith(f"Memcpy {way}"))
+              for way in ("HtoD", "DtoH")}
+    if not sweeps or any(n > sweeps for n in copies.values()):
+        raise AssertionError(f"{copies} copies for {sweeps} sweeps: the "
+                             f"front ends make one each way a sweep")
     return {"phase": "trace", "keys": n_keys, "wall_s": wall_s,
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall_s
             if busy_us else None,
-            "kernels": kernels,
+            "kernels": kernels, "sweeps": sweeps, "copies": copies,
+            "copies_per_sweep": {k: n / sweeps for k, n in copies.items()},
             "top_device_events": sorted(
                 ({"name": k[:80], "count": c, "us": us}
                  for k, (c, us) in per.items()),
@@ -1010,7 +1150,8 @@ def main() -> int:
           "ptxas": {n: ptxas_lines(str(i["log"]))
                     for n, i in build_info.items()}})
 
-    rows = dvv_rows(args.seed) + flash_rows(args.seed) + ssd_rows(args.seed)
+    rows = dvv_rows(args.seed) + flash_rows(args.seed) + \
+        flash_mrope_row(args.seed) + ssd_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)
@@ -1077,10 +1218,15 @@ def main() -> int:
                      "library": None, "rel_err": r["rel_err"],
                      "path": r["path"],
                      "device_kernels_ms": r["device_kernels_ms"]}
-        elif tuple(r["shape"]) == SUMMARY_SHAPE:
+        elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
             launches = store["launches"][r["name"]]
             source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
-            extra = {"main_path_device_us_per_launch":
+            front = [f["ms"] for f in rows if f.get("variant") == "front_end"
+                     and f["name"] == r["name"]
+                     and tuple(f["shape"]) == SUMMARY_SHAPE]
+            extra = {"path": r["path"],
+                     "front_end_ms": front[0] if front else None,
+                     "main_path_device_us_per_launch":
                      trace["kernels"][r["name"]]["device_us_per_launch"]}
         else:
             continue

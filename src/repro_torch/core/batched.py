@@ -345,15 +345,20 @@ class BucketedSyncMask:
         self.hits = 0
         self.misses = 0
 
-    def _bucket(self, vvs, dot_ids, dot_ns, valid):
-        """Count the bucket and pad the arrays to it as tensors on
-        ``device``."""
-        key = bucket_shape(*vvs.shape)
+    def _count(self, shape: Tuple[int, int, int]):
+        """Count ``shape``'s bucket as a hit or a miss and return it."""
+        key = bucket_shape(*shape)
         if key in self._seen:
             self.hits += 1
         else:
             self.misses += 1
             self._seen.add(key)
+        return key
+
+    def _bucket(self, vvs, dot_ids, dot_ns, valid):
+        """Count the bucket and pad the arrays to it as tensors on
+        ``device``."""
+        key = self._count(vvs.shape)
         return [torch.from_numpy(a).to(self.device)
                 for a in pad_sync_args(vvs, dot_ids, dot_ns, valid, key)]
 

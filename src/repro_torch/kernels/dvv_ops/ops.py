@@ -5,15 +5,21 @@ A tensor on the card always goes to the kernel: if it cannot be built or
 launched, the call raises — there is no fallback.  ``launches`` counts the
 kernel launches (``dvv_ops.launches``); ``reset_launches`` zeroes it.
 
-The bucketed front ends take the store's numpy arrays, pad them to the
-power-of-two bucket (``core.batched.bucket_shape``), run the sweep on their
-device and hand numpy back: ``dvv_sync_mask_bucketed(device)`` is the
-``mask_fn`` of PUT and anti-entropy, ``dvv_read_sweep_bucketed(device)``
-the ``sweep_fn`` of the quorum read.
+The store's front ends take numpy arrays and hand numpy back:
+``dvv_sync_mask_bucketed(device)`` is the ``mask_fn`` of PUT and
+anti-entropy, ``dvv_read_sweep_bucketed(device)`` the ``sweep_fn`` of the
+quorum read.  They pad nothing (the kernels take N, K and R at run time)
+and keep counting the shapes' power-of-two buckets (``cache_info``).  On
+the card a sweep packs its four arrays into one reused pinned staging
+buffer, 16-byte aligned, and makes one C call: one async copy in, the
+kernel, one async copy of the mask (and ceilings) out, one wait
+(``dvv_ops.stage_sweep``); ``h2d_copies`` and ``d2h_copies`` count the
+copies.  On the CPU the plain versions take the arrays as they are.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import threading
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -58,42 +64,114 @@ def dvv_read_sweep(vvs, dot_ids, dot_ns, valid
     return read_sweep_ref(vvs, dot_ids, dot_ns, valid)
 
 
-class BucketedReadSweep(BucketedSyncMask):
-    """Shape-bucketed front end over ``dvv_read_sweep`` on ``device``.
-    Pad rows are invalid (inert for both mask and ceiling) and pad replica
-    columns come back as zero ceilings, sliced off on return.  This is the
-    ``sweep_fn`` that ``KVCluster.get_many(use_kernel=True)`` hands
-    ``quorum_merge_many``."""
+def staging_layout(N: int, K: int, R: int, ceil: bool
+                   ) -> Tuple[List[int], int, int, int]:
+    """Where a sweep's arrays sit in the staging buffer: byte offsets of
+    vvs, dot_ids, dot_ns, valid (the inputs, copied in), mask and the
+    ceilings (-1 without them; copied out), each 16-byte aligned; then the
+    bytes copied in, and the offset and length of what is copied out."""
+    sizes = (N * K * R * 4, N * K * 4, N * K * 4, N * K, N * K, N * R * 8)
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += -(-size // 16) * 16
+    in_bytes = offsets[3] + N * K
+    end = offsets[5] + N * R * 8 if ceil else offsets[4] + N * K
+    if not ceil:
+        offsets[5] = -1
+    return offsets, in_bytes, offsets[4], end - offsets[4]
 
-    def __init__(self, device="cuda"):
-        super().__init__(dvv_read_sweep, device=device)
 
-    def __call__(self, vvs, dot_ids, dot_ns, valid
-                 ) -> Tuple[np.ndarray, np.ndarray]:
+class BucketedSweep(BucketedSyncMask):
+    """The store's front end over the survival sweep on ``device``, numpy
+    in and numpy out (see the module note): the mask alone (the ``mask_fn``
+    of PUT and anti-entropy), or with ``ceil`` the mask and the ceilings
+    (the read's ``sweep_fn``).  The staging buffers grow to the largest
+    sweep seen and are reused as shapes shrink."""
+
+    def __init__(self, device="cuda", *, ceil: bool = False):
+        super().__init__(dvv_read_sweep if ceil else dvv_sync_mask,
+                         device=device)
+        self.ceil = ceil
+        self.h2d_copies = 0
+        self.d2h_copies = 0
+        self._host = self._dev = self._host_np = None
+        self._lock = threading.Lock()
+
+    def _staging(self, nbytes: int) -> np.ndarray:
+        """The pinned host buffer (and its device twin) of at least
+        ``nbytes``, grown by doubling, as a numpy view."""
+        have = 0 if self._host is None else self._host.numel()
+        if nbytes > have:
+            cap = -(-max(nbytes, 2 * have, 1 << 16) // 4096) * 4096
+            card = self.device.type == "cuda"
+            self._host = torch.empty(cap, dtype=torch.uint8, pin_memory=card)
+            self._dev = torch.empty(cap, dtype=torch.uint8,
+                                    device=self.device) if card else None
+            self._host_np = self._host.numpy()
+        return self._host_np
+
+    def __call__(self, vvs, dot_ids, dot_ns, valid):
         vvs = np.asarray(vvs, np.int32)
         N, K, R = vvs.shape
         if N == 0 or K == 0:
-            return np.zeros((N, K), bool), np.zeros((N, R), np.int64)
-        args = self._bucket(vvs, np.asarray(dot_ids, np.int32),
-                            np.asarray(dot_ns, np.int32),
-                            np.asarray(valid, bool))
-        mask, ceil = self._fn(*args)
-        return mask.cpu().numpy()[:N, :K], ceil.cpu().numpy()[:N, :R]
+            mask = np.zeros((N, K), bool)
+            return (mask, np.zeros((N, R), np.int64)) if self.ceil else mask
+        if self.device.type != "cuda":
+            self._count(vvs.shape)
+            got = self._fn(*(torch.from_numpy(np.ascontiguousarray(a, dt))
+                             for a, dt in ((vvs, np.int32),
+                                           (dot_ids, np.int32),
+                                           (dot_ns, np.int32),
+                                           (valid, bool))))
+            return tuple(t.numpy() for t in got) if self.ceil \
+                else got.numpy()
+        offs, in_bytes, out_off, out_bytes = staging_layout(N, K, R,
+                                                            self.ceil)
+        with self._lock:              # one staging buffer for all callers
+            self._count((N, K, R))
+            host = self._staging(out_off + out_bytes)
+
+            def view(i, dtype, shape):
+                n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+                return host[offs[i]:offs[i] + n].view(dtype).reshape(shape)
+
+            views = (view(0, np.int32, (N, K, R)), view(1, np.int32, (N, K)),
+                     view(2, np.int32, (N, K)), view(3, np.bool_, (N, K)))
+            for dst, src in zip(views, (vvs, dot_ids, dot_ns, valid)):
+                dst[...] = src
+            _cuda.stage_sweep(self._host, self._dev, in_bytes, out_off,
+                              out_bytes, offs, N, K, R)
+            self.h2d_copies += 1
+            self.d2h_copies += 1
+            mask = view(4, np.bool_, (N, K)).copy()
+            if self.ceil:
+                return mask, view(5, np.int64, (N, R)).copy()
+            return mask
 
 
-_fronts: Dict[Tuple[str, torch.device], BucketedSyncMask] = {}
+class BucketedReadSweep(BucketedSweep):
+    """The read sweep's front end: the ``sweep_fn`` that
+    ``KVCluster.get_many(use_kernel=True)`` hands ``quorum_merge_many``;
+    returns (mask bool[N, K], ceilings int64[N, R])."""
+
+    def __init__(self, device="cuda"):
+        super().__init__(device, ceil=True)
 
 
-def dvv_sync_mask_bucketed(device="cuda") -> BucketedSyncMask:
-    """The shared bucketed ``dvv_sync_mask`` front end on ``device``."""
+_fronts: Dict[Tuple[str, torch.device], BucketedSweep] = {}
+
+
+def dvv_sync_mask_bucketed(device="cuda") -> BucketedSweep:
+    """The shared ``dvv_sync_mask`` front end on ``device``."""
     key = ("sync_mask", torch.device(device))
     if key not in _fronts:
-        _fronts[key] = BucketedSyncMask(dvv_sync_mask, device=device)
+        _fronts[key] = BucketedSweep(device)
     return _fronts[key]
 
 
 def dvv_read_sweep_bucketed(device="cuda") -> BucketedReadSweep:
-    """The shared bucketed ``dvv_read_sweep`` front end on ``device``."""
+    """The shared ``dvv_read_sweep`` front end on ``device``."""
     key = ("read_sweep", torch.device(device))
     if key not in _fronts:
         _fronts[key] = BucketedReadSweep(device)

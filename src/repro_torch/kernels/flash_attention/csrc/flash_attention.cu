@@ -68,10 +68,27 @@
 //   fp32: 8 warps, plain IEEE fp32 FMAs (no TF32), 32-key tiles loaded by
 //     cp.async; four threads share a q row, each holding 8 scores and D / 4
 //     accumulators.
+//
+// Masks by position (flash_attention_pos_launch): the JAX package's default
+// attention path masks by positions, one int32 vector pos[S] for queries
+// and keys (the temporal row of M-RoPE's positions, where an image's
+// patches share one id), not by index.  Both kernels take it as a second
+// template instance (kPos), so the index instance compiles as before.  A
+// first small kernel (pos_bounds_kernel) writes the least and greatest
+// position of every key tile and of every 64-row q group; a tile is dead
+// for a group when no pair can pass the masks (causal: min key > max
+// query; window: max key <= min query - window) and needs no element mask
+// when every pair passes (max key <= min query; min key > max query -
+// window).  So any int32 positions (repeated, non-monotone, with gaps)
+// give the plain version's result, and tiles are skipped where the
+// positions allow.  In the bf16 kernel the producer and both consumer
+// warpgroups decide a tile's liveness for the block from the same bounds
+// in device memory, so they agree on the tiles that pass through the ring.
 #include <cuda.h>                     // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <climits>
 
 namespace {
 
@@ -88,7 +105,64 @@ struct Params {
   int H, KV, Sq, Sk;
   float scale, softcap;
   int causal, window;
+  // kPos only: positions [Sq] (== [Sk]); min and max position of each key
+  // tile (kb) and of each 64-row q group (qb), interleaved
+  const int* pos;
+  const int* kb;
+  const int* qb;
 };
+
+// kPos: may a query at position qp see a key at position kp?  In 64 bits,
+// so that qp - window cannot wrap.
+__device__ __forceinline__ bool pos_ok(int causal, int window, int qp,
+                                       int kp) {
+  bool ok = true;
+  if (causal) ok = kp <= qp;
+  if (window) ok = ok && (long long)kp > (long long)qp - window;
+  return ok;
+}
+
+// kPos: is key tile j live for q group g (some pair may pass the masks)?
+// A group that starts past the last query is dead.
+template <typename P>
+__device__ __forceinline__ bool pos_live(const P& p, int j, int g) {
+  if (g * 64 >= p.Sq) return false;
+  const int klo = p.kb[2 * j], khi = p.kb[2 * j + 1];
+  const int qlo = p.qb[2 * g], qhi = p.qb[2 * g + 1];
+  bool live = true;
+  if (p.causal) live = klo <= qhi;
+  if (p.window) live = live && (long long)khi > (long long)qlo - p.window;
+  return live;
+}
+
+// kPos: does key tile j need element masks for q group g (some pair of a
+// live tile fails them)?
+template <typename P>
+__device__ __forceinline__ bool pos_edge(const P& p, int j, int g) {
+  const int klo = p.kb[2 * j], khi = p.kb[2 * j + 1];
+  const int qlo = p.qb[2 * g], qhi = p.qb[2 * g + 1];
+  bool edge = false;
+  if (p.causal) edge = khi > qlo;
+  if (p.window) edge = edge || (long long)klo <= (long long)qhi - p.window;
+  return edge;
+}
+
+// The least and greatest of pos[t * tile .. min(S, (t + 1) * tile)) for
+// each of the n tiles, interleaved into out[2 t], out[2 t + 1].
+__global__ void pos_bounds_kernel(const int* __restrict__ pos, int S,
+                                  int tile, int n, int* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  int lo = INT_MAX, hi = INT_MIN;
+  const int end = min(S, (t + 1) * tile);
+  for (int i = t * tile; i < end; ++i) {
+    const int v = pos[i];
+    lo = min(lo, v);
+    hi = max(hi, v);
+  }
+  out[2 * t] = lo;
+  out[2 * t + 1] = hi;
+}
 
 __device__ __forceinline__ bool tile_live(const Params& p, int q0, int k0,
                                           int bk) {
@@ -174,6 +248,9 @@ struct Bf16Params {
   int causal, window, softcap;        // softcap: nonzero when a cap is set
   float score_mul;                    // (softcap ? cap : scale) * log2(e)
   float tanh_mul;                     // 2 log2(e) scale / cap
+  const int* pos;                     // kPos only, as in Params
+  const int* kb;
+  const int* qb;
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -397,7 +474,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kThreads16, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -420,13 +497,17 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;   // heaviest first
-  // the KV tiles live for some row of the block: [lo, hi]
+  // the KV tiles live for some row of the block: [lo, hi] (kPos: every
+  // tile, each tested by pos_live for the block's two q groups)
   int lo = 0, hi = (p.Sk + kBK16 - 1) / kBK16 - 1;
-  if (p.causal) hi = min(hi, (q0 + kBQ16 - 1) / kBK16);
-  if (p.window) {
-    const int first = q0 - p.window - kBK16 + 2;  // least live tile start
-    if (first > 0) lo = (first + kBK16 - 1) / kBK16;
+  if constexpr (!kPos) {
+    if (p.causal) hi = min(hi, (q0 + kBQ16 - 1) / kBK16);
+    if (p.window) {
+      const int first = q0 - p.window - kBK16 + 2;  // least live tile start
+      if (first > 0) lo = (first + kBK16 - 1) / kBK16;
+    }
   }
+  const int g0 = q0 / 64;                 // the q groups of the warpgroups
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -447,7 +528,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(bar_q, QBYTES);
       for (int c = 0; c < D / kBox; ++c)
         tma_load(sQ + c * QBOX, &tm_q, bar_q, c * kBox, q0, h, b);
-      for (int j = lo, it = 0; j <= hi; ++j, ++it) {
+      for (int j = lo, it = 0; j <= hi; ++j) {
+        if constexpr (kPos) {
+          if (!pos_live(p, j, g0) && !pos_live(p, j, g0 + 1)) continue;
+        }
         const int s = it % NST, round = it / NST;
         if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full_k + 8 * s, TBYTES);
@@ -458,6 +542,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < D / kBox; ++c)
           tma_load(sV + s * TBYTES + c * TBOX, &tm_v, full_v + 8 * s,
                    c * kBox, j * kBK16, hk, b);
+        ++it;
       }
     }
   } else {
@@ -472,6 +557,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r0 = q0 + 64 * cw;
     const int row0 = r0 + 16 * warp + g, row1 = row0 + 8;
     const uint32_t qa = sQ + 64 * cw * 128;
+    int qpos0 = 0, qpos1 = 0;               // kPos: the rows' positions
+    if constexpr (kPos) {
+      if (row0 < p.Sq) qpos0 = p.pos[row0];
+      if (row1 < p.Sq) qpos1 = p.pos[row1];
+    }
 
     float o[D / 2];
 #pragma unroll
@@ -479,14 +569,21 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     mbar_wait(bar_q, 0);
 
-    for (int j = lo, it = 0; j <= hi; ++j, ++it) {
+    for (int j = lo, it = 0; j <= hi; ++j) {
+      if constexpr (kPos) {
+        if (!pos_live(p, j, g0) && !pos_live(p, j, g0 + 1)) continue;
+      }
       const int s = it % NST;
       const uint32_t par = (it / NST) & 1;
       const int k0 = j * kBK16;
       const uint32_t ks = sK + s * TBYTES, vs = sV + s * TBYTES;
       bool live = true;                     // for this warpgroup's rows
-      if (p.causal) live = k0 <= r0 + 63;
-      if (p.window) live = live && (k0 + kBK16 - 1 > r0 - p.window);
+      if constexpr (kPos) {
+        live = pos_live(p, j, g0 + cw);
+      } else {
+        if (p.causal) live = k0 <= r0 + 63;
+        if (p.window) live = live && (k0 + kBK16 - 1 > r0 - p.window);
+      }
       mbar_wait(full_k + 8 * s, par);
       if (live) {
         // S = Q K^T: 64 x kBK16, D / 16 steps of k16
@@ -515,17 +612,26 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         // masks only on edge tiles: the ragged end of the keys, the causal
         // diagonal, the window's lower edge
-        const bool edge = k0 + kBK16 > p.Sk ||
-                          (p.causal && k0 + kBK16 - 1 > r0) ||
-                          (p.window && k0 <= r0 + 63 - p.window);
+        bool edge;
+        if constexpr (kPos) {
+          edge = k0 + kBK16 > p.Sk || pos_edge(p, j, g0 + cw);
+        } else {
+          edge = k0 + kBK16 > p.Sk || (p.causal && k0 + kBK16 - 1 > r0) ||
+                 (p.window && k0 <= r0 + 63 - p.window);
+        }
         if (edge) {
 #pragma unroll
           for (int i = 0; i < kBK16 / 2; ++i) {
             const int kp = k0 + (i / 4) * 8 + 2 * t + (i & 1);
-            const int qp = (i & 2) ? row1 : row0;
             bool ok = kp < p.Sk;
-            if (p.causal) ok = ok && kp <= qp;
-            if (p.window) ok = ok && kp > qp - p.window;
+            if constexpr (kPos) {
+              ok = ok && pos_ok(p.causal, p.window, (i & 2) ? qpos1 : qpos0,
+                                p.pos[kp]);
+            } else {
+              const int qp = (i & 2) ? row1 : row0;
+              if (p.causal) ok = ok && kp <= qp;
+              if (p.window) ok = ok && kp > qp - p.window;
+            }
             if (!ok) sc[i] = kNegInf;
           }
         }
@@ -587,6 +693,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
+      ++it;
     }
 
     const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
@@ -611,7 +718,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 constexpr int kBK32 = 32;             // keys per tile
 constexpr int kThreads32 = 256;       // four threads per q row
 
-template <int D>
+template <int D, bool kPos>
 __global__ void __launch_bounds__(kThreads32, 1)
 flash_fwd_f32_kernel(const Params p) {
   constexpr int LQ = D + 1;           // padded rows: distinct banks
@@ -629,6 +736,7 @@ flash_fwd_f32_kernel(const Params p) {
   const int q0 = qt * kBQ;
   const int r = threadIdx.x / 4, cq = threadIdx.x % 4;
   const int qp = q0 + r;
+  const int qpos = kPos && qp < p.Sq ? p.pos[qp] : 0;
 
   const float* qg = (const float*)p.q + b * p.q_b + h * p.q_h;
   const float* kg = (const float*)p.k + b * p.k_b + hk * p.k_h;
@@ -649,7 +757,8 @@ flash_fwd_f32_kernel(const Params p) {
   const int nk = (p.Sk + kBK32 - 1) / kBK32;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kBK32;
-    if (!tile_live(p, q0, k0, kBK32)) continue;
+    if (kPos ? !pos_live(p, kt, qt) : !tile_live(p, q0, k0, kBK32))
+      continue;
     __syncthreads();
     for (int idx = threadIdx.x; idx < kBK32 * D; idx += kThreads32) {
       const int rr = idx / D, d = idx % D;
@@ -678,7 +787,15 @@ flash_fwd_f32_kernel(const Params p) {
     float mx = kNegInf;
 #pragma unroll
     for (int j = 0; j < kBK32 / 4; ++j) {
-      s[j] = score(p, s[j], qp, k0 + cq + 4 * j);
+      const int kp = k0 + cq + 4 * j;
+      if constexpr (kPos) {
+        s[j] *= p.scale;
+        if (p.softcap != 0.f) s[j] = p.softcap * tanhf(s[j] / p.softcap);
+        if (!(kp < p.Sk && pos_ok(p.causal, p.window, qpos, p.pos[kp])))
+          s[j] = kNegInf;
+      } else {
+        s[j] = score(p, s[j], qp, kp);
+      }
       mx = fmaxf(mx, s[j]);
     }
     const float mn = fmaxf(m, quad_max(mx));
@@ -772,7 +889,7 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool kPos>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return (int)cudaErrorNotSupported;
@@ -792,37 +909,31 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   bp.softcap = p.softcap != 0.f;
   bp.score_mul = (bp.softcap ? p.softcap : p.scale) * kLog2e;
   bp.tanh_mul = bp.softcap ? 2.f * kLog2e * p.scale / p.softcap : 0.f;
+  bp.pos = p.pos; bp.kb = p.kb; bp.qb = p.qb;
   const size_t smem = bf16_smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_bf16_kernel<D, kPos>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * p.H, (p.Sq + kBQ16 - 1) / kBQ16);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads16, smem, stream>>>(tq, tk, tv,
-                                                                bp);
+  flash_fwd_bf16_kernel<D, kPos><<<grid, kThreads16, smem, stream>>>(
+      tq, tk, tv, bp);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kPos>
 int launch_d(const Params& p, int B, int bf16, cudaStream_t stream) {
-  if (bf16) return launch_bf16<D>(p, B, stream);
-  return launch(flash_fwd_f32_kernel<D>, kThreads32,
+  if (bf16) return launch_bf16<D, kPos>(p, B, stream);
+  return launch(flash_fwd_f32_kernel<D, kPos>, kThreads32,
                 sizeof(float) * ((kBQ + kBK32) * (D + 1) + kBK32 * D +
                                  kBQ * (kBK32 + 1)),
                 p, B, stream);
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  q, k, v and o are [B, S, heads,
-// D] views given by their strides (D contiguous); dtype_bf16 selects bf16
-// (else fp32).  Launches on `stream` and returns the CUDA error (0 when the
-// launch was accepted); an unsupported head_dim, or a bf16 view that TMA
-// cannot map, returns cudaErrorInvalidValue.
-extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int KV, int Sq, int Sk, int D, const int64_t* strides, float scale,
-    float softcap, int causal, int window, int dtype_bf16, void* stream) {
+// Fill Params from the C entry points' arguments.
+Params make_params(const void* q, const void* k, const void* v, void* o,
+                   int H, int KV, int Sq, int Sk, const int64_t* strides,
+                   float scale, float softcap, int causal, int window) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.q_b = strides[0]; p.q_s = strides[1]; p.q_h = strides[2];
@@ -832,11 +943,60 @@ extern "C" int flash_attention_launch(
   p.H = H; p.KV = KV; p.Sq = Sq; p.Sk = Sk;
   p.scale = scale; p.softcap = softcap;
   p.causal = causal; p.window = window;
-  cudaStream_t s = (cudaStream_t)stream;
+  p.pos = nullptr; p.kb = nullptr; p.qb = nullptr;
+  return p;
+}
+
+template <bool kPos>
+int launch_any(const Params& p, int B, int D, int bf16, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_d<64>(p, B, dtype_bf16, s);
-    case 128: return launch_d<128>(p, B, dtype_bf16, s);
-    case 256: return launch_d<256>(p, B, dtype_bf16, s);
+    case 64: return launch_d<64, kPos>(p, B, bf16, s);
+    case 128: return launch_d<128, kPos>(p, B, bf16, s);
+    case 256: return launch_d<256, kPos>(p, B, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  q, k, v and o are [B, S, heads,
+// D] views given by their strides (D contiguous); dtype_bf16 selects bf16
+// (else fp32).  Each launches on `stream` and returns the CUDA error (0 when
+// the launch was accepted); an unsupported head_dim, or a bf16 view that TMA
+// cannot map, returns cudaErrorInvalidValue.
+extern "C" int flash_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int Sq, int Sk, int D, const int64_t* strides, float scale,
+    float softcap, int causal, int window, int dtype_bf16, void* stream) {
+  const Params p = make_params(q, k, v, o, H, KV, Sq, Sk, strides, scale,
+                               softcap, causal, window);
+  return launch_any<false>(p, B, D, dtype_bf16, (cudaStream_t)stream);
+}
+
+// The same, masking by position: positions is int32 [Sq] (Sq == Sk), one
+// vector for queries and keys; bounds is int32 scratch of at least
+// 2 * (ceil(Sk / 32) + ceil(Sq / 64)) elements for the tiles' least and
+// greatest positions (pos_bounds_kernel, two launches before the kernel).
+extern "C" int flash_attention_pos_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int Sq, int Sk, int D, const int64_t* strides, float scale,
+    float softcap, int causal, int window, int dtype_bf16,
+    const void* positions, void* bounds, void* stream) {
+  if (Sq != Sk) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, o, H, KV, Sq, Sk, strides, scale, softcap,
+                         causal, window);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int tile = dtype_bf16 ? kBK16 : kBK32;
+  const int nkt = (Sk + tile - 1) / tile, nqg = (Sq + 63) / 64;
+  int* kb = (int*)bounds;
+  p.pos = (const int*)positions;
+  p.kb = kb;
+  p.qb = kb + 2 * nkt;
+  pos_bounds_kernel<<<(nkt + 127) / 128, 128, 0, s>>>(p.pos, Sk, tile, nkt,
+                                                      kb);
+  pos_bounds_kernel<<<(nqg + 127) / 128, 128, 0, s>>>(p.pos, Sq, 64, nqg,
+                                                      kb + 2 * nkt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_any<true>(p, B, D, dtype_bf16, s);
 }

@@ -17,7 +17,10 @@ the build raises.
 Launch: ``attend`` checks device, dtype, shape and layout, allocates the
 output with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the C entry point reports a CUDA error, and adds
-one to ``launches["flash_attention"]``.  The bf16 kernel reads q, k and v
+one to ``launches["flash_attention"]``.  With ``positions`` it masks by
+position through the kernels' second instance (``flash_attention_pos_launch``,
+which also writes each tile's least and greatest position into scratch the
+wrapper allocates).  The bf16 kernel reads q, k and v
 through TMA tensor maps built on the host from the views' strides, so every
 view (of either dtype) must follow TMA's rules: a 16-byte aligned start
 and, on every axis but the last, a stride that is a multiple of 16 bytes
@@ -62,6 +65,10 @@ def load(path) -> ctypes.CDLL:
     lib.flash_attention_launch.argtypes = [
         p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    if hasattr(lib, "flash_attention_pos_launch"):
+        lib.flash_attention_pos_launch.argtypes = [
+            p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p, p, p]
+        lib.flash_attention_pos_launch.restype = ctypes.c_int
     return lib
 
 
@@ -93,12 +100,15 @@ def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype,
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True, window: int = 0, softcap: float = 0.0,
            scale: Optional[float] = None,
+           positions: Optional[torch.Tensor] = None,
            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """Flash attention on the card.  q [B,Sq,H,D]; k, v [B,Sk,KV,D] with
     H % KV == 0 (strides as ``_check_layout`` takes them, D contiguous) ->
-    [B,Sq,H,D] in q's dtype.  Query head h reads KV head h // (H // KV);
-    positions count from 0.  ``lib`` is another build of the kernel (from
-    ``load``) to launch instead of the package's, for comparing designs."""
+    [B,Sq,H,D] in q's dtype.  Query head h reads KV head h // (H // KV).
+    Positions count from 0 on both sides, or are ``positions`` (int32 [S],
+    contiguous, on q's device; Sq == Sk == S), one vector for queries and
+    keys.  ``lib`` is another build of the kernel (from ``load``) to launch
+    instead of the package's, for comparing designs."""
     if q.device.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {q.device}")
     if q.dim() != 4:
@@ -121,19 +131,35 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, q.dtype, q.device)
+    if positions is not None:
+        if positions.device != q.device or positions.dtype != torch.int32 \
+                or tuple(positions.shape) != (Sq,) or Sk != Sq \
+                or not positions.is_contiguous():
+            raise ValueError(f"positions must be contiguous int32 [{Sq}] "
+                             f"on {q.device} with Sk == Sq, got "
+                             f"{positions.dtype} {tuple(positions.shape)} "
+                             f"on {positions.device} (Sk {Sk})")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
     strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
                                     *v.stride()[:3], *out.stride()[:3])
     lib = _load() if lib is None else lib
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KV, Sq, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
             float(scale or D ** -0.5), float(softcap), int(bool(causal)),
-            int(window), DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(window), DTYPES[q.dtype])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if positions is None:
+            err = lib.flash_attention_launch(*args, stream)
+        else:
+            # each key tile's and 64-row q group's least and greatest
+            # position (key tiles of 32 keys or more)
+            bounds = torch.empty(2 * (-(-Sk // 32) + -(-Sq // 64)),
+                                 dtype=torch.int32, device=q.device)
+            err = lib.flash_attention_pos_launch(
+                *args, positions.data_ptr(), bounds.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA "
                            f"error {err}")

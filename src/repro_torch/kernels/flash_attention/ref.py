@@ -30,11 +30,17 @@ MHA_NEG_INF = -2.0e38      # mha_ref's
 BF16_ROW_TOL = 2.0 ** -4   # row_scaled_err bound for bf16 results
 
 
-def _allowed(Sq: int, Sk: int, causal: bool, window: int,
-             device) -> torch.Tensor:
-    """bool [Sq, Sk]: may query position i see key position j."""
-    qp = torch.arange(Sq, device=device)[:, None]
-    kp = torch.arange(Sk, device=device)[None, :]
+def _allowed(Sq: int, Sk: int, causal: bool, window: int, device,
+             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool [Sq, Sk]: may query i see key j.  Their positions are i and j,
+    or ``positions[i]`` and ``positions[j]`` (one int vector [S] for both
+    sides, Sq == Sk == S), compared in int64."""
+    if positions is None:
+        qp = torch.arange(Sq, device=device)[:, None]
+        kp = torch.arange(Sk, device=device)[None, :]
+    else:
+        pos = positions.to(device=device, dtype=torch.int64)
+        qp, kp = pos[:, None], pos[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         ok &= kp <= qp
@@ -46,9 +52,12 @@ def _allowed(Sq: int, Sk: int, causal: bool, window: int,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """q [B,Sq,H,D]; k, v [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype; query
-    head h reads KV head h // (H // KV)."""
+    head h reads KV head h // (H // KV).  ``positions`` (int [S], with
+    Sq == Sk == S) masks by position instead of by index."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale or D ** -0.5
@@ -58,8 +67,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B,KV,G,Sq,Sk]
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    s = torch.where(_allowed(Sq, Sk, causal, window, q.device), s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    ok = _allowed(Sq, Sk, causal, window, q.device, positions)
+    s = torch.where(ok, s, torch.tensor(NEG_INF, dtype=s.dtype,
+                                        device=s.device))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.matmul(p.to(v.dtype).float(), vf.float()) / l

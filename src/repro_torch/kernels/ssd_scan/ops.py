@@ -1,9 +1,11 @@
 """Public SSD-scan function: the CUDA kernel for tensors on the card, the
 plain torch version (``ref.ssd_chunked``) for tensors on the CPU.
 
-A tensor on the card always goes to the kernel: if it cannot be built or
-launched, the call raises; there is no fallback.  ``launches`` counts the
-kernel launches; ``reset_launches`` zeroes it.
+The card's call goes through ``kernels.autograd.forward_only``: the kernel
+has no backward yet, so a gradient through it raises instead of being
+dropped. A tensor on the card always goes to the kernel: if it cannot be
+built or launched, the call raises; there is no fallback. ``launches``
+counts the kernel launches; ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..autograd import forward_only
 from . import ssd_scan as _cuda
 from .ref import ssd_chunked
 from .ssd_scan import check_chunk, launches, reset_launches  # noqa: F401
@@ -33,6 +36,8 @@ def ssd_scan(xh, dt, A, Bc, Cc, D, *, chunk: int = 128
     must be 0."""
     check_chunk(xh.shape[1], chunk)
     if _on_card(xh):
-        return _cuda.scan(xh, dt, A, Bc, Cc, D, chunk=chunk)
+        return forward_only(
+            "ssd_scan", lambda *a: _cuda.scan(*a, chunk=chunk),
+            xh, dt, A, Bc, Cc, D)
     y, h_final = ssd_chunked(xh, dt, A, Bc, Cc, D, chunk)
     return y, h_final.float()

@@ -149,15 +149,23 @@ def attention(params: Dict, x: torch.Tensor, spec: AttnSpec, *,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-sequence attention (training / prefill). x: [B, S, d].
 
-    RoPE takes ``positions``; the flash kernel's masks count positions
-    from 0, as the JAX package's Pallas path does."""
+    RoPE takes ``positions``.  The masks, as in the JAX package's default
+    path, take the temporal row of batch row 0 (``positions[0][0]`` for
+    M-RoPE's [3, B, S], ``positions[0]`` for [B, S]) for queries and keys
+    alike; without ``positions`` they count from 0 (the kernel's index
+    masks, the fast case)."""
     B, S, _ = x.shape
+    mask_pos = None
     if positions is None:
         positions = _default_positions(B, S, spec, x.device)
+    else:
+        mask_pos = (positions[0] if spec.mrope else positions)[0]
+        mask_pos = mask_pos.to(torch.int32).contiguous()
     q, k, v = _project_qkv(params, x, spec, positions)
     ctx = gqa_flash_attention(
         q, k, v, causal=spec.causal, window=spec.sliding_window,
-        softcap=spec.attn_softcap, scale=spec.query_scale)
+        softcap=spec.attn_softcap, scale=spec.query_scale,
+        positions=mask_pos)
     return torch.einsum("bqhk,hkd->bqd", ctx, params["wo"].to(x.dtype))
 
 

@@ -488,3 +488,286 @@ def test_ssd_scan_is_deterministic(cuda, dtype):
     y0, h0 = SS.ssd_scan(*args, chunk=256)
     y1, h1 = SS.ssd_scan(*args, chunk=256)
     assert torch.equal(y0, y1) and torch.equal(h0, h1)
+
+
+# ---------------------------------------------------------------------------
+# dvv_ops: the tiled and general paths, and the staged front ends
+# ---------------------------------------------------------------------------
+
+#: chip_smoke.py's KERNEL_SHAPES, then the tiled path's edges (K and R in
+#: 1..8; one past on either side goes the general path), ragged tiles (N
+#: not a multiple of 32 or 64) and the store's own widths (K <= 4, R 5).
+TILED_SHAPES = [(64, 2, 8), (4096, 4, 8), (16384, 4, 8), (1048576, 8, 8),
+                (1, 1, 1), (33, 8, 8), (65, 9, 8), (65, 8, 9), (100, 1, 1),
+                (129, 5, 7), (4095, 3, 5), (8447, 2, 5), (8449, 4, 5),
+                (70000, 3, 3)]
+
+
+def _general_sweeps(on_card):
+    """Mask, read-sweep mask and ceilings from the general kernels, called
+    through the C dispatch whatever path the wrappers take at the shape."""
+    from repro_torch.kernels.dvv_ops import dvv_ops as C
+
+    N, K, R = on_card[0].shape
+    dev = on_card[0].device
+    mask = torch.empty((N, K), dtype=torch.bool, device=dev)
+    smask = torch.empty_like(mask)
+    ceil = torch.empty((N, R), dtype=torch.int64, device=dev)
+    lib, stream = C._load(), C.stream_of(dev)
+    ins = [t.data_ptr() for t in on_card]
+    for out, cptr in ((mask, None), (smask, ceil.data_ptr())):
+        assert lib.dvv_sweep_launch(*ins, out.data_ptr(), cptr, N, K, R, 0,
+                                    stream) == 0
+    return mask, smask, ceil
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_sweeps_equal_plain_versions_on_both_paths(cuda, shape):
+    """Mask and ceilings exactly equal to the plain version through the
+    wrappers, which take the tiled path where it takes the shape, and
+    through the general kernels at the same shape."""
+    from repro_torch.kernels.dvv_ops import dvv_ops as C
+
+    on_card = _t(_grouped(*shape, seed=sum(shape)), cuda)
+    want_mask, want_ceil = ref.read_sweep_ref(*on_card)
+    C.reset_launches()
+    mask = C.sync_mask(*on_card)
+    smask, ceil = C.read_sweep(*on_card)
+    assert C.path_launches[C.tiled_path(*shape)] == 2
+    gmask, gsmask, gceil = _general_sweeps(on_card)
+    torch.cuda.synchronize()
+    for got in (mask, smask, gmask, gsmask):
+        assert torch.equal(got, want_mask)
+    assert torch.equal(ceil, want_ceil) and torch.equal(gceil, want_ceil)
+
+
+def test_sweeps_of_unaligned_views_take_the_general_path(cuda):
+    from repro_torch.kernels.dvv_ops import dvv_ops as C
+
+    args = _t(_grouped(101, 3, 5, seed=9), cuda)
+    views = [a[1:] for a in args]                 # 60 and 12 bytes in
+    assert views[0].data_ptr() % 16 and views[3].data_ptr() % 16
+    C.reset_launches()
+    mask, ceil = C.read_sweep(*views)
+    want_mask, want_ceil = ref.read_sweep_ref(*views)
+    assert torch.equal(mask, want_mask) and torch.equal(ceil, want_ceil)
+    assert C.path_launches == {"tiled": 0, "general": 1}
+
+
+@pytest.mark.parametrize("shape", [(29, 2, 5), (1000, 4, 5), (8000, 2, 5),
+                                   (1, 300, 0), (7, 300, 2), (1000, 9, 0)])
+def test_staged_front_ends_equal_numpy_twin(cuda, shape):
+    """numpy in, numpy out through the pinned staging buffer: exactly the
+    numpy twin, with one copy in and one copy out per sweep."""
+    args = _grouped(*shape, seed=len(shape) + shape[0])
+    want = TB.sync_mask_np(*args)
+    fronts = (ops.BucketedSweep(cuda), ops.BucketedReadSweep(cuda))
+    np.testing.assert_array_equal(fronts[0](*args), want)
+    mask, ceil = fronts[1](*args)
+    np.testing.assert_array_equal(mask, want)
+    for n in range(min(shape[0], 64)):
+        s = np.flatnonzero(want[n])
+        np.testing.assert_array_equal(ceil[n], TB.grouped_ceiling_np(
+            args[0][n][s], args[1][n][s], args[2][n][s],
+            np.zeros(len(s), np.int64), 1)[0])
+    for f in fronts:
+        assert f._host.is_pinned()
+        assert f.h2d_copies == f.d2h_copies == 1
+
+
+def test_cluster_front_ends_copy_once_each_way_per_sweep(cuda):
+    """The store's planes on the card: every sweep of either front end is
+    one H2D and one D2H copy (the front ends' counters) and one launch."""
+    fronts = (ops.dvv_sync_mask_bucketed(cuda),
+              ops.dvv_read_sweep_bucketed(cuda))
+    before = [(f.hits + f.misses, f.h2d_copies, f.d2h_copies)
+              for f in fronts]
+    ops.reset_launches()
+    c = KVCluster(("a", "b", "c"), DVV_MECHANISM, replication=2,
+                  read_quorum=2, shards=2)
+    cl = KVClient(c, "t", via="a")
+    keys = [f"k{i}" for i in range(200)]
+    cl.put_many({k: (k, None) for k in keys})
+    c.deliver_replication()
+    c.delta_antientropy_round()
+    got = cl.get_many(keys)
+    assert all(got[k].values == (k,) for k in keys)
+    sweeps = []
+    for f, (n0, h0, d0) in zip(fronts, before):
+        n = f.hits + f.misses - n0
+        assert n > 0 and f.h2d_copies - h0 == n and f.d2h_copies - d0 == n
+        sweeps.append(n)
+    assert ops.launches["dvv_sync_mask"] == sweeps[0]
+    assert ops.launches["dvv_read_sweep"] == sweeps[1]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: masks by position
+# ---------------------------------------------------------------------------
+
+def _flash_positions(S):
+    """Position vectors of length S: an image's patches sharing one
+    temporal id between text runs, a shuffled order with repeats, a
+    descending order, and gaps."""
+    text = S // 8
+    rng = np.random.default_rng(S)
+    return {
+        "repeated": np.concatenate([np.arange(text), np.full(S // 2, text),
+                                    np.arange(text + 1,
+                                              text + 1 + S - text - S // 2)]),
+        "shuffled": rng.permutation(S) // 3,
+        "descending": S - 1 - np.arange(S),
+        "gaps": np.arange(S) * 7 - 1000,
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("which", ["repeated", "shuffled", "descending",
+                                   "gaps"])
+@pytest.mark.parametrize("mode", ["causal", "window", "window_softcap",
+                                  "bidir"])
+def test_flash_kernel_with_positions_equals_plain_version(
+        cuda, ieee_fp32, dtype, D, which, mode):
+    """S = 320 (ragged 128-row q tiles and 80-key tiles): masks by the
+    positions, the plain version's result at the existing tolerances."""
+    q, k, v = _qkv(2, 320, 4, 2, D, dtype, cuda, seed=7)
+    pos = torch.from_numpy(_flash_positions(320)[which].astype(
+        np.int32)).to(cuda)
+    kw = dict(FLASH_MODES[mode], positions=pos)
+    FA.reset_launches()
+    got = FA.gqa_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, **kw)
+    assert FA.launches == {"flash_attention": 1}
+    assert torch.isfinite(got).all()
+    _assert_flash_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [100, 4160])
+@pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir"])
+def test_flash_kernel_arange_positions_equal_index_masks_bitwise(
+        cuda, dtype, S, mode):
+    """positions 0..S-1 take the same tiles and masks as the index
+    instance: bitwise-equal outputs."""
+    q, k, v = _qkv(1, S, 4, 2, 128, dtype, cuda, seed=8)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    a = FA.gqa_flash_attention(q, k, v, **FLASH_MODES[mode])
+    b = FA.gqa_flash_attention(q, k, v, positions=pos, **FLASH_MODES[mode])
+    assert torch.equal(a, b)
+
+
+def test_flash_kernel_index_masks_bitwise_equal_to_parent_build(cuda):
+    """positions=None against a build of the parent commit's kernel source
+    (saved as build/flash_attention_parent.cu, or FLASH_BASELINE_CU): the
+    index instance compiles as before, so the outputs are bitwise equal."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from repro_torch.kernels import build as _build
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    src = Path(os.environ.get("FLASH_BASELINE_CU", _build.BUILD_ROOT.parent
+                              / "flash_attention_parent.cu"))
+    if not src.exists():
+        pytest.skip(f"needs the parent commit's kernel source at {src}")
+    csrc = _build.BUILD_ROOT / "flash_attention_parent_src"
+    shutil.rmtree(csrc, ignore_errors=True)
+    csrc.mkdir(parents=True)
+    shutil.copyfile(src, csrc / "flash_attention.cu")
+    parent = K.load(_build.build("flash_attention_parent", csrc))
+    for dtype, S, D in ((torch.bfloat16, 4160, 256), (torch.bfloat16, 320, 64),
+                        (torch.float32, 320, 128)):
+        q, k, v = _qkv(1, S, 4, 2, D, dtype, cuda, seed=9)
+        for mode in FLASH_MODES:
+            assert torch.equal(K.attend(q, k, v, **FLASH_MODES[mode]),
+                               K.attend(q, k, v, lib=parent,
+                                        **FLASH_MODES[mode])), (dtype, mode)
+
+
+def test_flash_wrapper_rejects_bad_positions(cuda):
+    q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16, cuda)
+    pos = torch.arange(64, dtype=torch.int32, device=cuda)
+    for bad in (pos.long(), pos[:32], pos.cpu(), pos.repeat(2)[::2]):
+        with pytest.raises(ValueError, match="positions"):
+            FA.gqa_flash_attention(q, k, v, positions=bad)
+    with pytest.raises(ValueError, match="positions"):
+        FA.gqa_flash_attention(q, k[:, :32], v[:, :32], positions=pos)
+
+
+def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32):
+    """qwen2-vl-7b's smoke config with head_dim 64, fp32, image-style
+    M-RoPE positions: logits on the card equal the CPU run's (which the
+    CPU twins hold to the JAX package's default path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = replace(get_config("qwen2-vl-7b").smoke(), head_dim=64,
+                  compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.normal(size=(2, 160, cfg.d_model)).astype(
+        np.float32))
+    t = np.concatenate([np.arange(16), np.full(64, 16), np.arange(17, 97)])
+    h, w = t.copy(), t.copy()
+    h[16:80] = 16 + np.arange(64) // 8
+    w[16:80] = 16 + np.arange(64) % 8
+    pos = torch.from_numpy(np.broadcast_to(
+        np.stack([t, h, w])[:, None], (3, 2, 160)).astype(np.int32))
+    prefill = make_prefill_step(cfg)
+    want = prefill(params, {"embeddings": emb, "positions": pos})
+    index = prefill(params, {"embeddings": emb})
+    FA.reset_launches()
+    got = prefill(_to(params, cuda), {"embeddings": emb.to(cuda),
+                                      "positions": pos.to(cuda)})
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    assert float((index - want).abs().max()) > 1e-2   # positions count
+
+
+# ---------------------------------------------------------------------------
+# gradients stop loudly at the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,kernel", [("gemma2-9b", "flash_attention"),
+                                         ("mamba2-780m", "ssd_scan")])
+def test_backward_through_a_card_prefill_raises(cuda, arch, kernel):
+    """loss.backward() through the kernels raises NotImplementedError
+    naming ROADMAP.md Queue 1 item 7.1; the same loss on the CPU (plain
+    versions) has its gradient, and no_grad prefill still runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import loss_fn
+
+    cfg = replace(get_config(arch).smoke(), head_dim=64,
+                  compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 64)).astype(np.int32))
+    batch = {"tokens": toks, "labels": toks}
+    on_card = {k: t.to(cuda) for k, t in batch.items()}
+    leaves = _to(params, cuda)
+    for t in _leaves(leaves):
+        t.requires_grad_()
+    loss, _ = loss_fn(leaves, on_card, cfg)
+    assert loss.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
+        loss.backward()
+    for t in _leaves(params):
+        t.requires_grad_()
+    cpu_loss, _ = loss_fn(params, batch, cfg)
+    cpu_loss.backward()
+    assert params["embed"].grad is not None
+    with torch.no_grad():
+        again, _ = loss_fn(_to(params, cuda), on_card, cfg)
+    assert abs(float(again) - float(cpu_loss)) < 1e-3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]

@@ -19,6 +19,7 @@ from repro.kernels import dvv_ops as ref_ops
 from repro_torch.core import batched as TB
 from repro_torch.kernels import dvv_ops as ops
 from repro_torch.kernels.dvv_ops import ref
+from repro_torch.kernels.dvv_ops.ops import staging_layout
 
 pytestmark = pytest.mark.torch
 
@@ -183,3 +184,97 @@ def test_cpu_tensors_never_count_as_launches():
     ops.dvv_read_sweep(*_t(_grouped(4, 2, 3)))
     assert ops.launches == {"dvv_sync_mask": 0, "dvv_read_sweep": 0,
                             "dvv_leq": 0}
+
+
+#: Shapes inside the store's buckets ([32..8192, 2..4, 8]: PERF.md §5's
+#: store line), none on a bucket's edge, and the card tests' odd ones.
+STORE_SHAPES = [(29, 2, 5), (61, 2, 3), (100, 3, 5), (1000, 4, 5),
+                (2000, 2, 5), (4000, 3, 5), (8000, 2, 5), (1, 300, 0),
+                (7, 300, 2), (1000, 9, 0)]
+
+
+def _store_args(N, K, R, seed=0):
+    """``_grouped``, also at R = 0 (no columns, so no dots)."""
+    if R:
+        return _grouped(N, K, R, seed)
+    rng = np.random.default_rng(seed)
+    return (np.zeros((N, K, 0), np.int32), np.full((N, K), -1, np.int32),
+            np.zeros((N, K), np.int32), rng.random((N, K)) < 0.8)
+
+
+def _padded_twin(args):
+    """The numpy twin on the arrays padded to their bucket, cut back: the
+    JAX package's front ends' result."""
+    N, K, R = args[0].shape
+    vvs, dids, dns, valid = TB.pad_sync_args(*args, TB.bucket_shape(N, K, R))
+    mask = TB.sync_mask_np(vvs, dids, dns, valid)
+    keys, slots = np.nonzero(mask)
+    ceil = TB.grouped_ceiling_np(vvs[keys, slots], dids[keys, slots],
+                                 dns[keys, slots], keys, len(vvs))
+    return mask[:N, :K], ceil[:N, :R]
+
+
+@pytest.mark.parametrize("shape", STORE_SHAPES)
+def test_unpadded_front_ends_equal_padded_numpy_twin(shape):
+    args = _store_args(*shape, seed=sum(shape))
+    want_mask, want_ceil = _padded_twin(args)
+    np.testing.assert_array_equal(ops.BucketedSweep("cpu")(*args), want_mask)
+    mask, ceil = ops.BucketedReadSweep("cpu")(*args)
+    np.testing.assert_array_equal(mask, want_mask)
+    np.testing.assert_array_equal(ceil, want_ceil)
+    assert mask.dtype == bool and ceil.dtype == np.int64
+
+
+def test_staging_layout_is_aligned_and_ordered():
+    for N, K, R in STORE_SHAPES + [(3, 1, 1)]:
+        for ceil in (False, True):
+            offs, in_bytes, out_off, out_bytes = staging_layout(N, K, R,
+                                                                ceil)
+            live = offs if ceil else offs[:5]
+            assert all(o % 16 == 0 for o in live)
+            assert offs[1] >= N * K * R * 4 and offs[4] >= offs[3] + N * K
+            assert in_bytes == offs[3] + N * K and out_off == offs[4]
+            assert out_bytes == (offs[5] - offs[4] + N * R * 8 if ceil
+                                 else N * K)
+            assert (offs[5] < 0) == (not ceil)
+
+
+def test_staging_buffer_is_reused_as_shapes_grow_and_shrink():
+    """The card's staging buffer, sized for each sweep in turn (on the
+    CPU the front end itself stages nothing)."""
+    front = ops.BucketedReadSweep("cpu")
+    seen = []
+    for shape in [(8000, 2, 5), (29, 2, 5), (1000, 4, 5), (8000, 2, 5),
+                  (20000, 4, 8), (61, 2, 3), (20000, 4, 8)]:
+        args = _store_args(*shape, seed=shape[0])
+        mask, ceil = front(*args)
+        want_mask, want_ceil = _padded_twin(args)
+        np.testing.assert_array_equal(mask, want_mask)
+        np.testing.assert_array_equal(ceil, want_ceil)
+        _, _, out_off, out_bytes = staging_layout(*shape, True)
+        host = front._staging(out_off + out_bytes)
+        assert host.nbytes >= out_off + out_bytes
+        seen.append(front._host.data_ptr())
+    # one buffer until a sweep outgrows it, then the grown one for good
+    assert len(set(seen[:4])) == 1 and len(set(seen[4:])) == 1
+    assert seen[4] != seen[0]
+    assert front.h2d_copies == front.d2h_copies == 0     # no card here
+
+
+def test_front_ends_count_buckets_as_the_jax_package():
+    import importlib
+    jax_ops = importlib.import_module("repro.kernels.dvv_ops.ops")
+    shapes = [(5, 2, 3), (7, 2, 5), (8, 2, 8), (100, 2, 5), (29, 3, 5),
+              (31, 4, 8), (3, 1, 1), (5, 2, 3)]
+    port = (ops.BucketedSweep("cpu"), ops.BucketedReadSweep("cpu"))
+    jax_fronts = (RB.BucketedSyncMask(ref_ops.dvv_sync_mask, jit=False),
+                  jax_ops.BucketedReadSweep())
+    for shape in shapes:
+        args = _store_args(*shape, seed=len(shape))
+        for f in port + jax_fronts:
+            f(*args)
+    for mine, theirs in zip(port, jax_fronts):
+        assert mine.cache_info() == theirs.cache_info()
+        mine.reset_stats()
+        assert mine.cache_info()["hits"] == mine.cache_info()["misses"] == 0
+        assert mine.cache_info()["buckets"]

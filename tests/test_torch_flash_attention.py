@@ -198,3 +198,52 @@ def test_layout_check_takes_what_tma_maps():
                       bf16, cpu)
     with pytest.raises(TypeError):
         _check_layout("v", x.float(), bf16, cpu)
+
+
+#: Position vectors the card tests also use (S = 64): repeated ids (an
+#: image's patches), a sequence that steps back, gaps.
+POSITIONS = {
+    "repeated": np.concatenate([np.arange(8), np.full(40, 8),
+                                np.arange(9, 25)]),
+    "non_monotone": np.random.default_rng(3).permutation(64) // 2,
+    "gaps": np.arange(64) * 7 - 100,
+}
+
+
+@pytest.mark.parametrize("which", list(POSITIONS))
+@pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
+def test_plain_version_masks_by_position_as_jax_default_path(which, mode):
+    """positions given: the plain version against the JAX package's naive
+    attention (its default path) with q_pos = k_pos = positions."""
+    import importlib
+    JA = importlib.import_module("repro.models.attention")
+
+    S, H, KV, D = 64, 4, 2, 16
+    kw = _kw(mode, 24)
+    rng = np.random.default_rng(len(which) + len(mode))
+    q, k, v = (rng.normal(size=(2, S, h, D)).astype(np.float32)
+               for h in (H, KV, KV))
+    pos = POSITIONS[which].astype(np.int32)
+    spec = JA.AttnSpec(n_heads=H, n_kv_heads=KV, head_dim=D,
+                       causal=kw["causal"], sliding_window=kw["window"],
+                       attn_softcap=kw["softcap"])
+    want = JA._attend_naive(JA._group_q(jnp.asarray(q), KV), jnp.asarray(k),
+                            jnp.asarray(v), jnp.asarray(pos),
+                            jnp.asarray(pos), spec).reshape(2, S, H, D)
+    got = gqa_flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v),
+                              positions=torch.from_numpy(pos), **kw)
+    _assert_close(got, want, 1e-5)
+
+
+def test_plain_version_index_positions_equal_no_positions():
+    """positions 0..S-1 give exactly the index masks."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 96, h, 32)).astype(
+        np.float32)) for h in (4, 2, 2))
+    for kw in (dict(causal=True), dict(causal=True, window=20, softcap=30.0),
+               dict(causal=False)):
+        assert torch.equal(
+            gqa_flash_attention(q, k, v, **kw),
+            gqa_flash_attention(q, k, v, positions=torch.arange(
+                96, dtype=torch.int32), **kw))

@@ -16,8 +16,9 @@ for the softcap rows), a yardstick the port never calls.
 --baseline builds a second library from another flash_attention.cu (for
 example the parent commit's, saved under build/, which is gitignored and
 copied to the card) and times it in turns with the package's kernel on the
-same inputs: baseline, kernel, kernel, baseline.  A quick check of a kernel
-change; chip_smoke.py is the full run.
+same inputs: baseline, kernel, kernel, baseline, and says whether the two
+outputs are bitwise equal.  A quick check of a kernel change;
+chip_smoke.py is the full run.
 """
 import argparse
 import json
@@ -100,11 +101,16 @@ def main() -> int:
         want = flash_attention_ref(q, k, v, **kw)
         row = {"variant": variant, "dtype": dtype, "shape": [1, S, H, KV, D],
                **kw, "tol": tol}
-        calls = {}
+        calls, outs = {}, {}
         for name, lib in libs.items():
             calls[name] = partial(FA.attend, q, k, v, lib=lib, **kw)
-            row[name] = errors(calls[name](), want)
+            outs[name] = calls[name]()
+            row[name] = errors(outs[name], want)
+        if args.baseline:
+            row["bitwise_equal_to_baseline"] = bool(
+                torch.equal(outs["kernel"], outs["baseline"]))
         torch.cuda.synchronize()
+        del outs
         del want
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if cap:
