@@ -61,6 +61,33 @@ exits non-zero:
            (the device's idle share), each kernel's device time per
            launch at the shapes the store gives it, and the host-to-device
            and device-to-host copies per sweep (at most one each).
+  store_workload  the closed-loop serving workload of
+           `python -m repro_torch.launch.serve --store-workload` (the JAX
+           package's BENCH_serving.json coalescing deployment at its
+           largest session count: 5 nodes, n_val 3, r = w = 2, packed DVV,
+           read-repair; 1,000,000 sessions, 10,000 keys, zipf 0.9,
+           concurrency 256, max_batch 256, max_delay 2.0) with a
+           GossipDriver of period 10, 1,500 steps (3,000 ops) in each mode,
+           coalesced (OpScheduler) and direct.  Per mode: the engine's
+           summary, gossip rounds and wire bytes, and each DVV kernel's
+           launches (counts zeroed just before the run, read just after).
+           Checks: no op failed, both sweeps launched, the same mode through
+           the numpy twins (use_kernel=False) gives the same summary (wall
+           fields aside) and the same digest and value roots for every
+           store; after replication drains and gossip converges the
+           cluster, a quorum-2 read of every written key returns the last
+           acknowledged PUT among its values.  Then 500 coalesced steps
+           under torch.profiler: device-busy against wall seconds.
+  geo      a two-datacenter KVCluster on the card (east e0-e2, west w0-w2,
+           as tests/test_geo.py lays them out; LAN 1 +- 0.5 and WAN 30 +- 10
+           ticks): put 16,384 keys from both DCs and ship them, cut the WAN,
+           write 10% of the keys in each DC with their pre-cut contexts,
+           read snapshots of every key in each DC through an OpScheduler
+           (one snapshot_get_many a flush; no WAN message may be sent),
+           heal, let the WanShipper ship until the cluster converges, and
+           quorum-read every key from each DC: every acknowledged write
+           comes back in both.  The numpy twins give the same roots,
+           snapshots and reads.
   model    gemma2-9b at full width and depth (42 layers, 9.24 B fp32
            parameters from a torch.Generator seeded by --seed): one warm-up
            and one timed prefill of tokens [1, 8192] through
@@ -138,6 +165,17 @@ BATCH = 4096
 VALUE_BYTES = 64
 KERNEL_SHAPES = ((64, 2, 8), (4096, 4, 8), (16384, 4, 8), (1048576, 8, 8))
 SUMMARY_SHAPE = (4096, 4, 8)
+# the store workload: the launcher's own defaults (the JAX package's CLI
+# and BENCH_serving.json's 1M-session coalescing row) with gossip on
+WORKLOAD_ARGV = ("--store-workload", "--gossip-period", "10",
+                 "--store-steps", "1500")
+WORKLOAD_TRACE_STEPS = 500
+#: the engine's summary fields read from the host's clock
+WALL_FIELDS = ("wall_s", "ops_per_sec_wall")
+GEO_DCS = {"east": ("e0", "e1", "e2"), "west": ("w0", "w1", "w2")}
+GEO_KEYS = 16384
+GEO_SNAPSHOT_KEYS = 64        # keys a snapshot op reads
+GEO_SNAPSHOT_BATCH = 64       # ops a scheduler flush takes
 #: the dvv_ops kernels' names in profiler traces contain these
 DVV_KERNELS = ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq")
 
@@ -801,9 +839,7 @@ def parity_phase(n_keys: int, seed: int, device="cuda"):
             n_keys, seed, device=device, use_kernel=use_kernel)
         check_reads(keys, expect, reads)
         runs[use_kernel] = (
-            {(n, s): (st.digest_root(), st.value_root())
-             for n, node in c.nodes.items()
-             for s, st in enumerate(node.shard_stores)},
+            store_roots(c),
             {k: (r.values, r.context.to_bytes(), r.resolution)
              for k, r in reads.items()})
     if runs[True][0] != runs[False][0]:
@@ -815,11 +851,9 @@ def parity_phase(n_keys: int, seed: int, device="cuda"):
             "reads_compared": len(runs[True][1])}
 
 
-def trace_phase(n_keys: int, seed: int):
-    """The store schedule once more, traced on the card alone: how busy
-    the device was over the run's wall time, and per-launch device time
-    of each dvv_ops kernel at the main path's own shapes."""
-    busy_us, per, wall_s = device_profile(lambda: run_schedule(n_keys, seed))
+def traced_dvv_kernels(per):
+    """Launches and device microseconds per launch of each dvv_ops kernel
+    in a trace's device events."""
     kernels = {}
     for name in DVV_KERNELS:
         hits = [(n, us) for key, (n, us) in per.items()
@@ -827,6 +861,20 @@ def trace_phase(n_keys: int, seed: int):
         n = sum(c for c, _ in hits)
         kernels[name] = {"launches": n, "device_us_per_launch":
                          sum(us for _, us in hits) / n if n else None}
+    return kernels
+
+
+def top_device_events(per, n: int = 8):
+    return sorted(({"name": k[:80], "count": c, "us": us}
+                   for k, (c, us) in per.items()), key=lambda e: -e["us"])[:n]
+
+
+def trace_phase(n_keys: int, seed: int):
+    """The store schedule once more, traced on the card alone: how busy
+    the device was over the run's wall time, and per-launch device time
+    of each dvv_ops kernel at the main path's own shapes."""
+    busy_us, per, wall_s = device_profile(lambda: run_schedule(n_keys, seed))
+    kernels = traced_dvv_kernels(per)
     sweeps = sum(k["launches"] for k in kernels.values())
     copies = {way: sum(c for key, (c, _) in per.items()
                        if key.startswith(f"Memcpy {way}"))
@@ -840,10 +888,296 @@ def trace_phase(n_keys: int, seed: int):
             if busy_us else None,
             "kernels": kernels, "sweeps": sweeps, "copies": copies,
             "copies_per_sweep": {k: n / sweeps for k, n in copies.items()},
-            "top_device_events": sorted(
-                ({"name": k[:80], "count": c, "us": us}
-                 for k, (c, us) in per.items()),
-                key=lambda e: -e["us"])[:8]}
+            "top_device_events": top_device_events(per)}
+
+
+def store_roots(c):
+    """Every store's digest and value roots, by (node, shard)."""
+    return {(n, s): (st.digest_root(), st.value_root())
+            for n, node in c.nodes.items()
+            for s, st in enumerate(node.shard_stores)}
+
+
+def record_acks(client, mode: str):
+    """Wrap the engine's client so that every acknowledged PUT is recorded:
+    returns ``{key: value of its last acknowledged put}``, filled as the
+    run goes.  Coalesced puts are acknowledged when their op completes
+    without error (ops complete in submission order), direct puts when
+    put_many returns."""
+    acked = {}
+
+    def note(items):
+        acked.update((k, v) for k, (v, _) in items.items())
+
+    if mode == "coalesced":
+        submit = client.submit_put
+
+        def submit_put(items, **kw):
+            op = submit(items, **kw)
+            op.on_done(lambda op: op.error is None and note(op.items))
+            return op
+        client.submit_put = submit_put
+    else:
+        put_many = client.put_many
+
+        def put(items, **kw):
+            acks = put_many(items, **kw)
+            note(items)
+            return acks
+        client.put_many = put
+    return acked
+
+
+def workload_run(args, mode: str, *, use_kernel=True):
+    """One mode of the store workload; returns its summary (with gossip
+    rounds and wire bytes), the DVV kernels' launches in the run, the
+    cluster, the still-running gossip driver and the acknowledged puts."""
+    from repro_torch.kernels import dvv_ops
+    from repro_torch.launch.serve import store_workload
+
+    cluster, driver, eng = store_workload(mode, args, use_kernel=use_kernel)
+    acked = record_acks(eng.client, mode)
+    dvv_ops.reset_launches()
+    out = eng.run(args.store_steps)
+    launches = dict(dvv_ops.launches)
+    out["gossip"] = {"rounds": driver.rounds,
+                     "wire_bytes": driver.wire_bytes()}
+    return out, launches, cluster, driver, acked
+
+
+def converge(c, advance: float, max_steps: int = 100) -> float:
+    """Drain replication, then advance simulated time in ``advance`` steps
+    (gossip or WAN shipping run on its timers) until every live node holds
+    the same state; returns the simulated ticks it took."""
+    from repro_torch.store import cluster_converged
+    t0 = c.network.now
+    c.deliver_replication()
+    for _ in range(max_steps):
+        if cluster_converged(c):
+            return c.network.now - t0
+        c.network.advance(advance)
+        c.deliver_replication()
+    raise AssertionError(f"not converged after {max_steps} steps of "
+                         f"{advance} ticks")
+
+
+def quorum_read(c, keys, via: str, use_kernel=True):
+    from repro_torch.store import KVClient
+    cl = KVClient(c, "reader", via=via, use_kernel=use_kernel)
+    reads = {}
+    for i in range(0, len(keys), BATCH):
+        reads.update(cl.get_many(keys[i: i + BATCH], quorum=2))
+    return reads
+
+
+def store_workload_phase(seed: int, device="cuda"):
+    """The closed-loop store workload in both modes on the card, each held
+    against its numpy-twin rerun, then read back after convergence; then
+    a traced coalesced run.  ``seed`` is added to the launcher's default
+    workload seed."""
+    from repro_torch.launch.serve import parse_args, store_workload
+
+    t0 = time.perf_counter()
+    args = parse_args([*WORKLOAD_ARGV, "--device", str(device)])
+    args.seed += seed
+    out = {"phase": "store_workload", "argv": list(WORKLOAD_ARGV),
+           "seed": args.seed, "modes": {}}
+    for mode in ("coalesced", "direct"):
+        summary, launches, c, driver, acked = workload_run(args, mode)
+        if summary["ops_failed"]:
+            raise AssertionError(f"{mode}: {summary['ops_failed']} ops "
+                                 f"failed")
+        if c.device.type == "cuda":
+            for name in ("dvv_sync_mask", "dvv_read_sweep"):
+                if launches[name] == 0:
+                    raise AssertionError(f"{mode}: {name} never launched: "
+                                         f"{launches}")
+        twin, twin_launches, tc, tdriver, _ = workload_run(
+            args, mode, use_kernel=False)
+        tdriver.stop()
+        if any(twin_launches.values()):
+            raise AssertionError(f"the numpy twins launched {twin_launches}")
+        strip = lambda d: {k: v for k, v in d.items()
+                           if k not in WALL_FIELDS}
+        if strip(summary) != strip(twin):
+            raise AssertionError(f"{mode}: summaries differ between kernel "
+                                 f"and twin: {summary} vs {twin}")
+        if store_roots(c) != store_roots(tc):
+            raise AssertionError(f"{mode}: store roots differ between "
+                                 f"kernel and twin")
+        t = time.perf_counter()
+        ticks = converge(c, driver.period)
+        driver.stop()
+        keys = sorted(acked)
+        reads = quorum_read(c, keys, "n0")
+        lost = [k for k in keys if acked[k] not in reads[k].values]
+        if lost:
+            raise AssertionError(f"{mode}: {len(lost)} keys lost their last "
+                                 f"acknowledged put, e.g. {lost[:3]}")
+        out["modes"][mode] = {
+            **summary, "launches": launches,
+            "twin_wall_s": twin["wall_s"],
+            "converge_ticks": ticks, "keys_read_back": len(keys),
+            "gossip_after_run": {"rounds": driver.rounds,
+                                 "wire_bytes": driver.wire_bytes()},
+            "converge_read_s": time.perf_counter() - t}
+
+    _, driver, eng = store_workload("coalesced", args)
+    busy_us, per, wall_s = device_profile(
+        lambda: eng.run(WORKLOAD_TRACE_STEPS))
+    driver.stop()
+    out["trace"] = {"steps": WORKLOAD_TRACE_STEPS, "wall_s": wall_s,
+                    "device_busy_s": busy_us / 1e6,
+                    "device_idle_share": 1 - busy_us / 1e6 / wall_s
+                    if busy_us else None,
+                    "kernels": traced_dvv_kernels(per),
+                    "top_device_events": top_device_events(per)}
+    out["phase_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def geo_schedule(n_keys: int, seed: int, *, device="cuda", use_kernel=True):
+    """The geo phase's schedule; returns the cluster, the snapshot reads
+    per DC, the quorum reads per DC, the expected value set per key, and
+    counts and seconds along the way."""
+    from repro_torch.core import DVV_MECHANISM
+    from repro_torch.store import KVClient, KVCluster, OpScheduler, \
+        SimNetwork
+
+    east, west = GEO_DCS["east"], GEO_DCS["west"]
+    net = SimNetwork(seed=seed)
+    net.set_latency_classes(lan=(1.0, 0.5), wan=(30.0, 10.0))
+    g = KVCluster(east + west, DVV_MECHANISM, network=net, seed=seed,
+                  datacenters=GEO_DCS, device=device)
+    g.geo.shipper.use_kernel = use_kernel
+    cl = KVClient(g, "geo", use_kernel=use_kernel)
+    keys = [f"key-{i:08d}" for i in range(n_keys)]
+    vals = values_for(seed, n_keys, "g0-")
+    expect = {k: {v} for k, v in zip(keys, vals)}
+    secs, acked = {}, 0
+
+    t = time.perf_counter()
+    half = n_keys // 2
+    for via, lo, hi in (("e0", 0, half), ("w0", half, n_keys)):
+        for i in range(lo, hi, BATCH):
+            j = min(i + BATCH, hi)
+            acked += len(cl.put_many(
+                {k: (v, None) for k, v in zip(keys[i:j], vals[i:j])},
+                via=via))
+    ship_ticks = converge(g, g.geo.shipper.period)
+    secs["put_ship"] = time.perf_counter() - t
+
+    # every 10th key: both DCs overwrite it with its pre-cut context
+    t = time.perf_counter()
+    forked = keys[::10]
+    ctx = {k: r.context for k, r in
+           quorum_read(g, forked, "e0", use_kernel).items()}
+    net.partition(set(east), set(west))
+    sides = {via: values_for(seed, len(forked), tag)
+             for via, tag in (("e0", "ge-"), ("w0", "gw-"))}
+    for via, fvals in sides.items():
+        for i in range(0, len(forked), BATCH):
+            part = forked[i: i + BATCH]
+            acked += len(cl.put_many(
+                {k: (v, ctx[k]) for k, v in zip(part, fvals[i: i + BATCH])},
+                via=via))
+    for k, a, b in zip(forked, sides["e0"], sides["w0"]):
+        expect[k] = {a, b}
+    g.deliver_replication()
+    net.advance(2 * g.geo.shipper.period)   # shipping ticks fail on the cut
+    secs["fork"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    wan0 = net.wan_messages
+    snaps, sched_stats = {}, {}
+    for via in (east[0], west[0]):
+        sched = OpScheduler(g, via=via, max_batch=GEO_SNAPSHOT_BATCH,
+                            use_kernel=use_kernel)
+        s = sched.session(f"snap-{via}")
+        ops = [s.submit_snapshot_get(keys[i: i + GEO_SNAPSHOT_KEYS])
+               for i in range(0, n_keys, GEO_SNAPSHOT_KEYS)]
+        sched.flush()
+        snaps[via] = {}
+        for op in ops:
+            snaps[via].update(op.result())
+        sched_stats[via] = sched.stats()
+    snapshot_wan = net.wan_messages - wan0
+    secs["snapshots"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    net.heal()
+    ticks0 = g.geo.wan_ticks
+    heal_ticks = converge(g, g.geo.shipper.period)
+    wan_ticks = g.geo.wan_ticks - ticks0
+    secs["heal"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    reads = {via: quorum_read(g, keys, via, use_kernel)
+             for via in (east[0], west[0])}
+    secs["read"] = time.perf_counter() - t
+    return {"cluster": g, "keys": keys, "first": vals, "forked": forked,
+            "sides": sides,
+            "expect": expect, "snaps": snaps, "reads": reads,
+            "acked": acked, "sched_stats": sched_stats,
+            "snapshot_wan_messages": snapshot_wan, "ship_ticks": ship_ticks,
+            "heal_ticks": heal_ticks, "wan_ticks": wan_ticks, "secs": secs}
+
+
+def check_snapshots(run) -> None:
+    """During the cut, each DC's snapshot of a key is one value: the first
+    one or this DC's own overwrite, never the other DC's."""
+    for via in ("e0", "w0"):
+        own = dict(zip(run["forked"], run["sides"][via]))
+        for k, first in zip(run["keys"], run["first"]):
+            got = run["snaps"][via][k].values
+            if got not in ((first,), (own.get(k),)):
+                raise AssertionError(f"snapshot of {k} at {via}: {got}")
+
+
+def geo_phase(n_keys: int, seed: int, device="cuda"):
+    from repro_torch.kernels import dvv_ops
+
+    dvv_ops.reset_launches()
+    t0 = time.perf_counter()
+    run = geo_schedule(n_keys, seed, device=device)
+    wall = time.perf_counter() - t0
+    launches = dict(dvv_ops.launches)
+    g = run["cluster"]
+    for via in ("e0", "w0"):
+        check_reads(run["keys"], run["expect"], run["reads"][via])
+    check_snapshots(run)
+    if run["snapshot_wan_messages"]:
+        raise AssertionError(f"snapshot reads sent "
+                             f"{run['snapshot_wan_messages']} WAN messages")
+    for via, st in run["sched_stats"].items():
+        if st["ops_failed"] or st["snapshot_calls"] != st["flushes"]:
+            raise AssertionError(f"snapshot scheduler at {via}: {st}")
+    if g.device.type == "cuda":
+        for name in ("dvv_sync_mask", "dvv_read_sweep"):
+            if launches[name] == 0:
+                raise AssertionError(f"{name} never launched in the geo "
+                                     f"phase: {launches}")
+    twin = geo_schedule(n_keys, seed, device=device, use_kernel=False)
+    if store_roots(g) != store_roots(twin["cluster"]):
+        raise AssertionError("geo store roots differ between kernel and twin")
+    view = lambda res: {k: (r.values, r.context.to_bytes())
+                        for k, r in res.items()}
+    for part in ("snaps", "reads"):
+        for via in run[part]:
+            if view(run[part][via]) != view(twin[part][via]):
+                raise AssertionError(f"geo {part} at {via} differ between "
+                                     f"kernel and twin")
+    return {"phase": "geo", "keys": n_keys, "forked": len(run["forked"]),
+            "acked_writes": run["acked"], "seconds": wall,
+            "phase_seconds": time.perf_counter() - t0,
+            "step_seconds": run["secs"], "launches": launches,
+            "snapshot_wan_messages": run["snapshot_wan_messages"],
+            "snapshot_schedulers": run["sched_stats"],
+            "ship_ticks": run["ship_ticks"], "heal_ticks": run["heal_ticks"],
+            "heal_wan_ticks": run["wan_ticks"],
+            "wan_ticks": g.geo.wan_ticks, "wan_rounds": g.geo.wan_rounds,
+            "ship_bytes": g.geo.ship_bytes,
+            "wan_messages": g.network.wan_messages}
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1492,8 @@ def main() -> int:
     emit(parity_phase(PARITY_KEYS, args.seed))
     trace = trace_phase(PARITY_KEYS, args.seed)
     emit(trace)
+    emit(store_workload_phase(args.seed))
+    emit(geo_phase(GEO_KEYS, args.seed))
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

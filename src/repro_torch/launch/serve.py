@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --requests 8 --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --store-workload
 
 Continuous-batching-lite, as in the JAX package: a fixed decode batch of
 slots; finished requests release their slot and queued requests claim it
@@ -12,8 +13,11 @@ package's behaviour, kept).  Each finished request's tokens persist as
 can adopt the session.
 
 The model and the store run on ``--device`` (default ``cuda``, which needs
-a card).  ``--store-workload`` drives the store's serving plane
-(``store/serving.py``), which is not ported yet: it exits with code 2.
+a card).  ``--store-workload`` runs no model: it drives the store's
+coalescing serving plane with the closed-loop engine (``store/serving.py``)
+in each ``--store-mode`` and prints one JSON summary per mode, as the JAX
+package's launcher does.  ``--seed`` seeds the model's parameters (default
+0) or the store workload's draws (default 11).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..core import DVV_MECHANISM
 from ..models import init_cache, init_params
-from ..store import KVCluster, SimNetwork
+from ..store import ClosedLoopEngine, GossipDriver, KVCluster, SimNetwork
 from .steps import make_decode_step
 
 
@@ -111,7 +115,56 @@ def serve_requests(sched: BatchScheduler, queue: List[Request]) -> int:
     return steps
 
 
-def main(argv=None) -> int:
+def store_workload(mode: str, args: argparse.Namespace, *,
+                   use_kernel: bool = True):
+    """One mode of the store workload on a fresh cluster on ``args.device``
+    (5 nodes, replication 3, R=W=2, packed DVV, read-repair on), with a
+    ``GossipDriver`` when ``args.gossip_period`` > 0.  Returns ``(cluster,
+    driver or None, engine)``; the engine has not run yet."""
+    net = SimNetwork(seed=7, jitter=0.0)
+    cluster = KVCluster(tuple(f"n{i}" for i in range(5)), DVV_MECHANISM,
+                        replication=3, network=net, read_quorum=2,
+                        write_quorum=2, seed=7, device=args.device)
+    driver = None
+    if args.gossip_period > 0:
+        driver = GossipDriver(cluster, period=args.gossip_period, seed=7,
+                              use_kernel=use_kernel)
+        driver.start()              # timers interleave with the engine
+    eng = ClosedLoopEngine(
+        cluster, sessions=args.sessions, keys=args.keys,
+        zipf_s=args.zipf, concurrency=args.concurrency,
+        mode=mode, via="n0", seed=args.seed, read_repair=True,
+        use_kernel=use_kernel, max_batch=args.max_batch,
+        max_delay=args.max_delay)
+    return cluster, driver, eng
+
+
+def store_workload_main(args: argparse.Namespace) -> int:
+    """Drive the coalescing serving plane with the closed-loop engine
+    (no model in the loop); prints one JSON summary per mode."""
+    modes = (("coalesced", "direct") if args.store_mode == "both"
+             else (args.store_mode,))
+    summaries = {}
+    for mode in modes:
+        _, driver, eng = store_workload(mode, args)
+        out = eng.run(args.store_steps)
+        if driver is not None:
+            out["gossip"] = {"rounds": driver.rounds,
+                             "wire_bytes": driver.wire_bytes()}
+            driver.stop()
+        summaries[mode] = out
+        print(json.dumps(out, indent=1))
+    if len(summaries) == 2:
+        d, c = summaries["direct"], summaries["coalesced"]
+        if c["plane_per_1k_ops"]:
+            print(f"plane ratio direct/coalesced: "
+                  f"{d['plane_per_1k_ops'] / c['plane_per_1k_ops']:.1f}x, "
+                  f"bytes/op {c['bytes_per_op']:.1f} vs "
+                  f"{d['bytes_per_op']:.1f}")
+    return 0
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
@@ -119,19 +172,37 @@ def main(argv=None) -> int:
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random parameters")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="seed of the random parameters (default 0) or, "
+                         "with --store-workload, of the workload (default "
+                         "11)")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--store-workload", action="store_true",
-                    help="the closed-loop store workload (not ported)")
+    g = ap.add_argument_group("store workload (no model in the loop)")
+    g.add_argument("--store-workload", action="store_true",
+                   help="run the closed-loop store workload engine")
+    g.add_argument("--store-mode", default="both",
+                   choices=["coalesced", "direct", "both"])
+    g.add_argument("--sessions", type=int, default=1_000_000)
+    g.add_argument("--keys", type=int, default=10_000)
+    g.add_argument("--zipf", type=float, default=0.9)
+    g.add_argument("--concurrency", type=int, default=256)
+    g.add_argument("--store-steps", type=int, default=500)
+    g.add_argument("--max-batch", type=int, default=256)
+    g.add_argument("--max-delay", type=float, default=2.0)
+    g.add_argument("--gossip-period", type=float, default=0.0,
+                   help="anti-entropy period in sim ticks (0 = off)")
     args = ap.parse_args(argv)
+    if args.seed is None:
+        args.seed = 11 if args.store_workload else 0
+    if not args.store_workload and args.arch is None:
+        ap.error("--arch is required unless --store-workload is given")
+    return args
 
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     if args.store_workload:
-        print("--store-workload needs store/serving.py, which the port has "
-              "not ported yet (ROADMAP Queue 1 item 4)", file=sys.stderr)
-        return 2
-    if args.arch is None:
-        ap.error("--arch is required")
+        return store_workload_main(args)
 
     cfg = get_config(args.arch)
     if args.smoke:

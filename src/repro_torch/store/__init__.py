@@ -1,16 +1,22 @@
 """Replicated key-value store (paper §4.1) over a simulated network: the
-data plane of the port (PUT, delta anti-entropy, quorum GET).  The gossip,
-failure, geo, services and serving layers of the JAX package are not
-ported yet (ROADMAP.md, Queue 1)."""
+port of the JAX package's store, layer for layer (data plane, gossip,
+failure detection, geo tier, membership services, coalescing serving
+plane).  Batched planes sweep survival on the cluster's ``device``."""
 from .bulk import DeltaSyncStats, delta_antientropy
 from .client import KVClient
 from .cluster import GetResult, KVCluster, PutAck
 from .context import CausalContext, EMPTY_CONTEXT
+from .failure import FailureDetector, MembershipController
+from .geo import GeoPlane
+from .gossip import GossipDriver, WanShipper, cluster_converged
 from .network import SimNetwork, Unavailable
 from .packed import MergedRead, PackedPayload, PackedVersionStore, \
     StoreDigest, concat_payloads, key_bucket, quorum_merge_many, \
     split_payload
 from .replica import ReplicaNode
+from .services import MEMBERSHIP_KEY, Lease, MemberView, MembershipService, \
+    NodeStatus, WorkStealer, resolve_lease_siblings
+from .serving import ClosedLoopEngine, OpScheduler, PendingOp
 from .sharding import HashRing, key_hash64, shard_of_key
 from .version import HybridClock, Version, clocks_of, hlc_decode, \
     hlc_encode, sync_versions, values_of
@@ -21,7 +27,10 @@ __all__ = [
     "KVCluster", "KVClient", "GetResult", "PutAck",
     "CausalContext", "EMPTY_CONTEXT",
     "SimNetwork", "Unavailable",
-    "HybridClock", "hlc_encode", "hlc_decode",
+    "GossipDriver", "WanShipper", "cluster_converged",
+    "FailureDetector", "MembershipController",
+    "GeoPlane", "HybridClock", "hlc_encode", "hlc_decode",
+    "OpScheduler", "PendingOp", "ClosedLoopEngine",
     "ReplicaNode", "Version", "sync_versions", "clocks_of", "values_of",
     "PackedVersionStore", "PackedPayload", "MergedRead",
     "quorum_merge_many",
@@ -30,4 +39,6 @@ __all__ = [
     "concat_payloads", "split_payload",
     "DurableLog", "SegmentLog", "ReplayStats",
     "LocalFS", "CrashFS", "CrashPoint",
+    "MembershipService", "MemberView", "NodeStatus", "MEMBERSHIP_KEY",
+    "WorkStealer", "Lease", "resolve_lease_siblings",
 ]

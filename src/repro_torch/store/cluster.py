@@ -226,9 +226,8 @@ class KVCluster:
         # asynchronously, and the snapshot read plane comes alive.
         self.geo = None
         if datacenters is not None:
-            raise NotImplementedError(
-                "the geo tier (datacenters=...) is not ported yet; "
-                "see ROADMAP.md, Queue 1")
+            from .geo import GeoPlane
+            self.geo = GeoPlane(self, datacenters, wan_period=wan_period)
         # replication counts nodes per DC in geo mode (mirror rows multiply
         # it by the DC count), defaulting to a full local DC.
         self.replication = replication or (

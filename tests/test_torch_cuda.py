@@ -771,3 +771,54 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the serving plane and gossip on the card
+# ---------------------------------------------------------------------------
+
+def _serving_flush(device):
+    """Two coalesced flushes (puts, then gets with read-repair) through an
+    OpScheduler, then a GossipDriver's rounds; returns what each saw and
+    every store's roots, with the DVV kernels' launches in the run."""
+    from repro_torch.store import GossipDriver, OpScheduler, SimNetwork
+
+    ops.reset_launches()
+    c = KVCluster(("n0", "n1", "n2", "n3", "n4"), DVV_MECHANISM,
+                  replication=3, read_quorum=2, write_quorum=2, seed=3,
+                  network=SimNetwork(seed=3), device=device)
+    sch = OpScheduler(c, via="n0", max_batch=256)
+    sessions = [sch.session(f"s{i}", read_repair=True) for i in range(8)]
+    puts = [s.submit_put({f"k{i}.{j}": (f"v{i}.{j}", None)
+                          for j in range(16)})
+            for i, s in enumerate(sessions)]
+    sch.flush()
+    gets = [s.submit_get([f"k{(i + 1) % 8}.{j}" for j in range(16)])
+            for i, s in enumerate(sessions)]
+    sch.flush()
+    c.network.partition({"n0", "n1"}, {"n2", "n3", "n4"})
+    c.put("k0.0", "fork", via="n3", quorum=1)
+    c.network.queue.clear()
+    c.network.heal()
+    driver = GossipDriver(c, period=4.0, seed=3)
+    driver.run_for(40.0)
+    launches = dict(ops.launches)
+    seen = ([{k: (a.coordinator, a.replicated_to)
+              for k, a in op.result().items()} for op in puts],
+            [{k: (r.values, r.context.to_bytes())
+              for k, r in op.result().items()} for op in gets],
+            sch.stats(), (driver.rounds, driver.wire_bytes()),
+            {(n, s): (st.digest_root(), st.value_root())
+             for n, node in c.nodes.items()
+             for s, st in enumerate(node.shard_stores)})
+    return seen, launches
+
+
+def test_scheduler_flush_and_gossip_round_on_the_card(cuda):
+    on_card, launches = _serving_flush(cuda)
+    on_cpu, cpu_launches = _serving_flush("cpu")
+    assert on_card == on_cpu
+    assert on_card[3][0] > 0                       # gossip rounds ran
+    assert launches["dvv_sync_mask"] > 0
+    assert launches["dvv_read_sweep"] > 0
+    assert set(cpu_launches.values()) == {0}

@@ -42,10 +42,41 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.ssd_scan.ssd_scan",
                  "repro_torch.models.lm", "repro_torch.models.ssm",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.store.serving",
+                 "repro_torch.store.gossip", "repro_torch.store.geo",
+                 "repro_torch.store.failure", "repro_torch.store.services"):
         assert name in got["modules"]
     assert got["leaked"] == []
     assert got["cuda_initialized"] is False
+
+
+_WORKLOAD_PROBE = """
+import json, sys
+from repro_torch.launch import serve
+rc = serve.main(["--store-workload", "--device", "cpu", "--sessions", "500",
+                 "--keys", "40", "--store-steps", "30",
+                 "--gossip-period", "5"])
+import torch
+print(json.dumps({
+    "rc": rc,
+    "leaked": sorted(m for m in sys.modules
+                     if m in ("jax", "repro") or m.startswith(("jax.",
+                                                              "repro."))),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_store_workload_runs_without_jax_or_repro():
+    """``serve --store-workload --device cpu`` drives the port's serving
+    plane, gossip and store with neither jax nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _WORKLOAD_PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    assert '"mode": "coalesced"' in out.stdout
+    assert '"mode": "direct"' in out.stdout
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"rc": 0, "leaked": [], "cuda_initialized": False}
 
 
 _SCRIPT_PROBE = """

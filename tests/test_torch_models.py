@@ -383,7 +383,11 @@ def test_prefill_matches_token_by_token_decode(arch):
 def test_serve_main_on_the_cpu(capsys):
     from repro_torch.launch import serve as TS
 
-    assert TS.main(["--store-workload"]) == 2
+    assert TS.main(["--store-workload", "--device", "cpu", "--sessions",
+                    "1000", "--keys", "50", "--store-steps", "40"]) == 0
+    out = capsys.readouterr().out
+    assert '"mode": "coalesced"' in out and '"mode": "direct"' in out
+    assert "plane ratio direct/coalesced" in out
     assert TS.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
                     "--requests", "3", "--tokens", "4"]) == 0
     out = capsys.readouterr().out

@@ -113,9 +113,23 @@ def test_batched_planes_sweep_through_the_cpu_front_ends():
 
 
 def test_unported_geo_tier_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The geo tier is ported: a datacenter layout builds a ``GeoPlane``,
+    and one that does not cover the nodes raises the reference's error."""
+    with pytest.raises(ValueError, match="cover exactly"):
         port_store.KVCluster(NODES, port_core.DVV_MECHANISM, device="cpu",
                              datacenters={"x": ["n0"], "y": ["n1"]})
+    g = port_store.KVCluster(NODES[:4], port_core.DVV_MECHANISM,
+                             device="cpu",
+                             datacenters={"x": NODES[:2], "y": NODES[2:4]})
+    assert isinstance(g.geo, port_store.GeoPlane)
+
+
+def test_store_exports_the_reference_names():
+    assert port_store.__all__ == ref_store.__all__
+    for name in port_store.__all__:
+        obj = getattr(port_store, name)
+        if callable(obj):
+            assert obj.__module__.startswith("repro_torch.store."), name
 
 
 def _arrays(store):
