@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the DVV store, gemma2-9b serving and
-mamba2-780m serving) on one CUDA card.
+"""Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
+qwen3-moe-30b-a3b serving) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -29,12 +29,14 @@ exits non-zero:
            fp32 at [1, 1024, 16, 256], causal with softcap, to 1e-5; and
            masked by M-RoPE-style positions at qwen2-vl-7b's widths (q
            [1, 8192, 28, 128], 4 KV heads, bf16, causal; an image of 4,096
-           patches sharing one temporal id between text runs).
+           patches sharing one temporal id between text runs); and at
+           qwen3-moe-30b-a3b's prefill shape (q [1, 4096, 32, 128], 4 KV
+           heads, bf16, causal, no softcap).
            Beside each, one PyTorch call of the same function, timed as a
            yardstick the port never calls: FlexAttention (compiled, with
            the softcap as score_mod and a causal or sliding-window block
            mask) for the softcap rows and with the positions' mask for the
-           M-RoPE row, scaled_dot_product_attention for the causal row.
+           M-RoPE row, scaled_dot_product_attention for the causal rows.
            ssd_scan: at mamba2-780m's widths (48 heads of 64, state 128,
            chunk 256) on inputs drawn as
            tests/test_kernels.py draws them, bf16 [1, 32768] and fp32
@@ -119,6 +121,29 @@ exits non-zero:
            prefill logits of 1,024 tokens (four chunks) against
            token-by-token decode (decode_ssm's recurrence), to
            PREFILL_DECODE_TOL.
+  moe_model  qwen3-moe-30b-a3b at full width and depth (48 layers, d_model
+           2048, 128 experts top-8) with bf16 parameters from --seed (the
+           published checkpoint's dtype; the config's fp32 master weights
+           would take 122 GB), after mamba2-780m's are freed: as model, a
+           warm-up and a timed prefill of tokens [1, 4096], each launching
+           flash_attention exactly 48 times, then the same 8 requests of 16
+           tokens through BatchScheduler, sessions in a KVCluster on the
+           card, all read back.  The timed prefill also reports every MoE
+           layer's fraction_dropped and the summed aux (load-balance and z
+           losses), read through a wrapper around the LM's moe_ffn.
+  moe_trace  as model_trace, for qwen3-moe-30b-a3b at [1, 4096]; then one
+           more prefill traced with the host's ops, the MoE's parts and
+           the attention layers each inside a profiler range: device time
+           by part (router, capacity assignment, the dispatch and combine
+           products, expert products, attention, the head, the rest) and by
+           kernel class (GEMM, flash_attention, element-wise and other).
+  moe_parity  qwen3-moe-30b-a3b cut to 2 layers at full width, fp32: (a)
+           prefill logits of 8 tokens against token-by-token decode, to
+           PREFILL_DECODE_TOL (at 8 tokens or fewer a group's capacity is
+           8, so no token is dropped on either side); (b) a [1, 4096]
+           prefill's first-layer fraction_dropped equals a host recount
+           (numpy, the per-slot occupancy loop) over the experts the card's
+           router chose for that layer's input.
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
@@ -129,7 +154,8 @@ the SSD scan's wgmma path has three, every other call one).  The trace
 phases give the kernels' share of traced prefill device time.  The model
 phases report the peak device memory of the timed prefill itself, before
 the checks of its logits (isfinite builds temporaries as large as the
-logits), and of serving.
+logits), and of serving.  The MoE FFN has no kernel of its own (nor has
+the JAX package's); its products are cuBLAS's, named in the traces.
 
 The last lines are the per-kernel JSON summary, the nvidia-smi line, and
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits
@@ -145,6 +171,7 @@ import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from functools import partial
 from pathlib import Path
 
@@ -200,14 +227,17 @@ PARITY_GROUPS, PARITY_TOKENS = 2, 4608   # past the 4,096 window, 9 x 512
 #: The CPU twin (tests/test_torch_models.py::PREFILL_DECODE_TOL) holds the
 #: same bound; logits are softcapped to +-30.
 PREFILL_DECODE_TOL = 2e-3
-# flash_attention rows: (variant, dtype, S, causal, window, softcap, tol)
+# flash_attention rows: (variant, dtype, S, causal, window, softcap, tol,
+# (heads, KV heads, head_dim)); gemma2-9b's widths but for the last row
+FLASH_HEADS = (16, 8, 256)
+MOE_FLASH_HEADS = (32, 4, 128)          # qwen3-moe-30b-a3b's attention
 FLASH_ROWS = (
-    ("local", "bfloat16", 8192, True, 4096, 50.0, 2e-2),
-    ("global", "bfloat16", 8192, True, 0, 50.0, 2e-2),
-    ("causal", "bfloat16", 8192, True, 0, 0.0, 2e-2),
-    ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5),
+    ("local", "bfloat16", 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
+    ("global", "bfloat16", 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
+    ("causal", "bfloat16", 8192, True, 0, 0.0, 2e-2, FLASH_HEADS),
+    ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5, FLASH_HEADS),
+    ("qwen3_moe", "bfloat16", 4096, True, 0, 0.0, 2e-2, MOE_FLASH_HEADS),
 )
-FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM = 16, 8, 256
 # the M-RoPE row: qwen2-vl-7b's attention (src/repro_torch/configs/
 # qwen2_vl_7b.py: 28 heads, 4 KV heads, head_dim 128), bf16, causal, masked
 # by the temporal positions of text, an image of 4,096 patches, text
@@ -230,6 +260,18 @@ SSD_ROWS = (
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 256
 #: the common part of the names of the SSD scan's CUDA kernels (both paths)
 SSD_KERNELS = "ssd_"
+
+# qwen3-moe-30b-a3b serving (src/repro_torch/configs/qwen3_moe_30b_a3b.py)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARAM_DTYPE = "bfloat16"  # the published checkpoint's (hf:Qwen/Qwen3-
+                              # 30B-A3B); fp32 master weights take 122 GB
+MOE_PREFILL = (1, 4096)       # cut from prefill_32k's [32, 32768]: its fp32
+                              # logits alone would be 637 GB (2.5 GB here)
+MOE_PARITY_LAYERS = 2
+#: prefill tokens for (a): capacity(8) == capacity(1) == 8, nothing drops
+MOE_PARITY_TOKENS = 8
+#: cuBLAS's GEMM kernels on Hopper carry one of these in their names
+GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 
 
 def emit(obj) -> None:
@@ -477,9 +519,10 @@ def flex_attention_call(S: int, window: int, cap: float):
 
 
 def flash_rows(seed: int):
-    """flash_attention against its plain version at gemma2-9b's prefill
-    shapes, each row beside one PyTorch call of the same function on the
-    same tensors (a yardstick the port never calls)."""
+    """flash_attention against its plain version at gemma2-9b's and
+    qwen3-moe-30b-a3b's prefill shapes, each row beside one PyTorch call of
+    the same function on the same tensors (a yardstick the port never
+    calls)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -489,9 +532,9 @@ def flash_rows(seed: int):
     )
 
     dev = torch.device("cuda")
-    H, KV, D = FLASH_HEADS, FLASH_KV_HEADS, FLASH_HEAD_DIM
     rows = []
-    for variant, dtype, S, causal, window, cap, tol in FLASH_ROWS:
+    for variant, dtype, S, causal, window, cap, tol, (H, KV, D) in \
+            FLASH_ROWS:
         assert causal, "the library calls below are built for causal rows"
         rng = np.random.default_rng([seed, S, window, int(cap)])
         q, k, v = (torch.from_numpy(rng.standard_normal(
@@ -1218,14 +1261,16 @@ def model_phase(cfg, params, seed: int, *, phase="model",
                          device="cuda", dtype=torch.int32)
     prefill = make_prefill_step(cfg)
     out = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "param_bytes": tree_bytes(params),
+           "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
+           "param_bytes": tree_bytes(params),
            "prefill_tokens": list(tokens)}
     secs, launches = [], []
     for _ in ("warm-up", "timed"):
         torch.cuda.reset_peak_memory_stats()
         kernel.reset_launches()
         t = time.perf_counter()
-        logits = prefill(params, {"tokens": toks})
+        with moe_calls() as calls:
+            logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
         launches.append(kernel.launches[name])
@@ -1245,6 +1290,15 @@ def model_phase(cfg, params, seed: int, *, phase="model",
                 "prefill_tokens_per_s": n_tok / secs[1],
                 f"{name}_launches": launches[1],
                 "prefill_peak_bytes": peak})
+    if calls:                       # the timed prefill's MoE layers
+        drops = [float(m["fraction_dropped"]) for _, _, m in calls]
+        out["moe"] = {
+            "layers": len(calls), "aux": float(sum(
+                m["aux_loss"] + m["z_loss"] for _, _, m in calls)),
+            "fraction_dropped": {"mean": sum(drops) / len(drops),
+                                 "min": min(drops), "max": max(drops),
+                                 "per_layer": drops}}
+        del calls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1440,6 +1494,202 @@ def ssm_parity_phase(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+
+@contextmanager
+def moe_calls(keep_inputs: bool = False):
+    """Wrap the LM's ``moe_ffn`` (``repro_torch.models.lm`` calls it by
+    that name): each call appends (its parameters, its input if
+    ``keep_inputs``, its metrics) to the yielded list and returns what the
+    port's function returned.  Adds no device work."""
+    from repro_torch.models import lm
+
+    calls, original = [], lm.moe_ffn
+
+    def recording(params, x, spec):
+        out, metrics = original(params, x, spec)
+        calls.append((params, x if keep_inputs else None, metrics))
+        return out, metrics
+
+    lm.moe_ffn = recording
+    try:
+        yield calls
+    finally:
+        lm.moe_ffn = original
+
+
+@contextmanager
+def profiler_ranges(targets):
+    """Run each function ``getattr(module, name)`` of ``targets`` ({label:
+    (module, name)}) inside a ``torch.profiler.record_function(label)``
+    range while the context is open (the callers look the names up in
+    their modules at each call)."""
+    import torch
+    saved = []
+    for label, (module, name) in targets.items():
+        fn = getattr(module, name)
+
+        def ranged(*args, _fn=fn, _label=label, **kw):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kw)
+
+        saved.append((module, name, fn))
+        setattr(module, name, ranged)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def moe_breakdown(cfg, params, tokens):
+    """One prefill traced with the host's ops, each MoE part and each
+    attention layer inside a profiler range: device microseconds by part
+    (a range's device time is its ops' kernels) and by kernel class."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import lm, moe
+
+    targets = {"moe.route": (moe, "route"), "moe.assign": (moe, "assign"),
+               "moe.experts": (moe, "experts"), "moe.ffn": (lm, "moe_ffn"),
+               "attention": (lm, "attention"), "head": (lm, "_head")}
+    toks = torch.zeros(tokens, dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": toks})                 # warm, untraced
+    torch.cuda.synchronize()
+    with profiler_ranges(targets), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    ranges = dict.fromkeys(targets, 0.0)
+    for e in prof.events():
+        if e.name in ranges and e.device_type == DeviceType.CPU:
+            ranges[e.name] += e.device_time_total
+    classes = {"gemm": 0.0, "flash_attention": 0.0, "elementwise_other": 0.0}
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        # the kernels' own rows: not the host ops that launched them, nor
+        # the ranges' device-side rows
+        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in targets:
+            continue
+        low = e.key.lower()
+        cls = "flash_attention" if "flash_fwd" in low else "gemm" \
+            if any(g in low for g in GEMM_KERNELS) else "elementwise_other"
+        classes[cls] += us
+    busy = sum(classes.values())
+    parts = {"router": ranges["moe.route"],
+             "capacity_assignment": ranges["moe.assign"],
+             "expert_products": ranges["moe.experts"],
+             "dispatch_combine_products_and_losses": ranges["moe.ffn"]
+             - ranges["moe.route"] - ranges["moe.assign"]
+             - ranges["moe.experts"],
+             "attention": ranges["attention"], "head": ranges["head"],
+             "rest": busy - ranges["moe.ffn"] - ranges["attention"]
+             - ranges["head"]}
+    return {"device_busy_us": busy,
+            "by_part_us": parts,
+            "by_part_share": {k: v / busy for k, v in parts.items()}
+            if busy else None,
+            "by_kernel_class_us": classes}
+
+
+def recount_dropped(idx, n_experts: int, C: int):
+    """fraction_dropped recounted on the host from the chosen experts
+    ``idx`` [G,S,K] (numpy): slot by slot, token by token, an expert keeps
+    its first C assignments, its count running on across slots.  Returns
+    (fraction as float32, kept)."""
+    import numpy as np
+    G, S, K = idx.shape
+    kept = 0
+    for g in range(G):
+        used = np.zeros(n_experts, np.int64)
+        for k in range(K):
+            for e in idx[g, :, k]:
+                kept += int(used[e] < C)
+                used[e] += 1
+    return np.float32(1) - np.float32(kept) / np.float32(G * S * K), kept
+
+
+def moe_parity_phase(seed: int):
+    """qwen3-moe-30b-a3b cut to MOE_PARITY_LAYERS layers at full width,
+    fp32: (a) prefill logits of MOE_PARITY_TOKENS tokens against
+    token-by-token decode; (b) a [1, 4096] prefill's first-layer
+    fraction_dropped against the host's recount over the experts the
+    card's router chose."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.lm import moe_spec
+    from repro_torch.models.moe import capacity, route
+
+    cfg = replace(get_config(MOE_ARCH), n_layers=MOE_PARITY_LAYERS,
+                  compute_dtype="float32")
+    spec = moe_spec(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    params = init_params(gen, cfg)
+    S = MOE_PARITY_TOKENS
+    if capacity(S, spec) != capacity(1, spec):
+        raise AssertionError("prefill and decode groups differ in capacity")
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg)
+    FA.reset_launches()
+    pre = prefill(params, {"tokens": toks})[0]
+    launches = FA.launches["flash_attention"]
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, 1, S)
+    errs = torch.stack([(step(params, cache, toks[:, i], i)[0][0]
+                         - pre[i]).abs().max() for i in range(S)])
+    err = float(errs.max())
+
+    toks = torch.randint(0, cfg.vocab_size, MOE_PREFILL, generator=gen,
+                         device="cuda", dtype=torch.int32)
+    with moe_calls(keep_inputs=True) as calls:
+        logits = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    layer, x, metrics = calls[0]
+    idx = route(layer, x, spec)[3].cpu().numpy()
+    C = capacity(x.shape[1], spec)
+    host, kept = recount_dropped(idx, spec.n_experts, C)
+    card = metrics["fraction_dropped"].cpu().numpy()
+    out = {"phase": "moe_parity", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype,
+           "a_prefill_vs_decode": {
+               "tokens": S, "capacity": capacity(S, spec),
+               "flash_attention_launches": launches,
+               "max_abs_logit_diff": err,
+               "max_abs_logit": float(pre.abs().max()),
+               "tol": PREFILL_DECODE_TOL},
+           "b_fraction_dropped": {
+               "tokens": list(MOE_PREFILL), "capacity": C,
+               "card_layer0": float(card), "host_recount": float(host),
+               "kept": kept, "slots": idx.size,
+               "per_layer": [float(m["fraction_dropped"])
+                             for _, _, m in calls],
+               "logits_finite": finite}}
+    if launches != cfg.n_layers:
+        raise AssertionError(f"parity prefill launched flash_attention "
+                             f"{launches} times, expected {cfg.n_layers}")
+    if not err <= PREFILL_DECODE_TOL:
+        raise AssertionError(f"prefill and decode logits differ by {err} > "
+                             f"{PREFILL_DECODE_TOL}")
+    if card != host or not finite:
+        raise AssertionError(f"fraction_dropped on the card {card!r}, host "
+                             f"recount {host!r}; logits finite: {finite}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_lines(log: str):
     """ptxas's registers, spills and shared memory for each kernel, and
@@ -1454,6 +1704,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+
+    from dataclasses import replace
 
     import torch
     if not torch.cuda.is_available():
@@ -1525,6 +1777,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(ssm_parity_phase(args.seed))
 
+    cfg = replace(get_config(MOE_ARCH), param_dtype=MOE_PARAM_DTYPE)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    moe = model_phase(cfg, params, args.seed, phase="moe_model",
+                      tokens=MOE_PREFILL)
+    moe.update(param_count=count_params(cfg),
+               active_param_count=count_params(cfg, active_only=True),
+               init_s=init_s)
+    emit(moe)
+    moe_trace = model_trace_phase(cfg, params, args.seed, phase="moe_trace",
+                                  tokens=MOE_PREFILL)
+    moe_trace["breakdown"] = moe_breakdown(cfg, params, MOE_PREFILL)
+    emit(moe_trace)
+    del params
+    torch.cuda.empty_cache()
+    emit(moe_parity_phase(args.seed))
+
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
         "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
@@ -1536,9 +1808,10 @@ def main() -> int:
     summary = []
     for r in rows:
         if r["name"] == "flash_attention":
-            if r["variant"] != "global":
+            if r["variant"] not in ("global", "qwen3_moe"):
                 continue
-            launches = model["flash_attention_launches"]
+            launches = (moe if r["variant"] == "qwen3_moe" else model)[
+                "flash_attention_launches"]
             source = "src/repro_torch/kernels/flash_attention/csrc/" \
                      "flash_attention.cu"
             extra = {"variant": r["variant"], "dtype": r["dtype"],

@@ -9,13 +9,13 @@ local/global alternation) are unrolled inside each group.
 
 Three entry points per config:
   * ``forward(params, batch, cfg)``          — logits for training/prefill
-  * ``loss_fn(params, batch, cfg)``          — mean CE
+  * ``loss_fn(params, batch, cfg)``          — mean CE + MoE aux losses
   * ``decode_step(params, cache, tok, pos, cfg)`` — one-token serve step
 
-Attention and Mamba-2 mixers and the dense MLP are ported; a "moe" FFN
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 6).  The JAX
-package's activation-sharding constraints are no-ops off a mesh and are
-left out until the mesh slice (ROADMAP Queue 1 item 8).
+Every mixer (attention, Mamba-2) and FFN (dense MLP, MoE) of the JAX
+package is ported.  The JAX package's activation-sharding constraints are
+no-ops off a mesh and are left out until the mesh slice (ROADMAP Queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -29,23 +29,14 @@ from .attention import (
 )
 from .config import LayerSpec, ModelConfig
 from .layers import ACTIVATIONS, cross_entropy, rms_norm, softcap
+from .moe import MoESpec, init_moe_params, moe_ffn
 from .ssm import (
     SSMSpec, decode_ssm, init_ssm_cache, init_ssm_params, ssm_forward,
 )
 
-_UNPORTED = {"moe": "the MoE FFN (ROADMAP Queue 1 item 6)"}
-
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for spec in cfg.pattern:
-        for kind in (spec.mixer, spec.ffn):
-            if kind in _UNPORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {_UNPORTED[kind]} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +53,12 @@ def attn_spec(cfg: ModelConfig, spec: LayerSpec) -> AttnSpec:
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         qk_norm=cfg.qk_norm, attn_softcap=cfg.attn_softcap,
         sliding_window=sliding, causal=cfg.causal, mrope=cfg.mrope)
+
+
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(n_experts=cfg.moe_experts, top_k=cfg.moe_topk,
+                   d_ff=cfg.moe_d_ff or cfg.d_ff,
+                   capacity_factor=cfg.capacity_factor, act=cfg.act)
 
 
 def ssm_spec(cfg: ModelConfig) -> SSMSpec:
@@ -91,7 +88,6 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, *,
                 lead: Tuple[int, ...] = (), device=None) -> Dict:
     """Parameters for the pattern applied once, each with the ``lead``
     stacking axes in front."""
-    _check_ported(cfg)
     dtype = _dtype(cfg.param_dtype)
     out: Dict[str, Any] = {}
     for i, spec in enumerate(cfg.pattern):
@@ -110,6 +106,11 @@ def _init_group(gen: torch.Generator, cfg: ModelConfig, *,
                                            dtype=dtype, device=device)
             layer["mlp"] = _init_mlp(gen, cfg, dtype, lead=lead,
                                      device=device)
+        elif spec.ffn == "moe":
+            layer["ffn_norm"] = torch.ones(lead + (cfg.d_model,),
+                                           dtype=dtype, device=device)
+            layer["moe"] = init_moe_params(gen, cfg.d_model, moe_spec(cfg),
+                                           dtype, lead=lead, device=device)
         out[f"layer{i}"] = layer
     return out
 
@@ -142,7 +143,6 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     """The JAX package's parameters (a nested dict of numpy arrays, stacked
     over groups as its ``init_params`` builds them) as the port's: the same
     names, shapes and dtypes, on ``device``."""
-    _check_ported(cfg)
     device = _device(device)
 
     def convert(node):
@@ -155,9 +155,9 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameter count from the shapes ``init_params`` builds (no
-    allocation).  MoE layers are not ported, so ``active_only`` equals the
-    total."""
-    _check_ported(cfg)
+    allocation).  ``active_only`` scales each stacked MoE expert tensor
+    (every ``moe`` leaf but the router) by ``topk / E``, rounding down per
+    leaf, as the JAX package does."""
     total = cfg.d_model                                   # final_norm
     if cfg.input_mode == "tokens":
         total += cfg.vocab_size * cfg.d_model
@@ -166,21 +166,28 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     Din, SH, N, W = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, \
         cfg.ssm_conv_width
-    per_group = 0
+    G, E = cfg.n_groups, cfg.moe_experts
     for spec in cfg.pattern:
-        per_group += cfg.d_model                          # pre_norm
+        per_layer = cfg.d_model                           # pre_norm
         if spec.mixer.startswith("attn"):
-            per_group += cfg.d_model * (2 * H + 2 * KV) * Dh
+            per_layer += cfg.d_model * (2 * H + 2 * KV) * Dh
             if cfg.qk_norm:
-                per_group += 2 * Dh
+                per_layer += 2 * Dh
         elif spec.mixer == "mamba":
-            per_group += (cfg.d_model * (2 * Din + 2 * N + SH)  # in_*
+            per_layer += (cfg.d_model * (2 * Din + 2 * N + SH)  # in_*
                           + (W + 1) * (Din + 2 * N)            # conv_*
                           + 3 * SH + Din                       # dt, A, D, norm
                           + Din * cfg.d_model)                 # out_proj
         if spec.ffn == "mlp":
-            per_group += cfg.d_model + 3 * cfg.d_model * cfg.d_ff
-    return total + cfg.n_groups * per_group
+            per_layer += cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+        elif spec.ffn == "moe":
+            per_layer += cfg.d_model + cfg.d_model * E     # ffn_norm, router
+            expert = G * E * cfg.d_model * moe_spec(cfg).d_ff  # one leaf
+            if active_only:
+                expert = int(expert * cfg.moe_topk / E)
+            total += 3 * expert                  # w_gate, w_up, w_down
+        total += G * per_layer
+    return total
 
 
 def _device(device) -> torch.device:
@@ -210,10 +217,23 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _ffn(cfg: ModelConfig, spec: LayerSpec, layer: Dict, x: torch.Tensor):
+    """The layer's FFN with its residual: (x, the MoE's metrics or None)."""
+    if spec.ffn == "none":
+        return x, None
+    h = rms_norm(x, layer["ffn_norm"], zero_centered=cfg.zero_centered_norm)
+    if spec.ffn == "mlp":
+        return x + _mlp(layer["mlp"], h, cfg), None
+    if spec.ffn == "moe":
+        out, metrics = moe_ffn(layer["moe"], h, moe_spec(cfg))
+        return x + out, metrics
+    raise ValueError(spec.ffn)
+
+
 def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
-                 positions) -> torch.Tensor:
-    """Apply the pattern once (the entry points refuse the unported
-    FFNs)."""
+                 positions) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply the pattern once. Returns (x, aux_loss_sum) in fp32."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.pattern):
         layer = group_params[f"layer{i}"]
         h = rms_norm(x, layer["pre_norm"],
@@ -225,12 +245,10 @@ def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
             mix = ssm_forward(layer["mamba"], h, ssm_spec(cfg))
         else:
             raise ValueError(spec.mixer)
-        x = x + mix
-        if spec.ffn == "mlp":
-            h = rms_norm(x, layer["ffn_norm"],
-                         zero_centered=cfg.zero_centered_norm)
-            x = x + _mlp(layer["mlp"], h, cfg)
-    return x
+        x, metrics = _ffn(cfg, spec, layer, x + mix)
+        if metrics is not None:
+            aux = aux + metrics["aux_loss"] + metrics["z_loss"]
+    return x, aux
 
 
 def _embed(params: Dict, inputs: torch.Tensor, cfg: ModelConfig,
@@ -264,16 +282,17 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig
     batch: {"tokens": [B,S] int} or {"embeddings": [B,S,d]};
     optional {"positions": [B,S] or [3,B,S] for mrope}.
     """
-    _check_ported(cfg)
     compute = _dtype(cfg.compute_dtype)
     inputs = batch["tokens"] if cfg.input_mode == "tokens" \
         else batch["embeddings"]
     x = _embed(params, inputs, cfg, compute)
     positions = batch.get("positions")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
-        x = _apply_group(cfg, _index(params["blocks"], g), x, positions)
-    logits = _head(params, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux_g = _apply_group(cfg, _index(params["blocks"], g), x,
+                                positions)
+        aux = aux + aux_g
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
@@ -291,7 +310,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Dict:
     """Nested cache: one stacked entry per layer kind per group, in the
     compute dtype (attention: k/v; mamba: conv windows and SSD state)."""
-    _check_ported(cfg)
     device = _device(device)
     dtype = _dtype(cfg.compute_dtype)
     lead = (cfg.n_groups,)
@@ -320,11 +338,7 @@ def _decode_group(cfg: ModelConfig, group_params: Dict, group_cache: Dict,
         else:
             mix, _ = decode_ssm(layer["mamba"], h, group_cache[f"layer{i}"],
                                 ssm_spec(cfg))
-        x = x + mix
-        if spec.ffn == "mlp":
-            h = rms_norm(x, layer["ffn_norm"],
-                         zero_centered=cfg.zero_centered_norm)
-            x = x + _mlp(layer["mlp"], h, cfg)
+        x, _ = _ffn(cfg, spec, layer, x + mix)       # MoE: G = B, C = 8
     return x
 
 
@@ -333,7 +347,6 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos: int,
     """One serve step. tokens [B] int (or embeddings [B,d]); pos int.
     Returns (logits [B,V] fp32, cache): the cache is updated in place (see
     ``attention.decode_attention`` and ``ssm.decode_ssm``) and returned."""
-    _check_ported(cfg)
     compute = _dtype(cfg.compute_dtype)
     inputs = tokens if cfg.input_mode == "tokens" else tokens[:, None, :]
     x = _embed(params, inputs, cfg, compute)

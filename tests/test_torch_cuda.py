@@ -264,14 +264,17 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         FA.gqa_flash_attention(q, k, shifted[4:].view_as(v))
 
 
-def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32):
-    """gemma2-9b's smoke config with head_dim 64 (the kernel's smallest):
-    fp32 logits on the card equal the CPU run of the same parameters."""
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-moe-30b-a3b"])
+def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32,
+                                                            arch):
+    """The smoke config with head_dim 64 (the kernel's smallest): fp32
+    logits on the card equal the CPU run of the same parameters (the MoE's
+    routing, capacity and einsums on the card included)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = replace(get_config("gemma2-9b").smoke(), head_dim=64,
+    cfg = replace(get_config(arch).smoke(), head_dim=64,
                   compute_dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
@@ -283,6 +286,35 @@ def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32):
     torch.cuda.synchronize()
     assert FA.launches["flash_attention"] == cfg.n_layers
     assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("case", ["drops", "no_drops"])
+def test_moe_ffn_on_the_card_equals_the_cpu_run(cuda, ieee_fp32, case):
+    """moe_ffn (fp32, E 16, K 8, groups of 256 tokens) on the card against
+    the same call on the CPU copy: the same experts (lower index first on
+    ties), the same capacity drops (fraction_dropped bitwise), out and the
+    losses to fp32 summation order.  "drops" adds a shared direction to
+    every token so that a few experts overflow."""
+    from repro_torch.models.moe import MoESpec, init_moe_params, moe_ffn, route
+
+    spec = MoESpec(n_experts=16, top_k=8, d_ff=96)
+    params = init_moe_params(torch.Generator().manual_seed(0), 64, spec,
+                             torch.float32)
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 256, 64))
+    if case == "drops":
+        x = 0.3 * (x + 3.0 * rng.normal(size=(64,)))
+    x = torch.from_numpy(x.astype(np.float32))
+    want, wm = moe_ffn(params, x, spec)
+    on_card = _to(params, cuda)
+    got, gm = moe_ffn(on_card, x.to(cuda), spec)
+    assert torch.equal(route(on_card, x.to(cuda), spec)[3].cpu(),
+                       route(params, x, spec)[3])
+    assert float((got.cpu() - want).abs().max()) < 1e-5
+    assert gm["fraction_dropped"].cpu() == wm["fraction_dropped"]
+    assert (float(wm["fraction_dropped"]) > 0) == (case == "drops")
+    for key in ("aux_loss", "z_loss"):
+        assert abs(float(gm[key]) - float(wm[key])) < 1e-6
 
 
 def _to(tree, device):

@@ -42,6 +42,7 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.ssd_scan.ssd_scan",
                  "repro_torch.models.lm", "repro_torch.models.ssm",
+                 "repro_torch.models.moe",
                  "repro_torch.launch.serve", "repro_torch.store.serving",
                  "repro_torch.store.gossip", "repro_torch.store.geo",
                  "repro_torch.store.failure", "repro_torch.store.services"):

@@ -8,15 +8,20 @@ package's, carried over by ``params_from_numpy``):
     ``(use_pallas=False)``, and ``decode_attention``;
   * ``ssm_forward`` and ``decode_ssm`` on one layer;
   * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b,
-    gemma-2b and mamba2-780m against JAX ``forward(use_pallas=True)``:
-    <= 1e-4 in fp32, <= 0.05 in bf16 (the bound of
-    ``tests/test_kernels.py:224``);
+    gemma-2b, mamba2-780m and the three MoE configs (qwen3-moe-30b-a3b,
+    jamba-1.5-large-398b, grok-1-314b) against JAX
+    ``forward(use_pallas=True)``: <= 1e-4 in fp32, <= 0.05 in bf16 (the
+    bound of ``tests/test_kernels.py:224``), and the aux loss (the MoE
+    layers' load-balance and z losses, 0 without them);
+  * ``count_params`` (total and active) and ``loss_fn``;
   * 8 ``decode_step``s, logits and cache (k/v, or the SSM's conv windows
     and state);
-  * the two ``BatchScheduler``s side by side (gemma2-9b and mamba2-780m):
-    identical tokens and identical session values in the two stores;
+  * the two ``BatchScheduler``s side by side (gemma2-9b, mamba2-780m and
+    qwen3-moe-30b-a3b): identical tokens and identical session values in
+    the two stores;
   * prefill against token-by-token decode, the CPU twin of
-    ``chip_smoke.py``'s ``model_parity`` phase, which sets its tolerance.
+    ``chip_smoke.py``'s ``model_parity`` phase, which sets its tolerance
+    (MoE: at 8 tokens, where no token can be dropped).
 """
 import importlib
 from dataclasses import replace
@@ -44,6 +49,7 @@ pytestmark = pytest.mark.torch
 
 DENSE = ("gemma2-9b", "granite-8b", "gemma-2b")
 MODELS = DENSE + ("mamba2-780m",)
+MOE_MODELS = ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "grok-1-314b")
 #: prefill vs token-by-token decode, fp32 logits (final softcap 30 bounds
 #: them to +-30): the bound ``chip_smoke.py``'s model_parity phase holds at
 #: full width.  At smoke size the two agree far inside it.
@@ -236,26 +242,27 @@ def test_init_ssm_params_stacks_the_jax_shapes():
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
 def test_count_params_from_shapes_matches_jax(arch):
+    """Total and active-only (MoE: top-k of E experts), full size and
+    smoke."""
     jc, tc = JC.get_config(arch), TC.get_config(arch)
-    assert TM.count_params(tc) == JM.count_params(jc)
-    assert TM.count_params(tc.smoke()) == JM.count_params(jc.smoke())
+    for active in (False, True):
+        assert TM.count_params(tc, active) == JM.count_params(jc, active)
+        assert TM.count_params(tc.smoke(), active) == JM.count_params(
+            jc.smoke(), active)
     if arch == "gemma2-9b":
         assert TM.count_params(tc) == 9_241_404_928
     if arch == "mamba2-780m":
         assert TM.count_params(tc) == 780_148_992
+    if arch == "qwen3-moe-30b-a3b":
+        assert TM.count_params(tc) == 30_532_122_624
+        assert TM.count_params(tc, active_only=True) == 3_353_032_704
+    if arch not in MOE_MODELS:
+        assert TM.count_params(tc, active_only=True) == TM.count_params(tc)
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "qwen3-moe-30b-a3b"])
-def test_unported_mixers_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_params(torch.Generator().manual_seed(0),
-                       TC.get_config(arch).smoke(), device="cpu")
-
-
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
 def test_init_params_has_the_jax_shapes_and_dtypes(arch):
     jc, tc = JC.get_config(arch).smoke(), TC.get_config(arch).smoke()
     want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
@@ -280,6 +287,65 @@ def test_forward_matches_jax_pallas_path(arch, compute, tol):
     assert np.abs(_np(got) - _np(want)).max() <= tol
 
 
+def _moe_forward(arch, compute, zero_router=False):
+    jc, tc = _cfgs(arch, compute)
+    jp, tp = _params(jc, tc)
+    if zero_router:
+        for i, spec in enumerate(jc.pattern):
+            if spec.ffn == "moe":
+                r = jp["blocks"][f"layer{i}"]["moe"]["router"]
+                jp["blocks"][f"layer{i}"]["moe"]["router"] = jnp.zeros_like(r)
+                tp["blocks"][f"layer{i}"]["moe"]["router"].zero_()
+    toks = np.random.default_rng(0).integers(0, jc.vocab_size, (2, 32))
+    want, want_aux = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                                replace(jc, use_pallas=True))
+    got, aux = TM.forward(tp, {"tokens": _t(toks.astype(np.int32))}, tc)
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    return np.abs(_np(got) - _np(want)).max(), float(aux), float(want_aux)
+
+
+@pytest.mark.parametrize("arch", MOE_MODELS)
+def test_moe_forward_matches_jax_pallas_path(arch):
+    """fp32 logits within 1e-4 and the aux (every MoE layer's load-balance
+    and z losses) within 1e-5 of the JAX package's."""
+    err, aux, want_aux = _moe_forward(arch, "float32")
+    assert err <= 1e-4
+    assert abs(aux - want_aux) <= 1e-5 and aux > 0.0
+
+
+@pytest.mark.parametrize("arch", MOE_MODELS)
+def test_moe_forward_bf16_matches_jax_pallas_path(arch):
+    """bf16 logits within 0.05 with every router zeroed: each token then
+    takes experts 0..K-1 in both packages (``lax.top_k``'s tie order) and
+    capacity drops the same tokens, whatever the bf16 activations.  With
+    a trained router a token whose K-th and (K+1)-th probabilities lie
+    within bf16's rounding of each other takes either expert set, in the
+    JAX package too (``test_bf16_routing_flips_are_the_references_own``);
+    moe_ffn's own bf16 twins (tests/test_torch_moe.py) route real routers
+    on identical inputs."""
+    err, aux, want_aux = _moe_forward(arch, "bfloat16", zero_router=True)
+    assert err <= 0.05
+    assert abs(aux - want_aux) <= 1e-5
+
+
+def test_bf16_routing_flips_are_the_references_own():
+    """On qwen3-moe-30b-a3b's smoke input the JAX package's two bf16 paths
+    (use_pallas True and False) differ by more than the bf16 bound, while
+    its two fp32 paths agree within 1e-4: the gap is routing that bf16's
+    rounding of the router's input turns, not arithmetic."""
+    gaps = {}
+    for compute in ("float32", "bfloat16"):
+        jc, _ = _cfgs("qwen3-moe-30b-a3b", compute)
+        jp = JM.init_params(jax.random.key(0), jc)
+        toks = jnp.asarray(np.random.default_rng(0).integers(
+            0, jc.vocab_size, (2, 32)), jnp.int32)
+        pallas, _ = JM.forward(jp, {"tokens": toks},
+                               replace(jc, use_pallas=True))
+        default, _ = JM.forward(jp, {"tokens": toks}, jc)
+        gaps[compute] = np.abs(_np(pallas) - _np(default)).max()
+    assert gaps["float32"] <= 1e-4 and gaps["bfloat16"] > 0.05
+
+
 def test_loss_fn_matches_jax():
     jc, tc = _cfgs("granite-8b")
     jp, tp = _params(jc, tc)
@@ -292,7 +358,25 @@ def test_loss_fn_matches_jax():
     assert abs(float(got) - float(want)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", MODELS)
+@pytest.mark.parametrize("arch", MOE_MODELS)
+def test_moe_loss_fn_matches_jax(arch):
+    """Mean CE plus the MoE layers' aux losses, each part held apart."""
+    jc, tc = _cfgs(arch)
+    jp, tp = _params(jc, tc, seed=1)
+    rng = np.random.default_rng(2)
+    toks, labels = (rng.integers(0, jc.vocab_size, (2, 16)).astype(np.int32)
+                    for _ in range(2))
+    want, jparts = JM.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                                   "labels": jnp.asarray(labels)}, jc)
+    got, tparts = TM.loss_fn(tp, {"tokens": _t(toks), "labels": _t(labels)},
+                             tc)
+    assert abs(float(got) - float(want)) < 1e-4
+    assert abs(float(tparts["aux"]) - float(jparts["aux"])) <= 1e-5
+    assert float(tparts["aux"]) > 0.0
+    assert abs(float(tparts["ce"]) - float(jparts["ce"])) < 1e-4
+
+
+@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
 def test_decode_steps_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=3)
@@ -321,6 +405,12 @@ def test_batch_schedulers_serve_identical_mamba_tokens_and_sessions():
     """The same on mamba2-780m's smoke config: the SSM caches of both
     schedulers carry every slot through 32 steps."""
     _serve_side_by_side("mamba2-780m")
+
+
+def test_batch_schedulers_serve_identical_moe_tokens_and_sessions():
+    """The same on qwen3-moe-30b-a3b's smoke config: each decode step
+    routes the 4 slots as 4 groups of one token (capacity 8)."""
+    _serve_side_by_side("qwen3-moe-30b-a3b")
 
 
 def _serve_side_by_side(arch):
@@ -378,6 +468,42 @@ def test_prefill_matches_token_by_token_decode(arch):
                        for i in range(S)])
     err = float((pre - dec).abs().max())
     assert err < PREFILL_DECODE_TOL / 10, err
+
+
+@pytest.mark.parametrize("arch", MOE_MODELS)
+def test_moe_prefill_matches_token_by_token_decode(arch):
+    """The CPU twin of chip_smoke.py's moe_parity (a): at 8 tokens the
+    capacity is 8 (``capacity(S)``'s floor) whether a group holds 8 tokens
+    (prefill) or 1 (decode), so no token is dropped on either side and the
+    two must agree.  Past 8 a prefill group can drop what decode keeps."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.moe import capacity
+
+    _, tc = _cfgs(arch)
+    spec = TM.moe_spec(tc)
+    S = 8
+    assert capacity(S, spec) == capacity(1, spec) == S
+    tp = TM.init_params(torch.Generator().manual_seed(6), tc, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tc.vocab_size, (1, S)).astype(np.int32))
+    pre = make_prefill_step(tc)(tp, {"tokens": toks})[0]
+    step = make_decode_step(tc)
+    cache = TM.init_cache(tc, 1, S, device="cpu")
+    dec = torch.stack([step(tp, cache, toks[:, i], i)[0][0]
+                       for i in range(S)])
+    err = float((pre - dec).abs().max())
+    assert err < PREFILL_DECODE_TOL / 10, err
+
+
+@pytest.mark.parametrize("arch", MOE_MODELS)
+def test_serve_main_runs_the_moe_archs(arch, capsys):
+    from repro_torch.launch import serve as TS
+
+    assert TS.main(["--arch", arch, "--smoke", "--device", "cpu",
+                    "--requests", "5", "--tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "served 5 requests in 6 decode steps" in out
+    assert "r4: 3 tokens" in out
 
 
 def test_serve_main_on_the_cpu(capsys):

@@ -6,12 +6,14 @@ Prints the card (nvidia-smi: name, power limit, SM clock, power draw,
 temperature) before and after, the nvcc seconds and ptxas's registers and
 spills of each library, then one JSON line per row of chip_smoke.py's
 flash_attention rows (gemma2-9b's prefill: 16 q heads, 8 KV heads, D 256;
-bf16 [1, 8192] local, global and causal, fp32 [1, 1024] global) on inputs
-drawn from --seed: max abs and row-scaled error against the plain version,
-the bound, and CUDA-event milliseconds per call (mean of --reps calls after
-one warm-up) of the kernel and of one PyTorch call of the same function
-(scaled_dot_product_attention for the causal row, compiled FlexAttention
-for the softcap rows), a yardstick the port never calls.
+bf16 [1, 8192] local, global and causal, fp32 [1, 1024] global; and
+qwen3-moe-30b-a3b's: 32 q heads, 4 KV heads, D 128, bf16 [1, 4096] causal)
+on inputs drawn from --seed: max abs and row-scaled error against the
+plain version, the bound, and CUDA-event milliseconds per call (mean of
+--reps calls after one warm-up) of the kernel and of one PyTorch call of
+the same function (scaled_dot_product_attention for the causal rows,
+compiled FlexAttention for the softcap rows), a yardstick the port never
+calls.
 
 --baseline builds a second library from another flash_attention.cu (for
 example the parent commit's, saved under build/, which is gitignored and
@@ -91,8 +93,8 @@ def main() -> int:
     order = ["baseline", "kernel", "kernel", "baseline"] if args.baseline \
         else ["kernel", "kernel"]
 
-    H, KV, D = CS.FLASH_HEADS, CS.FLASH_KV_HEADS, CS.FLASH_HEAD_DIM
-    for variant, dtype, S, causal, window, cap, tol in CS.FLASH_ROWS:
+    for variant, dtype, S, causal, window, cap, tol, (H, KV, D) in \
+            CS.FLASH_ROWS:
         rng = np.random.default_rng([args.seed, S, window, int(cap)])
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (1, S, h, D), dtype=np.float32)).to("cuda", getattr(torch, dtype))
