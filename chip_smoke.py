@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
-qwen3-moe-30b-a3b serving) on one CUDA card.
+qwen3-moe-30b-a3b serving, gemma-2b training) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -46,7 +46,21 @@ exits non-zero:
            The bf16 rows take the wgmma path (three passes, three CUDA
            kernels a call), fp32 the simple kernel; each row names its
            path.  No PyTorch call computes the SSD scan: no library
-           yardstick.
+           yardstick.  flash_attention_bwd: dq, dk and dv against the
+           plain version's (autograd through ref.flash_attention_ref) at
+           gemma-2b's training shape (q [1, 4096, 8, 256], 1 KV head,
+           bf16, causal), gemma2-9b's global and local layers, the global
+           layer at S 4096 with q drawn 30 times larger (scores where the
+           softcap bends), qwen2-vl-7b's M-RoPE row and fp32
+           [1, 1024, 16, 256]: bf16 against the exact gradient (the plain
+           version in fp32 on the upcast inputs) within
+           ref.BF16_GRAD_RMS_RATIO times the plain bf16 version's own
+           error by ref.grad_rms_err, and each row within
+           ref.BF16_GRAD_ROW_TOL of the plain version by ref.grad_row_err
+           (bf16 runs on the tensor cores); fp32 to 1e-4 of the largest
+           magnitude (FMAs); two launches bitwise equal.  The yardstick
+           is the backward of scaled_dot_product_attention (causal rows)
+           or of compiled FlexAttention (softcap, window, positions).
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -144,6 +158,24 @@ exits non-zero:
            prefill's first-layer fraction_dropped equals a host recount
            (numpy, the per-slot occupancy loop) over the experts the card's
            router chose for that layer's input.
+  train    gemma-2b at full width and depth (18 layers, 2.51 B fp32
+           parameters and fp32 AdamW moments, bf16 compute, each group
+           checkpointed) trained as `python -m repro_torch.launch.train`
+           builds it (a KVCluster control plane on the card, a
+           CheckpointManager): tokens [1, 4096] from the port's
+           SyntheticTokens (seed --seed), 4 timed steps (seconds, tokens/s,
+           loss, gradient norm and flash launches a step: 36 forward with
+           the recompute, 18 backward; counts zeroed just before, read just
+           after), one more step traced (device time by kernel class),
+           peak device memory; losses and norms must be finite and the
+           parameters must move.  Then one save of the whole state (30.1
+           GB) through the manager: seconds and GB/s (on the 2-layer cut
+           where the disk has less than twice that free, said in the line).
+  train_parity  gemma-2b cut to 2 layers at full width, fp32, tokens
+           [1, 1024]: the loss and every gradient leaf through the kernels
+           against the same through the plain versions on the card (1e-4);
+           2 steps, a save, a restore into a fresh Trainer and 2 more steps
+           give the state_fingerprint of 4 uninterrupted steps.
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
@@ -166,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -272,6 +305,43 @@ MOE_PARITY_LAYERS = 2
 MOE_PARITY_TOKENS = 8
 #: cuBLAS's GEMM kernels on Hopper carry one of these in their names
 GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
+
+# flash_attention backward rows: (variant, dtype, S, (heads, KV heads,
+# head_dim), causal, window, softcap, masked by M-RoPE positions, q's
+# scale).  N(0, 1) inputs give scores near N(0, 1), where a softcap of 50
+# leaves 1 - (s/cap)^2 above 0.99; "global_capped" draws q at 30 times
+# that, so a row's leading scores sit where tanh bends (the factor between
+# about 0.9 and 0.1).
+BWD_ROWS = (
+    ("gemma_2b", "bfloat16", 4096, (8, 1, 256), True, 0, 0.0, False, 1.0),
+    ("global", "bfloat16", 8192, FLASH_HEADS, True, 0, 50.0, False, 1.0),
+    ("local", "bfloat16", 8192, FLASH_HEADS, True, 4096, 50.0, False, 1.0),
+    ("global_capped", "bfloat16", 4096, FLASH_HEADS, True, 0, 50.0, False,
+     30.0),
+    ("mrope_positions", "bfloat16", MROPE_S,
+     (MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM), True, 0, 0.0, True, 1.0),
+    ("global_fp32", "float32", 1024, FLASH_HEADS, True, 0, 50.0, False, 1.0),
+)
+#: fp32 dq, dk, dv: max abs error over the plain version's largest
+#: magnitude (sums in another order).  bf16 dq, dk, dv: each by
+#: ref.grad_rms_err against the exact gradient (the plain version run in
+#: fp32 on the upcast inputs) within ref.BF16_GRAD_RMS_RATIO times the
+#: plain version's own bf16 gradient's, and each row within
+#: ref.BF16_GRAD_ROW_TOL of the plain version's by ref.grad_row_err.
+BWD_FP32_TOL = 1e-4
+
+# gemma-2b training (src/repro_torch/configs/gemma_2b.py)
+TRAIN_ARCH = "gemma-2b"
+TRAIN_TOKENS = (1, 4096)      # cut from train_4k's [256, 4096]: the global
+                              # batch does not fit one card
+TRAIN_STEPS = 4
+TRAIN_LR = 3e-4               # launch/train.py's default
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOKENS = 2, 1024
+#: fp32 loss and gradient leaves through the kernels against the plain
+#: versions on the card: the loss absolutely, each leaf over its largest
+#: magnitude (the kernels' fp32 sums run in another order; the CPU twins
+#: hold the plain versions to the JAX package within the same bound)
+TRAIN_PARITY_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -662,6 +732,194 @@ def flash_mrope_row(seed: int):
     del q, k, v, qt, kt, vt, got, lib
     torch.cuda.empty_cache()
     return [row]
+
+
+def bwd_library_call(q, k, v, dout, causal: bool, window: int, cap: float,
+                     pos):
+    """One PyTorch call of the same backward on the same tensors (a
+    yardstick the port never calls): autograd.grad of
+    scaled_dot_product_attention for the plain causal rows, of compiled
+    FlexAttention (the forward rows' score_mod and masks) otherwise.
+    Returns (name, call, (dq, dk, dv) in the kernel's layout)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    if cap or window or pos is not None:
+        from torch.nn.attention.flex_attention import (
+            create_block_mask, flex_attention,
+        )
+        S = q.shape[1]
+
+        def mask(b, h, qi, ki):
+            if pos is not None:
+                return pos[ki] <= pos[qi]
+            ok = ki <= qi
+            return ok & (ki > qi - window) if window else ok
+
+        kw = dict(block_mask=create_block_mask(mask, None, None, S, S,
+                                               device="cuda"),
+                  enable_gqa=True)
+        if cap:
+            kw["score_mod"] = lambda s, b, h, qi, ki: cap * torch.tanh(
+                s / cap)
+        name, out = "flex_attention", torch.compile(
+            flex_attention, dynamic=False)(qt, kt, vt, **kw)
+    else:
+        name, out = "scaled_dot_product_attention", \
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dt, retain_graph=True)
+
+    return name, call, [g.transpose(1, 2) for g in call()]
+
+
+def bwd_row_faults(row) -> list:
+    """What a flash_attention_bwd row of flash_bwd_rows got wrong, if
+    anything (BWD_FP32_TOL says how each dtype is held)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL,
+    )
+
+    faults = []
+    if not row["bitwise_repeatable"]:
+        faults.append("two launches differ")
+    if row["launches"] != 2:
+        faults.append(f"{row['launches']} launches counted for 2 calls")
+    if row["dtype"] == "float32":
+        faults += [f"{n} rel err {e}" for n, e in row["rel_err"].items()
+                   if not e <= BWD_FP32_TOL]
+        return faults
+    faults += [f"{n} row-scaled err {e}"
+               for n, e in row["row_scaled_err"].items()
+               if not e <= BF16_GRAD_ROW_TOL]
+    faults += [f"{n} rms err {row['rms_err'][n]} against the exact "
+               f"gradient, plain bf16's {row['plain_rms_err'][n]}"
+               for n, r in row["rms_err_ratio"].items()
+               if not r <= BF16_GRAD_RMS_RATIO]
+    return faults
+
+
+def flash_bwd_rows(seed: int):
+    """The flash_attention backward kernel against its plain version
+    (autograd through ref.flash_attention_ref) at gemma-2b's training shape
+    and at gemma2-9b's, qwen2-vl-7b's and an fp32 shape: dq, dk and dv
+    errors (bf16 also against the exact gradient beside the plain
+    version's own), two launches bitwise equal, times and bound, beside
+    the backward of one PyTorch call of the same function."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, grad_rms_err, grad_row_err,
+    )
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
+            q_scale in BWD_ROWS:
+        rng = np.random.default_rng([seed, S, H, window, int(cap)])
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (1, S, h, D), dtype=np.float32) * x).to(dev,
+                                                    getattr(torch, dtype))
+            for h, x in ((H, q_scale), (KV, 1.0), (KV, 1.0), (H, 1.0)))
+        pos = torch.from_numpy(mrope_positions(S)).to(dev) if by_pos \
+            else None
+        kw = dict(causal=causal, window=window, softcap=cap, positions=pos)
+        out = K.attend(q, k, v, **kw)
+        K.reset_launches()
+        got = K.attend_bwd(q, k, v, out, dout, **kw)
+        again = K.attend_bwd(q, k, v, out, dout, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        launched = K.bwd_launches["flash_attention_bwd"]
+        del again
+        names = ("dq", "dk", "dv")
+        want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+        torch.cuda.synchronize()
+        err = {n: float((g.float() - w.float()).abs().max())
+               for n, g, w in zip(names, got, want)}
+        rel = {n: err[n] / float(w.float().abs().max())
+               for n, w in zip(names, want)}
+        row_err = rms = plain_rms = exact_row_err = plain_exact_row_err = \
+            None
+        if dtype == "bfloat16":
+            row_err = {n: grad_row_err(g, w)
+                       for n, g, w in zip(names, got, want)}
+            exact = flash_attention_bwd_ref(
+                *(t.float() for t in (q, k, v, out, dout)), **kw)
+            rms = {n: grad_rms_err(g, w) for n, g, w in zip(names, got, exact)}
+            plain_rms = {n: grad_rms_err(g, w)
+                         for n, g, w in zip(names, want, exact)}
+            exact_row_err = {n: grad_row_err(g, w)
+                             for n, g, w in zip(names, got, exact)}
+            plain_exact_row_err = {n: grad_row_err(g, w)
+                                   for n, g, w in zip(names, want, exact)}
+            del exact
+        del want
+        if pos is None:
+            pairs = live_pairs(S, causal, window)
+        else:
+            srt = np.sort(mrope_positions(S))
+            pairs = int(np.searchsorted(srt, mrope_positions(S),
+                                        side="right").sum())
+        flops = 10 * H * D * pairs           # five products of 2 pairs D
+        nbytes = (4 * H + 4 * KV) * S * D * q.element_size() + \
+            (S * 4 if pos is not None else 0)
+        b_ms, b_by = bound(nbytes, flops, FLOPS_PER_S[dtype])
+        call = partial(K.attend_bwd, q, k, v, out, dout, **kw)
+        slow = S * H >= 8192 * 16
+        row = {"name": "flash_attention_bwd", "variant": variant,
+               "shape": [1, S, H, KV, D], "dtype": dtype,
+               "causal": causal, "window": window, "softcap": cap,
+               "positions": by_pos, "q_scale": q_scale,
+               "kv_splits": K.kv_splits(1, KV, S, H // KV, sms,
+                                        K.bwd_key_tile(q.dtype, D)),
+               "launches": launched,
+               "max_abs_err": max(err.values()), "abs_err": err,
+               "rel_err": rel, "row_scaled_err": row_err,
+               "fp32_plain_row_scaled_err": exact_row_err,
+               "plain_fp32_row_scaled_err": plain_exact_row_err,
+               "rms_err": rms, "plain_rms_err": plain_rms,
+               "rms_err_ratio": rms and {
+                   n: rms[n] / max(plain_rms[n], 1e-30) for n in names},
+               "bitwise_repeatable": bitwise}
+        faults = bwd_row_faults(row)
+        if faults:
+            raise AssertionError(f"flash_attention backward {variant}: "
+                                 f"{'; '.join(faults)}")
+        row.update({
+            "ms": cuda_ms(call, 3 if slow else 10),
+            "plain_ms": cuda_ms(partial(flash_attention_bwd_ref, q, k, v,
+                                        out, dout, **kw), 2),
+            **kernel_device_ms(call, 3 if slow else 5, "flash_bwd_"),
+            "bound_ms": b_ms, "bound_by": b_by, "live_pairs": pairs,
+            "flops": flops, "bytes": nbytes})
+        t = time.perf_counter()
+        try:
+            name, library, lib_grads = bwd_library_call(
+                q, k, v, dout, causal, window, cap, pos)
+            row["library"] = name
+            row["library_rel_diff"] = {
+                n: float((a.float() - g.float()).abs().max()
+                         / g.float().abs().max())
+                for n, a, g in zip(names, lib_grads, got)}
+            del lib_grads
+            row["library_ms"] = cuda_ms(library, 3 if slow else 10)
+        except Exception as e:              # a yardstick, not the port
+            row.update(library=None, library_ms=None,
+                       library_error=f"{type(e).__name__}: {e}"[:300])
+        row["library_setup_s"] = time.perf_counter() - t
+        rows.append(row)
+        del q, k, v, dout, out, got
+        library = None
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_inputs(B: int, S: int, dtype, seed: int):
@@ -1690,6 +1948,305 @@ def moe_parity_phase(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def make_trainer(cfg, tokens, blob: Path, seed: int, store=None,
+                 device="cuda", steps: int = TRAIN_STEPS):
+    """A Trainer and its store as ``python -m repro_torch.launch.train``
+    builds them (a three-node KVCluster control plane on the card, a
+    CheckpointManager, AdamW with launch/train.py's schedule), for
+    ``steps`` steps of ``tokens`` = (batch, sequence)."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core import DVV_MECHANISM
+    from repro_torch.data import PipelineConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.store import KVCluster, SimNetwork
+
+    store = store or KVCluster(("cp1", "cp2", "cp3"), DVV_MECHANISM,
+                               network=SimNetwork(seed=seed), device=device)
+    trainer = Trainer(
+        cfg,
+        AdamWConfig(lr=TRAIN_LR, warmup_steps=max(steps // 20, 1),
+                    total_steps=steps),
+        PipelineConfig(vocab_size=cfg.vocab_size, seq_len=tokens[1],
+                       global_batch=tokens[0], seed=seed),
+        TrainerConfig(total_steps=steps, ckpt_every=10 ** 9,
+                      log_every=1, seed=seed),
+        CheckpointManager(store, str(blob), f"{cfg.name}-train", "cp1"),
+        device=device)
+    return trainer, store
+
+
+def state_bytes(trainer) -> int:
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() * t.element_size() for tree in (
+        trainer.params, trainer.opt_state) for t in tree_leaves(tree))
+
+
+def train_phase(seed: int, device="cuda"):
+    """gemma-2b at full width and depth (fp32 parameters and moments, bf16
+    compute, remat) trained TRAIN_STEPS steps on tokens [1, 4096] from the
+    port's SyntheticTokens, as launch/train.py drives it, and one more
+    step traced on the card (device time by kernel class); then one save
+    of the whole state through the CheckpointManager."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dvv_ops, flash_attention as FA
+    from repro_torch.models import count_params
+
+    cfg = get_config(TRAIN_ARCH)
+    blob = ROOT / "build" / "chip_smoke_ckpt" / "train"
+    shutil.rmtree(blob, ignore_errors=True)
+    blob.mkdir(parents=True)
+    trainer, store = make_trainer(cfg, TRAIN_TOKENS, blob, seed,
+                                  device=device, steps=TRAIN_STEPS + 1)
+    t = time.perf_counter()
+    restored = trainer.try_restore()
+    torch.cuda.synchronize()
+    out = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "param_count": count_params(cfg),
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "tokens": list(TRAIN_TOKENS), "restored": restored,
+           "init_s": time.perf_counter() - t,
+           "state_bytes": state_bytes(trainer)}
+    probe = {"embed": trainer.params["embed"][:8].clone(),
+             "wq": trainer.params["blocks"]["layer0"]["attn"]["wq"][0]
+             .clone()}
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    dvv_ops.reset_launches()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        fwd, bwd = FA.launches["flash_attention"], \
+            FA.bwd_launches["flash_attention_bwd"]
+        t = time.perf_counter()
+        trainer.run(steps=1)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        row = trainer.metrics_log[-1]
+        steps.append({"step": row["step"], "s": sec,
+                      "tokens_per_s": TRAIN_TOKENS[0] * TRAIN_TOKENS[1]
+                      / sec, "loss": row["loss"],
+                      "grad_norm": row["grad_norm"],
+                      "flash_attention": FA.launches["flash_attention"]
+                      - fwd,
+                      "flash_attention_bwd":
+                      FA.bwd_launches["flash_attention_bwd"] - bwd})
+    launches = {**FA.launches, **FA.bwd_launches, **dvv_ops.launches}
+    out.update(steps=steps, launches=launches,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               s_per_step_after_first=sum(r["s"] for r in steps[1:])
+               / max(len(steps) - 1, 1))
+    if device == "cuda":
+        out["trace"] = traced_train_step(trainer)
+    moved = {n: not torch.equal(t, ref) for n, t, ref in (
+        ("embed", trainer.params["embed"][:8], probe["embed"]),
+        ("wq", trainer.params["blocks"]["layer0"]["attn"]["wq"][0],
+         probe["wq"]))}
+    out["params_moved"] = moved
+    bad = [r for r in steps if not (math.isfinite(r["loss"])
+                                    and math.isfinite(r["grad_norm"]))]
+    if bad or not all(moved.values()):
+        raise AssertionError(f"training gave non-finite losses or norms "
+                             f"{bad}, or left parameters in place {moved}")
+    per_step = [(r["flash_attention"], r["flash_attention_bwd"])
+                for r in steps]
+    want = (2 * cfg.n_layers, cfg.n_layers) if cfg.remat \
+        else (cfg.n_layers, cfg.n_layers)
+    if device == "cuda" and per_step != [want] * TRAIN_STEPS:
+        raise AssertionError(f"flash launches per step {per_step}, "
+                             f"expected {want} (forward with its "
+                             f"recompute, backward)")
+
+    need = 2 * out["state_bytes"]
+    free = shutil.disk_usage(blob).free
+    saver, label = trainer, "full"
+    del trainer
+    if free < need:                   # save the 2-layer cut instead
+        saver = None
+        torch.cuda.empty_cache()
+        saver, _ = make_trainer(replace_layers(cfg, TRAIN_PARITY_LAYERS),
+                                TRAIN_TOKENS, blob, seed, store=store,
+                                device=device)
+        saver.init_fresh()
+        label = f"{TRAIN_PARITY_LAYERS}-layer cut: {free} bytes free, " \
+                f"{need} wanted"
+    dvv_ops.reset_launches()
+    nbytes = state_bytes(saver)
+    t = time.perf_counter()
+    saver.save()
+    sec = time.perf_counter() - t
+    out["save"] = {"state": label, "bytes": nbytes, "s": sec,
+                   "gb_per_s": nbytes / sec / 1e9,
+                   "dvv_launches": dict(dvv_ops.launches),
+                   "disk_free_bytes": free}
+    del saver
+    shutil.rmtree(blob, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_train_step(trainer):
+    """One more step under torch.profiler on the card: device-busy against
+    wall seconds and device time by kernel class (the flash forward and
+    backward kernels, cuBLAS's GEMMs, the rest)."""
+    busy_us, per, wall_s = device_profile(lambda: trainer.run(steps=1))
+    classes = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0,
+               "other": 0.0}
+    for key, (_, us) in per.items():
+        name = key.lower()
+        cls = "flash_fwd" if "flash_fwd_" in name else \
+            "flash_bwd" if "flash_bwd_" in name else \
+            "gemm" if any(g in name for g in GEMM_KERNELS) else "other"
+        classes[cls] += us / 1e6
+    return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1 - busy_us / 1e6 / wall_s
+            if busy_us else None,
+            "device_s_by_class": classes,
+            "device_events": sum(c for c, _ in per.values()),
+            "top_device_events": sorted(
+                ({"name": k[:80], "count": c, "us": us}
+                 for k, (c, us) in per.items()),
+                key=lambda e: -e["us"])[:10]}
+
+
+def replace_layers(cfg, n_layers: int):
+    from dataclasses import replace
+    return replace(cfg, n_layers=n_layers * len(cfg.pattern))
+
+
+@contextmanager
+def plain_attention():
+    """The LM's attention through the flash kernels' plain version
+    (``repro_torch.models.attention`` calls ``gqa_flash_attention`` by that
+    name) on card tensors too: the reference side of train_parity."""
+    import importlib
+
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    # the package's ``attention`` function shadows its module's name
+    attention = importlib.import_module("repro_torch.models.attention")
+    original = attention.gqa_flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+              positions=None):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale,
+                                   positions=positions)
+
+    attention.gqa_flash_attention = plain
+    try:
+        yield
+    finally:
+        attention.gqa_flash_attention = original
+
+
+def loss_and_grads(params, batch, cfg):
+    """The loss and the gradient of every parameter leaf (tree_leaves
+    order), the parameters' requires_grad flags left alone."""
+    import torch
+    from repro_torch.models import loss_fn
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_parity_phase(seed: int, device="cuda"):
+    """gemma-2b cut to TRAIN_PARITY_LAYERS layers at full width, fp32
+    compute, tokens [1, TRAIN_PARITY_TOKENS]: (a) the loss and every
+    gradient leaf through the kernels against the same through the plain
+    versions on the card; (b) 2 steps, a save, a restore into a fresh
+    Trainer and 2 more steps give the state_fingerprint of 4 uninterrupted
+    steps (tests/test_fault_tolerance.py's resume, on the card)."""
+    import shutil
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import init_params
+
+    cfg = replace(replace_layers(get_config(TRAIN_ARCH), TRAIN_PARITY_LAYERS),
+                  compute_dtype="float32")
+    tokens = (1, TRAIN_PARITY_TOKENS)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    params = init_params(gen, cfg, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticTokens(
+        PipelineConfig(cfg.vocab_size, tokens[1], tokens[0], seed=seed))
+        .next_batch().items()}
+    FA.reset_launches()
+    loss, grads = loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    launches = {**FA.launches, **FA.bwd_launches}
+    with plain_attention():
+        FA.reset_launches()
+        want_loss, want = loss_and_grads(params, batch, cfg)
+        plain_launches = {**FA.launches, **FA.bwd_launches}
+    loss_diff = abs(float(loss) - float(want_loss))
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(grads, want)]
+    del params, grads, want
+    torch.cuda.empty_cache()
+    out = {"phase": "train_parity", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "tokens": list(tokens), "loss": float(loss),
+           "loss_abs_diff": loss_diff, "grad_leaves": len(rel),
+           "grad_max_rel_diff": max(rel), "tol": TRAIN_PARITY_TOL,
+           "kernel_launches": launches, "plain_launches": plain_launches}
+    if not (loss_diff <= TRAIN_PARITY_TOL and max(rel) <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"loss or gradients through the kernels differ "
+                             f"from the plain versions': {out}")
+    if device == "cuda" and launches != {
+            "flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers} or \
+            set(plain_launches.values()) != {0}:
+        raise AssertionError(f"parity launches {launches}, plain "
+                             f"{plain_launches}")
+
+    blob = ROOT / "build" / "chip_smoke_ckpt" / "parity"
+    fingerprints = {}
+    for run in ("uninterrupted", "resumed"):
+        shutil.rmtree(blob, ignore_errors=True)
+        blob.mkdir(parents=True)
+        trainer, store = make_trainer(cfg, tokens, blob, seed, device=device)
+        trainer.init_fresh()
+        t = time.perf_counter()
+        if run == "uninterrupted":
+            trainer.run()
+        else:
+            trainer.run(steps=TRAIN_STEPS // 2)
+            trainer.save()
+            del trainer
+            trainer, _ = make_trainer(cfg, tokens, blob, seed, store=store,
+                                      device=device)
+            if not trainer.try_restore() or \
+                    trainer.step != TRAIN_STEPS // 2:
+                raise AssertionError("the fresh Trainer found no checkpoint")
+            trainer.run()
+        torch.cuda.synchronize()
+        fingerprints[run] = trainer.state_fingerprint()
+        out[f"{run}_s"] = time.perf_counter() - t
+        out[f"{run}_losses"] = [r["loss"] for r in trainer.metrics_log]
+        del trainer
+        torch.cuda.empty_cache()
+    shutil.rmtree(blob, ignore_errors=True)
+    out["fingerprints"] = fingerprints
+    if fingerprints["uninterrupted"] != fingerprints["resumed"]:
+        raise AssertionError(f"resumed training is not bitwise the "
+                             f"uninterrupted run's: {fingerprints}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def ptxas_lines(log: str):
     """ptxas's registers, spills and shared memory for each kernel, and
@@ -1737,7 +2294,8 @@ def main() -> int:
                     for n, i in build_info.items()}})
 
     rows = dvv_rows(args.seed) + flash_rows(args.seed) + \
-        flash_mrope_row(args.seed) + ssd_rows(args.seed)
+        flash_mrope_row(args.seed) + flash_bwd_rows(args.seed) + \
+        ssd_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)
@@ -1797,11 +2355,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(moe_parity_phase(args.seed))
 
+    train = train_phase(args.seed)
+    emit(train)
+    emit(train_parity_phase(args.seed))
+
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
         "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
         "dvv_leq": "src/repro/kernels/dvv_ops/dvv_ops.py:140",
         "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:93",
+        # the gradient of that kernel's function, which the JAX package
+        # takes by autodiff of its jnp attention (models/attention.py:105)
+        "flash_attention_bwd":
             "src/repro/kernels/flash_attention/flash_attention.py:93",
         "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
     }
@@ -1817,6 +2383,17 @@ def main() -> int:
             extra = {"variant": r["variant"], "dtype": r["dtype"],
                      "library": r["library"],
                      "row_scaled_err": r["row_scaled_err"]}
+        elif r["name"] == "flash_attention_bwd":
+            if r["variant"] != "gemma_2b":
+                continue
+            launches = train["launches"]["flash_attention_bwd"]
+            source = "src/repro_torch/kernels/flash_attention/csrc/" \
+                     "flash_attention_bwd.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": r["library"],
+                     "row_scaled_err": r["row_scaled_err"],
+                     "rms_err_ratio": r["rms_err_ratio"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
         elif r["name"] == "ssd_scan":
             if r["variant"] != "main_path":
                 continue

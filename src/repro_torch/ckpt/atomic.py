@@ -13,15 +13,22 @@ from __future__ import annotations
 
 import os
 import tempfile
+from typing import BinaryIO, Callable
 
 
 def atomic_write_bytes(path: str, data: bytes) -> None:
     """Replace ``path`` with ``data`` atomically (all-or-nothing on crash)."""
+    atomic_write(path, lambda f: f.write(data))
+
+
+def atomic_write(path: str, write: Callable[[BinaryIO], object]) -> None:
+    """Replace ``path`` with what ``write`` writes into the open file,
+    atomically (all-or-nothing on crash)."""
     directory = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(dir=directory, prefix=".tmp-", suffix=".part")
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            write(f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -48,4 +55,4 @@ def fsync_dir(directory: str) -> None:
         os.close(dfd)
 
 
-__all__ = ["atomic_write_bytes", "fsync_dir"]
+__all__ = ["atomic_write", "atomic_write_bytes", "fsync_dir"]

@@ -8,8 +8,9 @@ tensors), and <name>/ref.py the plain torch versions:
   * dvv_ops         — batched dotted-version-vector dominance (the paper's
                       clock algebra, vectorized for anti-entropy and quorum
                       reads)
-  * flash_attention — forward online-softmax attention with GQA, causal and
-                      sliding-window masks and a logit softcap (prefill)
+  * flash_attention — online-softmax attention with GQA, causal and
+                      sliding-window masks and a logit softcap, forward
+                      (prefill, training) and backward (training)
   * ssd_scan        — the Mamba-2 SSD chunked forward scan (prefill of
                       every SSM layer)
 

@@ -1,10 +1,11 @@
-"""Forward-only autograd for the hand-written CUDA kernels.
+"""Forward-only autograd for a hand-written CUDA kernel without a backward.
 
-The TPU kernels of the JAX package have no backward, and none is ported
-yet (ROADMAP.md Queue 1 item 7.1).  A kernel launched through ``ctypes``
-writes into a ``torch.empty`` output that autograd knows nothing of, so a
-loss computed through it would lose the kernel's inputs from its graph
-without a word.  ``forward_only`` routes such a call through a
+The TPU kernels of the JAX package have no backward.  flash_attention has
+a hand-written one (``flash_attention.ops.FlashAttention``); ssd_scan has
+none yet (ROADMAP.md Queue 1 item 7.1b).  A kernel launched through
+``ctypes`` writes into a ``torch.empty`` output that autograd knows
+nothing of, so a loss computed through it would lose the kernel's inputs
+from its graph without a word.  ``forward_only`` routes such a call through a
 ``torch.autograd.Function`` whenever autograd would record it, so that
 ``backward`` reaches the kernel and raises ``NotImplementedError`` instead.
 Under ``torch.no_grad`` (prefill, serving), or when no input requires a
@@ -27,7 +28,7 @@ class _ForwardOnly(torch.autograd.Function):
     def backward(ctx, *grads):
         raise NotImplementedError(
             f"{ctx.name}: the CUDA kernel has no backward yet (ROADMAP.md "
-            f"Queue 1 item 7.1); gradients through it would be wrong, so "
+            f"Queue 1 item 7.1b); gradients through it would be wrong, so "
             f"none are given.  CPU tensors take the plain version, which "
             f"has one.")
 

@@ -1,5 +1,6 @@
-"""Build and launch the hand-written CUDA kernel of
-``csrc/flash_attention.cu``.
+"""Build and launch the hand-written CUDA kernels of
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(backward).
 
 The kernel replaces the Pallas TPU kernel ``flash_attention`` of the JAX
 package's ``kernels/flash_attention/flash_attention.py`` (and the KV-head
@@ -25,6 +26,17 @@ through TMA tensor maps built on the host from the views' strides, so every
 view (of either dtype) must follow TMA's rules: a 16-byte aligned start
 and, on every axis but the last, a stride that is a multiple of 16 bytes
 and, where the axis is longer than 1, not 0.
+
+Backward: ``attend_bwd`` takes the forward's q, k, v and output and the
+output's gradient and returns dq, dk and dv (source note at the top of
+``flash_attention_bwd.cu``); it allocates the fp32 row statistics and, when
+the key tiles alone would leave the card's SMs idle, fp32 partials of dk
+and dv that the last kernel sums (``kv_splits``), and adds one to
+``bwd_launches["flash_attention_bwd"]``.  bf16 runs on the tensor cores
+(``mma.sync``), fp32 on fp32 FMAs.  Views are read by their strides with
+16-byte copies, so each must be 16-byte aligned with D contiguous and, on
+every other axis longer than 1, a stride that is a multiple of 16 bytes
+(``bwd_layout_fault`` says what a view lacks).
 """
 from __future__ import annotations
 
@@ -43,6 +55,9 @@ DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 #: Launches of the kernel since the last ``reset_launches``.
 launches: Dict[str, int] = {"flash_attention": 0}
+#: Launches of the backward since the last ``reset_launches``.
+bwd_launches: Dict[str, int] = {"flash_attention_bwd": 0}
+FMA_KEY_TILE = 32                # keys per block of the fp32-FMA dk/dv kernel
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -50,6 +65,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches["flash_attention"] = 0
+    bwd_launches["flash_attention_bwd"] = 0
 
 
 def build() -> Path:
@@ -69,6 +85,11 @@ def load(path) -> ctypes.CDLL:
         lib.flash_attention_pos_launch.argtypes = [
             p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p, p, p]
         lib.flash_attention_pos_launch.restype = ctypes.c_int
+    if hasattr(lib, "flash_attention_bwd_launch"):
+        lib.flash_attention_bwd_launch.argtypes = [
+            p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, f, f, i, i, i, p, p,
+            p, p, i, p]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -165,3 +186,116 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     launches["flash_attention"] += 1
     return out
+
+
+def bwd_layout_fault(t: torch.Tensor) -> Optional[str]:
+    """What keeps the backward's 16-byte copies from reading the view
+    ``t``, or None.  A stride on an axis of length 1 never counts (autograd
+    hands a [1, S, H, D] gradient a batch stride of 1)."""
+    if t.stride(-1) != 1:
+        return "must have a contiguous last dimension"
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(st % vec for st, n in zip(t.stride()[:3],
+                                                          t.shape[:3])
+                                if n > 1):
+        return (f"must be 16-byte aligned with strides that are multiples "
+                f"of {vec} elements")
+    return None
+
+
+def bwd_key_tile(dtype: torch.dtype, D: int) -> int:
+    """Keys per block of the dk/dv kernel: the tensor cores' for bf16,
+    the FMAs' for fp32."""
+    return 8192 // D if dtype == torch.bfloat16 else FMA_KEY_TILE
+
+
+def kv_splits(B: int, KV: int, Sk: int, G: int, sms: int,
+              key_tile: int) -> int:
+    """How many blocks share each (b, KV head, key tile) of the dk/dv
+    kernel, each taking G / splits of its query heads: the least divisor
+    of G that gives at least two blocks per SM, or G."""
+    tiles = B * KV * -(-Sk // key_tile)
+    for n in range(1, G + 1):
+        if G % n == 0 and tiles * n >= 2 * sms:
+            return n
+    return G
+
+
+def attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, dout: torch.Tensor, *,
+               causal: bool = True, window: int = 0, softcap: float = 0.0,
+               scale: Optional[float] = None,
+               positions: Optional[torch.Tensor] = None):
+    """The gradient of ``attend`` on the card: q, out, dout [B,Sq,H,D];
+    k, v [B,Sk,KV,D] (all of q's dtype and device, each a view that
+    ``bwd_layout_fault`` passes) -> (dq, dk, dv) in the inputs' shapes and
+    dtype.  The other arguments are ``attend``'s."""
+    if q.device.type != "cuda":
+        raise ValueError(f"CUDA kernel given a tensor on {q.device}")
+    if q.dim() != 4 or q.dtype not in DTYPES:
+        raise ValueError(f"q must be a [B, S, H, D] tensor of "
+                         f"{list(DTYPES)}, got {q.dtype} {tuple(q.shape)}")
+    B, Sq, H, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
+            or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be [{B}, Sk, KV, {D}], got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    Sk, KV = k.shape[1], k.shape[2]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
+                         f"got {D}")
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape)):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, expected "
+                             f"{q.dtype} on {q.device}")
+        fault = bwd_layout_fault(t)
+        if fault:
+            raise ValueError(f"{name} {fault}")
+    if positions is not None:
+        if positions.device != q.device or positions.dtype != torch.int32 \
+                or tuple(positions.shape) != (Sq,) or Sk != Sq \
+                or not positions.is_contiguous():
+            raise ValueError(f"positions must be contiguous int32 [{Sq}] "
+                             f"on {q.device} with Sk == Sq, got "
+                             f"{positions.dtype} {tuple(positions.shape)} "
+                             f"on {positions.device} (Sk {Sk})")
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, KV, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if Sq == 0 or Sk == 0 or B == 0 or H == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = kv_splits(B, KV, Sk, H // KV, sms, bwd_key_tile(q.dtype, D))
+    stats = torch.empty(3 * B * H * Sq, dtype=torch.float32,
+                        device=q.device)
+    partials = torch.empty(2 * nsplit * B * Sk * KV * D if nsplit > 1
+                           else 0, dtype=torch.float32, device=q.device)
+    bounds = torch.empty(2 * (-(-Sk // FMA_KEY_TILE) + -(-Sq // 64))
+                         if positions is not None else 0,
+                         dtype=torch.int32, device=q.device)
+    views = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_int64 * 24)(*(s for t in views
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _load().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, KV, Sq, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
+            float(scale or D ** -0.5), float(softcap), int(bool(causal)),
+            int(window), DTYPES[q.dtype],
+            positions.data_ptr() if positions is not None else None,
+            bounds.data_ptr(), stats.data_ptr(), partials.data_ptr(),
+            nsplit, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed with "
+                           f"CUDA error {err}")
+    bwd_launches["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -1,12 +1,16 @@
-"""Public flash-attention functions: the CUDA kernel for tensors on the
+"""Public flash-attention functions: the CUDA kernels for tensors on the
 card, the plain torch version (``ref.flash_attention_ref``) for tensors on
 the CPU.
 
-The card's call goes through ``kernels.autograd.forward_only``: the kernel
-has no backward yet, so a gradient through it raises instead of being
-dropped. A tensor on the card always goes to the kernel: if it cannot be
+Where autograd records the card's call (grad mode on and an input that
+requires a gradient), it goes through ``FlashAttention``, whose backward
+launches the backward kernel (``flash_attention.attend_bwd``); otherwise
+the forward kernel is called directly. A second derivative through the
+backward kernel raises (``once_differentiable``) instead of reading as
+zero. A tensor on the card always goes to the kernels: if they cannot be
 built or launched, the call raises; there is no fallback. ``launches``
-counts the kernel launches; ``reset_launches`` zeroes it.
+and ``bwd_launches`` count the kernel launches; ``reset_launches`` zeroes
+both.
 
 ``block_q`` and ``block_k`` are accepted for the JAX package's signature:
 they shape the TPU kernel's grid and change nothing here (the CUDA kernel
@@ -17,11 +21,34 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ..autograd import forward_only
 from . import flash_attention as _cuda
-from .flash_attention import launches, reset_launches
+from .flash_attention import bwd_launches, launches, reset_launches
 from .ref import flash_attention_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient; the
+    keyword arguments ride along in ``kw``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out = _cuda.attend(q, k, v, **kw)
+        positions = kw["positions"]
+        ctx.kw = {n: w for n, w in kw.items() if n != "positions"}
+        ctx.save_for_backward(q, k, v, out, positions)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, positions = ctx.saved_tensors
+        if _cuda.bwd_layout_fault(dout):     # e.g. an expanded or offset view
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = _cuda.attend_bwd(q, k, v, out, dout,
+                                      positions=positions, **ctx.kw)
+        return dq, dk, dv, None
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -48,7 +75,9 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
               positions=positions)
     if _on_card(q):
-        return forward_only("flash_attention",
-                            lambda *qkv: _cuda.attend(*qkv, **kw), q, k, v)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttention.apply(q, k, v, kw)
+        return _cuda.attend(q, k, v, **kw)
     return flash_attention_ref(q, k, v, **kw)
 

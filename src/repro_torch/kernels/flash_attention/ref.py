@@ -6,11 +6,16 @@ NEG_INF, p rounded to v's dtype before p.v, division by the clamped
 denominator last), materialising the [Sq, Sk] scores.  ``ops`` runs it for
 CPU tensors and ``chip_smoke.py`` holds the kernel against it on the card.
 
+``flash_attention_bwd_ref`` is the backward kernel's plain version: the
+gradient of ``flash_attention_ref`` by autograd.
+
 ``mha_ref`` is the twin of the JAX package's oracle
 ``kernels/flash_attention/ref.py::mha_ref``.
 
-``row_scaled_err`` is the measure a bf16 result is held to: an output row
-that averages n keys has an RMS near sqrt(e / n) for N(0, 1) inputs, so a
+``grad_row_err`` and ``grad_rms_err`` are the measures a bf16 gradient is
+held to, the second against the exact gradient beside the plain version's
+own.  ``row_scaled_err`` is the measure a bf16 result is held to: an output
+row that averages n keys has an RMS near sqrt(e / n) for N(0, 1) inputs, so a
 fixed absolute tolerance that fits the first rows is as large as the
 values of the late ones.  ``BF16_ROW_TOL`` is its bound, 1.7 times the
 largest reading of the CUDA kernel against this plain version (0.036 at
@@ -28,6 +33,30 @@ import torch
 NEG_INF = -1.0e38          # the kernel's masked value (_flash_kernel)
 MHA_NEG_INF = -2.0e38      # mha_ref's
 BF16_ROW_TOL = 2.0 ** -4   # row_scaled_err bound for bf16 results
+#: grad_row_err bound for the backward kernel's bf16 gradients against
+#: this plain version's: a coarse per-row gate (a row the kernel got wrong
+#: reads near 1); BF16_GRAD_RMS_RATIO is the one that sees a small error
+#: spread over the tensor.  Each side rounds in bf16 where the other does
+#: not: the kernel rounds P and dS to bf16 as tensor-core operands, and the
+#: plain version's autograd rounds dO.v / l to bf16 through p's cast (and
+#: puts the residue on each row's argmax).  Where a row's attention sits on
+#: one key, dq = scale sum_j P_ij (dO.v_j - delta) k_j nearly cancels and
+#: carries such a rounding whole: against the plain version run in fp32 on
+#: the upcast inputs (the exact function) either side reads up to about
+#: 0.12 of the tensor's scale there (chip_smoke.py's flash_attention_bwd
+#: rows, ``fp32_plain_row_scaled_err`` and ``plain_fp32_row_scaled_err``),
+#: while the median row reads 0.005.  Their difference can reach the sum:
+#: 2^-2.
+BF16_GRAD_ROW_TOL = 2.0 ** -2
+#: How much further from the exact gradient (this plain version in fp32 on
+#: the upcast inputs) the backward kernel's bf16 gradient may be than this
+#: plain version's own bf16 gradient, each by ``grad_rms_err``.  Each error
+#: is a sum of independent roundings of about one bf16 step; the kernel
+#: rounds at most once more in each product (P / l as dV's bf16 operand,
+#: where the plain version multiplies fp32 by the bf16 p), so its squared
+#: error is at most twice the plain version's: sqrt(2).  A systematic error
+#: of 0.5% of a gradient reads 2 or more.
+BF16_GRAD_RMS_RATIO = 2.0 ** 0.5
 
 
 def _allowed(Sq: int, Sk: int, causal: bool, window: int, device,
@@ -76,12 +105,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, **kw):
+    """(dq, dk, dv): ``torch.autograd.grad`` of ``flash_attention_ref(q, k,
+    v, **kw)`` against ``dout``, in the inputs' dtypes.  ``out`` (the
+    forward's output, which the kernel reads) is taken for the kernel's
+    signature; the plain version recomputes it."""
+    del out
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        got = flash_attention_ref(*leaves, **kw)
+        return torch.autograd.grad(got, leaves, dout)
+
+
 def row_scaled_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max over output rows (one query of one head) of max |got - want|
     over the row divided by the RMS of ``want`` over the row."""
     diff = (got.float() - want.float()).abs().amax(dim=-1)
     rms = want.float().pow(2).mean(dim=-1).sqrt()
     return float((diff / rms.clamp_min(1e-30)).max()) if diff.numel() else 0.0
+
+
+def grad_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``row_scaled_err`` with each row's RMS floored at the whole tensor's
+    RMS: the measure a bf16 gradient is held to.  A gradient row can be 0
+    up to rounding (a causal first query's dq: its only key gives
+    dS = P (dO.v - dO.o) = 0), and its error is then read against the
+    tensor's scale."""
+    w = want.float()
+    diff = (got.float() - w).abs().amax(dim=-1)
+    if not diff.numel():
+        return 0.0
+    floor = max(float(w.pow(2).mean().sqrt()), 1e-30)
+    rms = w.pow(2).mean(dim=-1).sqrt().clamp_min(floor)
+    return float((diff / rms).max())
+
+
+def grad_rms_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The RMS of ``got - want`` over the RMS of ``want``, over the whole
+    tensor: a bf16 gradient's rounding averaged, so a systematic error of
+    a fraction of a percent stands out from it."""
+    w = want.float()
+    num = float((got.float() - w).pow(2).mean().sqrt()) if w.numel() else 0.
+    return num / max(float(w.pow(2).mean().sqrt()) if w.numel() else 0.,
+                     1e-30)
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

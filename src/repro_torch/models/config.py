@@ -7,10 +7,11 @@ over the groups with the pattern unrolled inside each.
 
 There is no ``use_pallas`` flag: attention always calls the flash kernel's
 front end, which runs the CUDA kernel for tensors on the card and its
-plain torch version for tensors on the CPU.  The execution fields
-(``remat``, ``attn_chunk``, ``scan_unroll``, ``seq_shard``) are kept so
-the configurations stay the JAX package's; the serving path reads none of
-them.
+plain torch version for tensors on the CPU.  Of the execution fields,
+``remat`` and ``remat_policy`` shape training (``lm.forward`` checkpoints
+each group while a gradient is recorded); ``attn_chunk``, ``scan_unroll``
+and ``seq_shard`` are kept so the configurations stay the JAX package's,
+and nothing reads them.
 """
 from __future__ import annotations
 

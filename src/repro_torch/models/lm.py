@@ -16,13 +16,23 @@ Every mixer (attention, Mamba-2) and FFN (dense MLP, MoE) of the JAX
 package is ported.  The JAX package's activation-sharding constraints are
 no-ops off a mesh and are left out until the mesh slice (ROADMAP Queue 1
 item 8).
+
+``cfg.remat`` checkpoints each group when a gradient is recorded, as the
+JAX package wraps its scan body in ``jax.checkpoint``: the group's
+activations are dropped after the forward and recomputed in the backward
+(``remat_policy="dots"`` keeps the matrix products' outputs).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    checkpoint, create_selective_checkpoint_contexts,
+)
 
 from .attention import (
     AttnSpec, attention, decode_attention, init_attn_params, init_kv_cache,
@@ -217,6 +227,17 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _unbind(tree, n: int):
+    """The ``n`` groups of a stacked parameter tree, as views from one
+    ``unbind`` a leaf.  Its gradient is one stack of the groups'
+    gradients; indexing each group (``_index``) would add a zero-filled
+    stack-sized gradient per group instead."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[g] for k, p in parts.items()} for g in range(n)]
+    return tree.unbind(0)
+
+
 def _ffn(cfg: ModelConfig, spec: LayerSpec, layer: Dict, x: torch.Tensor):
     """The layer's FFN with its residual: (x, the MoE's metrics or None)."""
     if spec.ffn == "none":
@@ -254,7 +275,10 @@ def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
 def _embed(params: Dict, inputs: torch.Tensor, cfg: ModelConfig,
            compute: torch.dtype) -> torch.Tensor:
     if cfg.input_mode == "tokens":
-        x = params["embed"][inputs.long()].to(compute)
+        # F.embedding's backward sums the rows of repeated tokens in one
+        # fixed order on the card: resumed training is bitwise the
+        # uninterrupted run's (chip_smoke.py's train_parity)
+        x = F.embedding(inputs.long(), params["embed"]).to(compute)
     else:
         x = inputs.to(compute)
     if cfg.embed_scale:
@@ -275,6 +299,12 @@ def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return softcap(logits, cfg.final_softcap)
 
 
+#: What ``remat_policy="dots"`` saves: the outputs of the matrix products.
+#: The JAX package saves its dots without batch dimensions; the port's
+#: einsums lower to mm and bmm, and both are saved.
+_SAVED_BY_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default]
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,V] fp32, aux_loss scalar).
@@ -287,10 +317,16 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig
         else batch["embeddings"]
     x = _embed(params, inputs, cfg, compute)
     positions = batch.get("positions")
+    body = partial(_apply_group, cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        kw = dict(use_reentrant=False)
+        if cfg.remat_policy == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _SAVED_BY_DOTS)
+        body = partial(checkpoint, body, **kw)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        x, aux_g = _apply_group(cfg, _index(params["blocks"], g), x,
-                                positions)
+    for group in _unbind(params["blocks"], cfg.n_groups):
+        x, aux_g = body(group, x, positions)
         aux = aux + aux_g
     return _head(params, x, cfg), aux
 

@@ -1,8 +1,10 @@
-"""Gradients at the hand-written kernels: the card's path raises in
-``backward`` (no backward kernel exists yet, ROADMAP.md Queue 1 item 7.1),
-CPU tensors keep their plain versions' gradients, and ``torch.no_grad``
-calls go straight to the kernel.  The card's half is in
-tests/test_torch_cuda.py; here ``forward_only`` wraps plain functions.
+"""Gradients at the hand-written kernels: a kernel without a backward
+(ssd_scan's, ROADMAP.md Queue 1 item 7.1b) raises in ``backward`` on the
+card's path, CPU tensors keep their plain versions' gradients, and
+``torch.no_grad`` calls go straight to the kernel; flash_attention's
+backward takes the views its 16-byte copies can read.
+The card's half is in tests/test_torch_cuda.py; here ``forward_only``
+wraps plain functions.
 """
 import numpy as np
 import pytest
@@ -73,3 +75,31 @@ def test_cpu_ssd_scan_keeps_its_gradient():
     (y.square().sum() + h.sum()).backward()
     for t in (xh, Bc, Cc):
         assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+def test_backward_layout_follows_alignment():
+    """The backward reads views by 16-byte copies: it takes 16-byte aligned
+    views whose strides are multiples of 16 bytes, and names what a view
+    lacks; a stride on an axis of length 1 never counts (autograd hands a
+    [1, S, H, D] gradient a batch stride of 1)."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    t = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)
+    assert K.bwd_layout_fault(t) is None
+    assert K.bwd_layout_fault(t[:, :, :2]) is None
+    assert K.bwd_layout_fault(t.float()) is None
+    assert "16-byte aligned" in K.bwd_layout_fault(
+        t.view(-1)[1:].view(-1)[:2 * 64 * 4 * 127]
+        .view(2, 64, 4, 127)[..., :64])
+    one = torch.zeros((1, 64, 4, 128), dtype=torch.bfloat16).as_strided(
+        (1, 64, 4, 128), (1, 512, 128, 1))
+    assert K.bwd_layout_fault(one) is None
+    assert "16-byte aligned" in K.bwd_layout_fault(t[:, :, :, 4:68])
+    assert "multiples of 4" in K.bwd_layout_fault(
+        torch.zeros((1, 64, 3, 66))[..., :64])
+    assert "contiguous" in K.bwd_layout_fault(t.transpose(2, 3))
+    assert K.bwd_key_tile(torch.bfloat16, 256) == 32
+    assert K.bwd_key_tile(torch.bfloat16, 64) == 128
+    assert K.bwd_key_tile(torch.float32, 256) == 32
+    assert K.kv_splits(1, 1, 4096, 8, 132, 32) == 4        # gemma-2b
+    assert K.kv_splits(1, 8, 8192, 2, 132, 32) == 1        # gemma2-9b

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (dvv_ops, flash_attention, ssd_scan)
-against their plain torch versions, on the card.  Imports neither jax nor
-the JAX package, so it runs on a machine that has only the port:
+"""The hand-written CUDA kernels (dvv_ops, flash_attention and its
+backward, ssd_scan) against their plain torch versions, on the card.
+Imports neither jax nor the JAX package, so it runs on a machine that has
+only the port:
 
     PYTHONPATH=src python -m pytest -q -m torch tests/test_torch_cuda.py
 
@@ -762,14 +763,300 @@ def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32):
 
 
 # ---------------------------------------------------------------------------
-# gradients stop loudly at the kernels
+# flash_attention: the backward kernel
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,kernel", [("gemma2-9b", "flash_attention"),
-                                         ("mamba2-780m", "ssd_scan")])
+#: dq, dk and dv against the plain version: max abs error over the largest
+#: magnitude of the plain version's gradient, that magnitude floored at
+#: 1e-2 (N(0, 1) inputs give gradients of order 0.1-10; a gradient that is
+#: exactly 0, as dq with a single key, is held absolutely).  fp32 sums in
+#: another order; bf16 also reads delta from the forward kernel's bf16
+#: output (the plain version keeps its own in fp32).  (A per-row scale
+#: does not fit: a causal row 0's dq is 0 up to rounding.)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_err(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max().clamp_min(1e-2))
+
+
+def _bwd_case(q, k, v, seed=0, **kw):
+    """(kernel's, plain version's) (dq, dk, dv) for a random dout."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+    )
+
+    gen = torch.Generator(device=q.device).manual_seed(seed)
+    dout = torch.randn(q.shape, generator=gen, device=q.device,
+                       dtype=torch.float32).to(q.dtype)
+    out = K.attend(q, k, v, **kw)
+    K.reset_launches()
+    got = K.attend_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == {"flash_attention_bwd": 1}
+    return got, flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+
+
+def _assert_grads_close(got, want, q, k):
+    for g, w, like in zip(got, want, (q, k, k)):
+        assert g.shape == like.shape and g.dtype == like.dtype
+        assert torch.isfinite(g).all()
+        assert _grad_err(g, w) < BWD_TOL[g.dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(16, 8), (8, 1), (4, 4)])
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+def test_flash_backward_equals_plain_version(cuda, ieee_fp32, dtype, D,
+                                             heads, mode):
+    """S = 200 (ragged 64-row q tiles and 32-key tiles); MQA (8, 1) splits
+    each key tile's query heads over blocks (fp32 partials, a reduce)."""
+    q, k, v = _qkv(2, 200, *heads, D, dtype, cuda)
+    got, want = _bwd_case(q, k, v, **FLASH_MODES[mode])
+    _assert_grads_close(got, want, q, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["repeated", "shuffled", "descending",
+                                   "gaps"])
+@pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir"])
+def test_flash_backward_with_positions_equals_plain_version(
+        cuda, ieee_fp32, dtype, which, mode):
+    q, k, v = _qkv(2, 320, 4, 2, 128, dtype, cuda, seed=7)
+    pos = torch.from_numpy(_flash_positions(320)[which].astype(
+        np.int32)).to(cuda)
+    got, want = _bwd_case(q, k, v, positions=pos, **FLASH_MODES[mode])
+    _assert_grads_close(got, want, q, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(1, 1), (33, 33), (96, 160), (160, 96)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_ragged_lengths(cuda, ieee_fp32, dtype, Sq, Sk,
+                                       causal):
+    q = _qkv(1, Sq, 4, 2, 64, dtype, cuda, seed=2)[0]
+    _, k, v = _qkv(1, Sk, 4, 2, 64, dtype, cuda, seed=3)
+    got, want = _bwd_case(q, k, v, causal=causal)
+    _assert_grads_close(got, want, q, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_strided_views(cuda, ieee_fp32, dtype):
+    """q, k, v as slices of one fused projection and dout transposed in
+    memory: the kernel reads views by their strides."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+    )
+
+    B, S, H, KV, D = 2, 192, 4, 2, 128
+    x = _qkv(B, S, H + 2 * KV, 1, D, dtype, cuda, seed=5)[0]
+    q, k, v = x[:, :, :H], x[:, :, H:H + KV], x[:, :, H + KV:]
+    dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=6)[0].transpose(
+        1, 2).contiguous().transpose(1, 2)
+    out = K.attend(q, k, v, causal=True)
+    got = K.attend_bwd(q, k, v, out, dout, causal=True)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, causal=True)
+    _assert_grads_close(got, want, q, k)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 8, 1, 256), (2, 2176, 16, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, shape, dtype):
+    """Two launches on the same inputs give the same bits: MQA's split
+    partials (gemma-2b's heads) and the one-split path alike."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    B, S, H, KV, D = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    q, k, v = _qkv(B, S, H, KV, D, dtype, cuda, seed=8)
+    splits = K.kv_splits(B, KV, S, H // KV, sms, K.bwd_key_tile(dtype, D))
+    assert (splits > 1) == (KV == 1)
+    dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=9)[0]
+    out = K.attend(q, k, v, causal=True, softcap=50.0)
+    a = K.attend_bwd(q, k, v, out, dout, causal=True, softcap=50.0)
+    b = K.attend_bwd(q, k, v, out, dout, causal=True, softcap=50.0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _shifted(t):
+    """A copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_backward_copies_a_misaligned_gradient(cuda, D):
+    """attend_bwd refuses a view its 16-byte copies cannot read; autograd's
+    FlashAttention copies such an output gradient into an aligned buffer
+    and gives the same bits as for the aligned one."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 320, 8, 2, D,
+                                                torch.bfloat16, cuda,
+                                                seed=10))
+    dout = _qkv(1, 320, 8, 1, D, torch.bfloat16, cuda, seed=11)[0]
+    out = FA.gqa_flash_attention(q, k, v, causal=True, softcap=30.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.attend_bwd(q.detach(), k.detach(), v.detach(), out.detach(),
+                     _shifted(dout), causal=True, softcap=30.0)
+    FA.reset_launches()
+    aligned = torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    odd = torch.autograd.grad(out, (q, k, v), _shifted(dout))
+    assert FA.bwd_launches == {"flash_attention_bwd": 2}
+    assert all(torch.equal(a, o) for a, o in zip(aligned, odd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_backward_with_scores_at_the_softcap(cuda, ieee_fp32, dtype, D):
+    """q drawn 30 times larger puts a row's leading scores where the softcap
+    of 50 bends, so 1 - (s/cap)^2 ranges from about 0.9 to 0.1: fp32 to the
+    plain version's gradients; bf16 within BF16_GRAD_RMS_RATIO of the plain
+    bf16 version's own distance from the exact gradient (the plain
+    version in fp32 on the upcast inputs), and row by row within
+    BF16_GRAD_ROW_TOL of the plain version's."""
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, flash_attention_bwd_ref,
+        grad_rms_err, grad_row_err,
+    )
+
+    q, k, v = _qkv(1, 512, 8, 2, D, torch.float32, cuda, seed=12)
+    q, k, v = (t.to(dtype) for t in (q * 30.0, k, v))
+    kw = dict(causal=True, softcap=50.0)
+    got, want = _bwd_case(q, k, v, seed=13, **kw)
+    if dtype == torch.float32:
+        _assert_grads_close(got, want, q, k)
+        return
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    dout = torch.randn(q.shape, generator=gen, device=cuda,
+                       dtype=torch.float32).to(dtype)
+    exact = flash_attention_bwd_ref(q.float(), k.float(), v.float(), None,
+                                    dout.float(), **kw)
+    for g, w, e in zip(got, want, exact):
+        assert torch.isfinite(g).all()
+        assert grad_row_err(g, w) <= BF16_GRAD_ROW_TOL
+        assert grad_rms_err(g, e) <= BF16_GRAD_RMS_RATIO * grad_rms_err(w, e)
+
+
+def test_flash_backward_second_derivative_raises(cuda, ieee_fp32):
+    """The backward kernel's gradients carry no graph of their own: a
+    second derivative through it raises instead of reading as zero."""
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 128, 4, 2, 64,
+                                                torch.float32, cuda))
+    out = FA.gqa_flash_attention(q, k, v, causal=True)
+    dq, = torch.autograd.grad(out.square().sum(), q, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+
+
+def test_flash_backward_through_autograd(cuda, ieee_fp32):
+    """gqa_flash_attention with inputs that need a gradient records
+    FlashAttention: backward() launches the backward kernel once and gives
+    the plain version's gradients."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 256, 8, 2, 128,
+                                                torch.float32, cuda))
+    FA.reset_launches()
+    out = FA.gqa_flash_attention(q, k, v, causal=True, softcap=30.0)
+    out.square().sum().backward()
+    assert FA.launches == {"flash_attention": 1}
+    assert FA.bwd_launches == {"flash_attention_bwd": 1}
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    flash_attention_ref(*leaves, causal=True, softcap=30.0).square().sum(
+    ).backward()
+    for t, w in zip((q, k, v), leaves):
+        assert _grad_err(t.grad, w.grad) < BWD_TOL[torch.float32]
+
+
+def test_flash_backward_wrapper_rejects_bad_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16, cuda)
+    out = K.attend(q, k, v)
+    for bad in (dict(dout=out.float()), dict(dout=out[:, :32]),
+                dict(dout=out.transpose(2, 3)), dict(out=out.cpu())):
+        args = {"out": out, "dout": out, **bad}
+        with pytest.raises(ValueError):
+            K.attend_bwd(q, k, v, args["out"], args["dout"])
+    with pytest.raises(ValueError, match="head_dim"):
+        K.attend_bwd(*(t[..., :48] for t in (q, k, v, out, out)))
+
+
+def test_flash_backward_build_failure_raises(cuda, tmp_path):
+    """A source nvcc refuses raises RuntimeError with the compiler's
+    output; nothing falls back."""
+    from repro_torch.kernels import build as _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "broken.cu").write_text(
+        "extern \"C\" int broken_launch() { return undeclared_name; }\n")
+    with pytest.raises(RuntimeError, match="nvcc failed") as err:
+        _build.build("flash_attention_broken", csrc)
+    assert "undeclared_name" in str(err.value)
+
+
+def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32):
+    """gemma-2b's smoke config with head_dim 64, fp32: one make_train_step
+    on the card (flash forward and backward kernels) against the CPU's
+    (plain versions): loss, gradient norm and parameters; one forward and
+    one backward launch a layer, and a recompute with remat."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+
+    for remat in (False, True):
+        cfg = replace(get_config("gemma-2b").smoke(), head_dim=64,
+                      compute_dtype="float32", remat=remat)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 128)).astype(np.int32))
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        runs = []
+        for device in ("cpu", cuda):
+            params = _to(init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu"), device)
+            state = init_opt_state(params, opt)
+            FA.reset_launches()
+            params, state, m = make_train_step(cfg, opt)(
+                params, state, {k: t.to(device) for k, t in batch.items()})
+            runs.append((float(m["loss"]), float(m["grad_norm"]),
+                         [p.cpu() for p in tree_leaves(params)],
+                         [t.cpu() for t in tree_leaves(state["m"])],
+                         dict(FA.launches), dict(FA.bwd_launches)))
+        (cl, cn, cp, cm, _, _), (gl, gn, gp, gm, fwd, bwd) = runs
+        assert abs(gl - cl) < 1e-4 and abs(gn - cn) < 1e-4 * max(1, cn)
+        for a, b, ma, mb in zip(gp, cp, gm, cm):
+            assert float((ma - mb).abs().max()) <= 1e-4 * float(
+                mb.abs().max().clamp_min(1e-30))
+            # Adam's first step moves an entry by lr * sign(g) where |g| is
+            # far above eps and the gradients' error (tests/test_torch_
+            # train.py::test_train_step_matches_jax)
+            clear = mb.abs() >= 1e-7
+            assert float(torch.where(clear, (a - b).abs(), 0.0).max()) < 1e-5
+            assert float((a - b).abs().max()) <= 2 * opt.lr + 1e-5
+        assert fwd["flash_attention"] == cfg.n_layers * (2 if remat else 1)
+        assert bwd["flash_attention_bwd"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# gradients stop loudly at the kernels without a backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,kernel", [("mamba2-780m", "ssd_scan")])
 def test_backward_through_a_card_prefill_raises(cuda, arch, kernel):
-    """loss.backward() through the kernels raises NotImplementedError
-    naming ROADMAP.md Queue 1 item 7.1; the same loss on the CPU (plain
+    """loss.backward() through the ssd_scan kernel raises
+    NotImplementedError naming ROADMAP.md Queue 1 item 7.1b (flash
+    attention has its backward kernel); the same loss on the CPU (plain
     versions) has its gradient, and no_grad prefill still runs."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -787,7 +1074,7 @@ def test_backward_through_a_card_prefill_raises(cuda, arch, kernel):
         t.requires_grad_()
     loss, _ = loss_fn(leaves, on_card, cfg)
     assert loss.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1b"):
         loss.backward()
     for t in _leaves(params):
         t.requires_grad_()

@@ -45,7 +45,16 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                  "repro_torch.models.moe",
                  "repro_torch.launch.serve", "repro_torch.store.serving",
                  "repro_torch.store.gossip", "repro_torch.store.geo",
-                 "repro_torch.store.failure", "repro_torch.store.services"):
+                 "repro_torch.store.failure", "repro_torch.store.services",
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.ckpt.manager", "repro_torch.ckpt.shards",
+                 "repro_torch.runtime.train_loop",
+                 "repro_torch.runtime.simcluster",
+                 "repro_torch.launch.train", "repro_torch.launch.steps",
+                 "repro_torch.cluster.elastic",
+                 "repro_torch.cluster.failure_detector",
+                 "repro_torch.cluster.membership",
+                 "repro_torch.cluster.stealer"):
         assert name in got["modules"]
     assert got["leaked"] == []
     assert got["cuda_initialized"] is False
@@ -66,6 +75,35 @@ print(json.dumps({
     "cuda_initialized": torch.cuda.is_initialized(),
 }))
 """
+
+
+_TRAIN_PROBE = """
+import json, sys, tempfile
+from repro_torch.launch import train
+rc = train.main(["--arch", "gemma-2b", "--smoke", "--device", "cpu",
+                 "--steps", "2", "--seq-len", "16", "--global-batch", "2",
+                 "--ckpt-every", "1", "--ckpt-dir", tempfile.mkdtemp()])
+import torch
+print(json.dumps({
+    "rc": rc,
+    "leaked": sorted(m for m in sys.modules
+                     if m in ("jax", "repro") or m.startswith(("jax.",
+                                                              "repro."))),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_training_runs_without_jax_or_repro():
+    """``launch.train --device cpu`` (the token pipeline's threefry, AdamW,
+    the Trainer and its checkpoints in the store) with neither jax nor the
+    JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                         capture_output=True, text=True, check=True)
+    assert "step      2" in out.stdout
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"rc": 0, "leaked": [], "cuda_initialized": False}
 
 
 def test_store_workload_runs_without_jax_or_repro():
@@ -96,6 +134,7 @@ print(json.dumps({
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/flash_attention_probe.py",
+                                    "tools/flash_bwd_gate_probe.py",
                                     "tools/ssd_scan_probe.py"])
 def test_chip_scripts_import_no_jax_and_no_repro(script):
     """The scripts that run on the card, loaded as modules (their main()
