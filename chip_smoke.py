@@ -57,10 +57,13 @@ exits non-zero:
            ref.BF16_GRAD_RMS_RATIO times the plain bf16 version's own
            error by ref.grad_rms_err, and each row within
            ref.BF16_GRAD_ROW_TOL of the plain version by ref.grad_row_err
-           (bf16 runs on the tensor cores); fp32 to 1e-4 of the largest
-           magnitude (FMAs); two launches bitwise equal.  The yardstick
-           is the backward of scaled_dot_product_attention (causal rows)
-           or of compiled FlexAttention (softcap, window, positions).
+           (bf16 runs on wgmma from the forward's row statistics, as
+           autograd's FlashAttention hands them over); fp32 to 1e-4 of
+           the largest magnitude (FMAs); two launches bitwise equal.  Each
+           row has each kernel's device ms (delta, dq, dkdv, reduce) and
+           the share of the bound reached.  The yardstick is the
+           backward of scaled_dot_product_attention (causal rows) or of
+           compiled FlexAttention (softcap, window, positions).
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -329,6 +332,13 @@ BWD_ROWS = (
 #: plain version's own bf16 gradient's, and each row within
 #: ref.BF16_GRAD_ROW_TOL of the plain version's by ref.grad_row_err.
 BWD_FP32_TOL = 1e-4
+#: bf16 rows: the forward's statistics for the backward against the plain
+#: version's (ref.flash_attention_stats_ref): each row's logsumexp within
+#: this of max(1, |lse|) (fp32 sums in another order, ex2.approx), the
+#: fp32 output within ref.BF16_ROW_TOL by row_scaled_err (its p is rounded
+#: to bf16 against the running maximum, the plain version's against the
+#: final one).
+BWD_LSE_TOL = 1e-4
 
 # gemma-2b training (src/repro_torch/configs/gemma_2b.py)
 TRAIN_ARCH = "gemma-2b"
@@ -782,7 +792,7 @@ def bwd_row_faults(row) -> list:
     """What a flash_attention_bwd row of flash_bwd_rows got wrong, if
     anything (BWD_FP32_TOL says how each dtype is held)."""
     from repro_torch.kernels.flash_attention.ref import (
-        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL,
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, BF16_ROW_TOL,
     )
 
     faults = []
@@ -794,6 +804,11 @@ def bwd_row_faults(row) -> list:
         faults += [f"{n} rel err {e}" for n, e in row["rel_err"].items()
                    if not e <= BWD_FP32_TOL]
         return faults
+    if not row["lse_rel_err"] <= BWD_LSE_TOL:
+        faults.append(f"forward lse err {row['lse_rel_err']}")
+    if not row["out32_row_scaled_err"] <= BF16_ROW_TOL:
+        faults.append(f"forward fp32 output err "
+                      f"{row['out32_row_scaled_err']}")
     faults += [f"{n} row-scaled err {e}"
                for n, e in row["row_scaled_err"].items()
                if not e <= BF16_GRAD_ROW_TOL]
@@ -804,37 +819,58 @@ def bwd_row_faults(row) -> list:
     return faults
 
 
+def bwd_inputs(seed: int, row):
+    """One BWD_ROWS row's inputs on the card, drawn from ``seed``: q, k, v,
+    dout, the forward's output and the keyword arguments of attend_bwd
+    (the masks and, for bf16, the forward's statistics, as FlashAttention
+    keeps them)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
+        q_scale = row
+    dev = torch.device("cuda")
+    rng = np.random.default_rng([seed, S, H, window, int(cap)])
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (1, S, h, D), dtype=np.float32) * x).to(dev, getattr(torch, dtype))
+        for h, x in ((H, q_scale), (KV, 1.0), (KV, 1.0), (H, 1.0)))
+    pos = torch.from_numpy(mrope_positions(S)).to(dev) if by_pos else None
+    kw = dict(causal=causal, window=window, softcap=cap, positions=pos)
+    if dtype == "bfloat16":
+        out, lse, out32 = K.attend(q, k, v, stats=True, **kw)
+        return q, k, v, dout, out, dict(kw, lse=lse, out32=out32)
+    return q, k, v, dout, K.attend(q, k, v, **kw), kw
+
+
 def flash_bwd_rows(seed: int):
     """The flash_attention backward kernel against its plain version
     (autograd through ref.flash_attention_ref) at gemma-2b's training shape
     and at gemma2-9b's, qwen2-vl-7b's and an fp32 shape: dq, dk and dv
     errors (bf16 also against the exact gradient beside the plain
-    version's own), two launches bitwise equal, times and bound, beside
-    the backward of one PyTorch call of the same function."""
+    version's own), two launches bitwise equal, times (each kernel's
+    device ms too), bound and the share of it reached, beside the
+    backward of one PyTorch call of the same function."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention as K
     from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_bwd_ref, grad_rms_err, grad_row_err,
+        flash_attention_bwd_ref, flash_attention_stats_ref, grad_rms_err,
+        grad_row_err, row_scaled_err,
     )
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
-            q_scale in BWD_ROWS:
-        rng = np.random.default_rng([seed, S, H, window, int(cap)])
-        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
-            (1, S, h, D), dtype=np.float32) * x).to(dev,
-                                                    getattr(torch, dtype))
-            for h, x in ((H, q_scale), (KV, 1.0), (KV, 1.0), (H, 1.0)))
-        pos = torch.from_numpy(mrope_positions(S)).to(dev) if by_pos \
-            else None
+    for bwd_row in BWD_ROWS:
+        variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
+            q_scale = bwd_row
+        q, k, v, dout, out, kw_stats = bwd_inputs(seed, bwd_row)
+        pos = kw_stats["positions"]
         kw = dict(causal=causal, window=window, softcap=cap, positions=pos)
-        out = K.attend(q, k, v, **kw)
         K.reset_launches()
-        got = K.attend_bwd(q, k, v, out, dout, **kw)
-        again = K.attend_bwd(q, k, v, out, dout, **kw)
+        got = K.attend_bwd(q, k, v, out, dout, **kw_stats)
+        again = K.attend_bwd(q, k, v, out, dout, **kw_stats)
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         launched = K.bwd_launches["flash_attention_bwd"]
@@ -847,8 +883,13 @@ def flash_bwd_rows(seed: int):
         rel = {n: err[n] / float(w.float().abs().max())
                for n, w in zip(names, want)}
         row_err = rms = plain_rms = exact_row_err = plain_exact_row_err = \
-            None
+            lse_err = out32_err = None
         if dtype == "bfloat16":
+            want32, want_lse = flash_attention_stats_ref(q, k, v, **kw)
+            lse_err = float(((kw_stats["lse"] - want_lse).abs()
+                             / want_lse.abs().clamp_min(1.0)).max())
+            out32_err = row_scaled_err(kw_stats["out32"], want32)
+            del want32, want_lse
             row_err = {n: grad_row_err(g, w)
                        for n, g, w in zip(names, got, want)}
             exact = flash_attention_bwd_ref(
@@ -869,17 +910,20 @@ def flash_bwd_rows(seed: int):
             pairs = int(np.searchsorted(srt, mrope_positions(S),
                                         side="right").sum())
         flops = 10 * H * D * pairs           # five products of 2 pairs D
-        nbytes = (4 * H + 4 * KV) * S * D * q.element_size() + \
+        # q, dout, dq and k, v, dk, dv in the inputs' dtype; the output
+        # (bf16: its fp32 copy and the rows' fp32 logsumexp) and positions
+        nbytes = (3 * H + 4 * KV) * S * D * q.element_size() + \
+            4 * H * S * D + (4 * H * S if dtype == "bfloat16" else 0) + \
             (S * 4 if pos is not None else 0)
         b_ms, b_by = bound(nbytes, flops, FLOPS_PER_S[dtype])
-        call = partial(K.attend_bwd, q, k, v, out, dout, **kw)
+        call = partial(K.attend_bwd, q, k, v, out, dout, **kw_stats)
         slow = S * H >= 8192 * 16
         row = {"name": "flash_attention_bwd", "variant": variant,
                "shape": [1, S, H, KV, D], "dtype": dtype,
                "causal": causal, "window": window, "softcap": cap,
                "positions": by_pos, "q_scale": q_scale,
                "kv_splits": K.kv_splits(1, KV, S, H // KV, sms,
-                                        K.bwd_key_tile(q.dtype, D)),
+                                        K.bwd_key_tile(q.dtype)),
                "launches": launched,
                "max_abs_err": max(err.values()), "abs_err": err,
                "rel_err": rel, "row_scaled_err": row_err,
@@ -888,6 +932,7 @@ def flash_bwd_rows(seed: int):
                "rms_err": rms, "plain_rms_err": plain_rms,
                "rms_err_ratio": rms and {
                    n: rms[n] / max(plain_rms[n], 1e-30) for n in names},
+               "lse_rel_err": lse_err, "out32_row_scaled_err": out32_err,
                "bitwise_repeatable": bitwise}
         faults = bwd_row_faults(row)
         if faults:
@@ -900,6 +945,7 @@ def flash_bwd_rows(seed: int):
             **kernel_device_ms(call, 3 if slow else 5, "flash_bwd_"),
             "bound_ms": b_ms, "bound_by": b_by, "live_pairs": pairs,
             "flops": flops, "bytes": nbytes})
+        row["bound_share"] = b_ms / row["ms"]
         t = time.perf_counter()
         try:
             name, library, lib_grads = bwd_library_call(
@@ -916,7 +962,7 @@ def flash_bwd_rows(seed: int):
                        library_error=f"{type(e).__name__}: {e}"[:300])
         row["library_setup_s"] = time.perf_counter() - t
         rows.append(row)
-        del q, k, v, dout, out, got
+        del q, k, v, dout, out, got, kw_stats
         library = None
         torch.cuda.empty_cache()
     return rows

@@ -2,9 +2,12 @@
 
 At first use each kernel package is compiled for ``sm_90a`` into a shared
 library with a plain C interface, under ``build/repro_torch/<name>-<hash>/``
-at the repository root, keyed by a hash of its sources and the flags, and
-loaded with ``ctypes`` by the package.  There is no fallback: without
-``nvcc`` the build raises.
+at the repository root, and loaded with ``ctypes`` by the package.  The
+sources may include the headers of ``kernels/csrc/`` (``hopper.cuh``: TMA,
+mbarriers, wgmma), which nvcc finds through ``-I``.  The hash covers the
+flags, the package's ``*.cu`` and ``*.cuh`` and those shared headers
+(``library_path``), so an edit to any of them builds a new library.  There
+is no fallback: without ``nvcc`` the build raises.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from pathlib import Path
 from typing import Dict
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: Headers shared by the kernel packages, passed to nvcc as ``-I``.
+INCLUDE = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,14 +42,22 @@ def nvcc() -> str:
                        "csrc/ at first use and need the CUDA toolkit")
 
 
-def build(name: str, csrc: Path) -> Path:
+def library_path(name: str, csrc: Path, include: Path = INCLUDE) -> Path:
+    """Where the library of ``csrc`` builds: a hash of the flags, of
+    ``csrc``'s ``*.cu`` and ``*.cuh`` and of ``include``'s ``*.cuh``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(Path(csrc).glob("*.cu")) + \
+            sorted(Path(csrc).glob("*.cuh")) + \
+            sorted(Path(include).glob("*.cuh")):
+        digest.update(src.name.encode() + src.read_bytes())
+    return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+
+
+def build(name: str, csrc: Path, include: Path = INCLUDE) -> Path:
     """Compile one kernel package (once per source hash) and return the
     library's path."""
     sources = sorted(Path(csrc).glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    lib = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
+    lib = library_path(name, csrc, include)
     log = lib.with_name("nvcc.log")
     if lib.exists():
         build_info[name] = dict(path=str(lib), seconds=0.0,
@@ -55,7 +68,8 @@ def build(name: str, csrc: Path) -> Path:
     tmp = lib.with_name(f"lib{name}.{os.getpid()}.so")
     t = time.perf_counter()
     proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        [nvcc(), *NVCC_FLAGS, f"-I{include}", "-o", str(tmp),
+         *map(str, sources)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({proc.returncode}):\n"

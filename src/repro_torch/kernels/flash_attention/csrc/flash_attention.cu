@@ -69,6 +69,13 @@
 //     cp.async; four threads share a q row, each holding 8 scores and D / 4
 //     accumulators.
 //
+// Statistics for the backward (flash_attention_stats_launch, bf16): when
+// autograd records the call, the epilogue also writes each row's logsumexp
+// m + ln(l) (fp32 [B, H, Sq], natural-log units) and the output before its
+// bf16 rounding (fp32 [B, Sq, H, D]), so the backward neither recomputes
+// the row statistics nor reads delta from the rounded output.  Null
+// pointers (the other entry points) leave every output bit as it was.
+//
 // Masks by position (flash_attention_pos_launch): the JAX package's default
 // attention path masks by positions, one int32 vector pos[S] for queries
 // and keys (the temporal row of M-RoPE's positions, where an image's
@@ -90,6 +97,8 @@
 #include <stdint.h>
 #include <climits>
 
+#include "hopper.cuh"                 // TMA, mbarriers, wgmma
+
 namespace {
 
 constexpr float kNegInf = -1.0e38f;   // _flash_kernel's NEG_INF
@@ -110,6 +119,11 @@ struct Params {
   const int* pos;
   const int* kb;
   const int* qb;
+  // bf16 only, for the backward when not null: each row's logsumexp of
+  // its scores (fp32 [B, H, Sq]) and the fp32 output before its bf16
+  // rounding ([B, Sq, H, D], contiguous)
+  float* lse;
+  float* o32;
 };
 
 // kPos: may a query at position qp see a key at position kp?  In 64 bits,
@@ -225,6 +239,7 @@ constexpr int kBK16 = 80;             // keys per KV tile
 constexpr int kThreads16 = 384;       // producer + two consumer warpgroups
 constexpr int kBox = 64;              // columns per TMA box: 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Stages of the K/V ring: what fits in 227 KB beside the 128-row Q tile
 // (D = 256: 64 KB of Q and 2 x 80 KB of K and V, 230,456 bytes in all).
@@ -251,18 +266,9 @@ struct Bf16Params {
   const int* pos;                     // kPos only, as in Params
   const int* kb;
   const int* qb;
+  float* lse;                         // as in Params, or null
+  float* o32;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // cap * log2(e) * tanh(s / cap) for the raw dot product q.k, s = dot *
 // scale: with u = 2^(dot * k) = e^(2 s / cap) (k = 2 log2(e) scale / cap),
@@ -276,202 +282,6 @@ __device__ __forceinline__ float softcap_log2(float dot, float k, float sm) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) r = fmaf(r, fmaf(-y, r, 1.f), r);
   return fmaf(r, -2.f * sm, sm);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also expects `bytes` of TMA transfers to complete.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor of a tile in the 128-byte swizzle that
-// TMA writes: start address, leading and stride byte offsets (16-byte
-// units), layout type 1 (128B swizzle) in bits 62-63.  K-major operands
-// ignore the leading offset; the stride offset steps 8 rows (1024 bytes).
-// For the MN-major V the leading offset steps between 64-column boxes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma accumulators
-// between the asynchronous product's start and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d (+)= A.B for one m64n80k16 step, A and B from shared memory (K-major
-// both); acc == 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39"
-      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d += A.B for one m64n64k16 step: A (bf16) from registers, B from shared
-// memory MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A.B for one m64n128k16 step: A (bf16) from registers, B from shared
-// memory MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A.B for one m64n256k16 step: A (bf16) from registers, B from shared
-// memory MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs(float (&d)[128],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 template <int D, bool kPos>
@@ -591,12 +401,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kd = 0; kd < D; kd += 16)
-          wgmma_ss_n80(sc,
-                       sw128_desc(qa + (kd / kBox) * QBOX + (kd % kBox) * 2,
-                                  16, 1024),
-                       sw128_desc(ks + (kd / kBox) * TBOX + (kd % kBox) * 2,
-                                  16, 1024),
-                       kd > 0);
+          wgmma_ss(sc,
+                   sw128_desc(qa + (kd / kBox) * QBOX + (kd % kBox) * 2,
+                              16, 1024),
+                   sw128_desc(ks + (kd / kBox) * TBOX + (kd % kBox) * 2,
+                              16, 1024),
+                   kd > 0);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(sc);
@@ -696,8 +506,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       ++it;
     }
 
-    const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-    const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+    const float ls0 = quad_sum(l0), ls1 = quad_sum(l1);
+    const float inv0 = 1.f / fmaxf(ls0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(ls1, 1e-30f);
     __nv_bfloat16* og = (__nv_bfloat16*)p.o + b * p.o_b + h * p.o_h;
 #pragma unroll
     for (int i = 0; i < D / 2; i += 4) {
@@ -708,6 +519,28 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row1 < p.Sq)
         *reinterpret_cast<__nv_bfloat162*>(og + row1 * p.o_s + d) =
             __floats2bfloat162_rn(o[i + 2] * inv1, o[i + 3] * inv1);
+    }
+    // for the backward: the logsumexp m + ln(l) of each row's scores (in
+    // natural-log units: m is in log2 units here) and the output before
+    // its rounding to bf16
+    if (p.lse != nullptr && t == 0) {
+      if (row0 < p.Sq)
+        p.lse[(size_t)bh * p.Sq + row0] = (m0 + log2f(ls0)) * kLn2;
+      if (row1 < p.Sq)
+        p.lse[(size_t)bh * p.Sq + row1] = (m1 + log2f(ls1)) * kLn2;
+    }
+    if (p.o32 != nullptr) {
+      float* o32 = p.o32 + ((size_t)b * p.Sq * p.H + h) * D;
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 4) {
+        const int d = 2 * i + 2 * t;
+        if (row0 < p.Sq)
+          *reinterpret_cast<float2*>(o32 + (size_t)row0 * p.H * D + d) =
+              make_float2(o[i] * inv0, o[i + 1] * inv0);
+        if (row1 < p.Sq)
+          *reinterpret_cast<float2*>(o32 + (size_t)row1 * p.H * D + d) =
+              make_float2(o[i + 2] * inv1, o[i + 3] * inv1);
+      }
     }
   }
 }
@@ -840,55 +673,6 @@ int launch(Kernel kernel, int threads, size_t smem, const Params& p, int B,
   return (int)cudaGetLastError();
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
-// library needs no -lcuda.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map {D, S, heads, B} of a [B, S, heads, D] bf16 view (strides in
-// elements, D contiguous) with a box of `rows` positions by 64 columns of
-// one (b, head), 128-byte swizzled; positions past S read as zeros.  The
-// stride of an axis of length 1 is never used: it is replaced by D so that
-// TMA's rule (a positive multiple of 16 bytes) holds for any view.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
-                int S, int heads, int B, int64_t s_stride, int64_t h_stride,
-                int64_t b_stride, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {
-      2 * (cuuint64_t)(S > 1 ? s_stride : D),
-      2 * (cuuint64_t)(heads > 1 ? h_stride : D),
-      2 * (cuuint64_t)(B > 1 ? b_stride : D)};
-  const cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool kPos>
 int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   const EncodeTiled encode = tensor_map_encoder();
@@ -910,6 +694,7 @@ int launch_bf16(const Params& p, int B, cudaStream_t stream) {
   bp.score_mul = (bp.softcap ? p.softcap : p.scale) * kLog2e;
   bp.tanh_mul = bp.softcap ? 2.f * kLog2e * p.scale / p.softcap : 0.f;
   bp.pos = p.pos; bp.kb = p.kb; bp.qb = p.qb;
+  bp.lse = p.lse; bp.o32 = p.o32;
   const size_t smem = bf16_smem_bytes<D>();
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D, kPos>,
@@ -944,6 +729,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.scale = scale; p.softcap = softcap;
   p.causal = causal; p.window = window;
   p.pos = nullptr; p.kb = nullptr; p.qb = nullptr;
+  p.lse = nullptr; p.o32 = nullptr;
   return p;
 }
 
@@ -955,6 +741,24 @@ int launch_any(const Params& p, int B, int D, int bf16, cudaStream_t s) {
     case 256: return launch_d<256, kPos>(p, B, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// kPos: the tiles' position bounds (two small launches), then the kernel.
+int launch_pos(Params p, int B, int D, int dtype_bf16, const void* positions,
+               void* bounds, cudaStream_t s) {
+  const int tile = dtype_bf16 ? kBK16 : kBK32;
+  const int nkt = (p.Sk + tile - 1) / tile, nqg = (p.Sq + 63) / 64;
+  int* kb = (int*)bounds;
+  p.pos = (const int*)positions;
+  p.kb = kb;
+  p.qb = kb + 2 * nkt;
+  pos_bounds_kernel<<<(nkt + 127) / 128, 128, 0, s>>>(p.pos, p.Sk, tile, nkt,
+                                                      kb);
+  pos_bounds_kernel<<<(nqg + 127) / 128, 128, 0, s>>>(p.pos, p.Sq, 64, nqg,
+                                                      kb + 2 * nkt);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_any<true>(p, B, D, dtype_bf16, s);
 }
 
 }  // namespace
@@ -985,18 +789,29 @@ extern "C" int flash_attention_pos_launch(
   if (Sq != Sk) return (int)cudaErrorInvalidValue;
   Params p = make_params(q, k, v, o, H, KV, Sq, Sk, strides, scale, softcap,
                          causal, window);
+  return launch_pos(p, B, D, dtype_bf16, positions, bounds,
+                    (cudaStream_t)stream);
+}
+
+// The bf16 forward for a call that autograd records: as
+// flash_attention_launch (positions null) or flash_attention_pos_launch,
+// and also each row's logsumexp of its scores into lse (fp32 [B, H, Sq],
+// natural-log units, in the scaled and capped scores' domain) and the
+// output before its rounding to bf16 into o32 (fp32 [B, Sq, H, D],
+// contiguous), which the backward reads.  fp32 returns
+// cudaErrorInvalidValue (its backward computes its own statistics).
+extern "C" int flash_attention_stats_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KV, int Sq, int Sk, int D, const int64_t* strides, float scale,
+    float softcap, int causal, int window, const void* positions,
+    void* bounds, float* lse, float* o32, void* stream) {
+  if (lse == nullptr || o32 == nullptr) return (int)cudaErrorInvalidValue;
+  Params p = make_params(q, k, v, o, H, KV, Sq, Sk, strides, scale, softcap,
+                         causal, window);
+  p.lse = lse;
+  p.o32 = o32;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int tile = dtype_bf16 ? kBK16 : kBK32;
-  const int nkt = (Sk + tile - 1) / tile, nqg = (Sq + 63) / 64;
-  int* kb = (int*)bounds;
-  p.pos = (const int*)positions;
-  p.kb = kb;
-  p.qb = kb + 2 * nkt;
-  pos_bounds_kernel<<<(nkt + 127) / 128, 128, 0, s>>>(p.pos, Sk, tile, nkt,
-                                                      kb);
-  pos_bounds_kernel<<<(nqg + 127) / 128, 128, 0, s>>>(p.pos, Sq, 64, nqg,
-                                                      kb + 2 * nkt);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_any<true>(p, B, D, dtype_bf16, s);
+  if (positions == nullptr) return launch_any<false>(p, B, D, 1, s);
+  if (Sq != Sk) return (int)cudaErrorInvalidValue;
+  return launch_pos(p, B, D, 1, positions, bounds, s);
 }

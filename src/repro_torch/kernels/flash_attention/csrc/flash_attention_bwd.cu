@@ -13,73 +13,78 @@
 // What it computes, for each (b, query head h, query row i, key j) that the
 // masks let through, with s_ij the forward's score (q_i . k_j * scale, then
 // cap * tanh(s / cap)):
-//   m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i)          (row statistics)
-//   delta_i = sum_j P_ij (dO_i . v_j)  (= dO_i . O_i; fp32 reads it so from
-//                                      the fp32 output, bf16 from fp32
-//                                      products: the bf16 output's
-//                                      rounding would land whole on rows
-//                                      where dS cancels)
-//   P_ij = exp(s_ij - m_i) / l_i
-//   dV_j += round_v(exp(s_ij - m_i)) / l_i * dO_i   (p rounded to v's dtype,
-//                                                    as the forward's p.v)
+//   lse_i = log sum_j exp(s_ij)                            (row statistics)
+//   delta_i = sum_j P_ij (dO_i . v_j)  (= dO_i . O_i)
+//   P_ij = exp(s_ij - lse_i)
+//   dV_j += P_ij dO_i
 //   dS_ij = P_ij (dO_i . v_j - delta_i) (1 - (s_ij / cap)^2 with a cap)
 //   dQ_i += scale dS_ij k_j,  dK_j += scale dS_ij q_i
 // with dK and dV summed over the G = H / KV query heads that read KV head
 // h / G.  Statistics, delta and every sum are fp32; the outputs are written
-// once, in the inputs' dtype.  Up to the bf16 operands of the tensor-core
-// path (below), this is the exact gradient of the forward's function.  The
-// plain version's autograd in bf16 adds two roundings of its own (the
-// gradient of p comes back through p's cast to bf16, so dO . v / l is
-// rounded to bf16, and the rounding's residue lands on each row's argmax
-// through amax's gradient); the kernel keeps neither, and rounds P / l
-// once more than it does (a bf16 operand of dV).
+// once, in the inputs' dtype.
 //
 // What bounds it on an H100 SXM: operations.  Five products of
 // 2 * live_pairs * D FLOP each; gemma-2b's training shape (B 1, S 4096,
 // 8 query heads on 1 KV head, D 256, causal) is 1.72e11 FLOP, 0.174 ms at
-// the 989 TFLOP/s of the bf16 tensor cores.  The paths below compute eight
-// products (fp32: the scores three times, dO.V^T twice) and nine (bf16:
-// dO.V^T three times, for delta), and neither uses wgmma or TMA: a first
-// design that is right, far from that bound.
+// the 989 TFLOP/s of the bf16 tensor cores.
 //
-// Design, four launches on one stream (five with masks by position):
-//   pos_bounds (positions only)  least and greatest position of each
-//       32-key chunk and 64-row q tile, so tiles that no pair can pass are
-//       skipped as in the forward.
+// bf16 (wgmma fed by TMA, warp-specialised; three launches, a fourth for
+// head splits, two more with masks by position):
+//   The forward recorded for autograd keeps lse and its fp32 output O
+//   (flash_attention_stats_launch), so nothing here recomputes the row
+//   statistics.  delta comes from that fp32 output: taken from the bf16
+//   output, O's rounding lands whole on rows where dS cancels (dq's worst
+//   row read 0.28 from the plain version at global_capped on an NVIDIA
+//   H100 80GB HBM3 at 700.00 W; a float64 emulation gives 0.034 with the
+//   fp32 output, 0.110 with the bf16 one: tests/test_torch_train.py).
+//   flash_bwd_delta  delta = rowsum(dO o O), one warp a row (memory-bound).
+//   flash_bwd_dq_wgmma  one block per (b, head, 128 q rows), the forward's
+//     layout: a producer warp keeps K and V tiles (48 keys at D = 256, else
+//     64) in flight through a ring of mbarrier stages; two consumer
+//     warpgroups own 64 q rows each: S and dP by wgmma (Q, dO and K, V
+//     K-major from shared memory), dS in registers, dQ += dS K with dS as
+//     wgmma's register operand and K MN-major; three products.
+//   flash_bwd_dkdv_wgmma  one block per (b, KV head, 64 keys, head split):
+//     K and V resident, Q and dO tiles through the ring with each row's
+//     lse and delta; the consumer warpgroups split by role, S^T = K Q^T
+//     and dV += P^T dO on one, dP^T = V dO^T and dK += dS^T Q on the
+//     other, P f (the softcap factor) handed over through shared memory;
+//     four products.  dK, dV accumulators stay in registers (128 a thread
+//     at D = 256).  One split writes dK and dV once; several (MQA's few
+//     key tiles would leave most SMs idle: gemma-2b has 64 key tiles for
+//     132 SMs) write fp32 partials that
+//   flash_bwd_reduce_kernel  sums in split order.
+//   Seven products in all: dq recomputes S and dP rather than take dQ by
+//   atomics, so two launches on the same inputs give the same bits.
+//   Blocks run every head and split of the heaviest causal tile first
+//   (one head's tiles after another's left heavy blocks for the end:
+//   gemma-2b's backward 25% slower).  Each element loop branches on the
+//   softcap outside the unrolled loop (a branch inside it made dkdv 23-48%
+//   slower).  On an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+//   6, row 3b) gemma-2b's backward took 0.522 ms, a third of the
+//   five-product bound's rate, where the mma.sync design it replaces took
+//   4.05 ms.
+//
+// fp32 (FMAs; three launches, a fourth for head splits, two more with
+// positions), as before:
+//   pos_bounds  least and greatest position of each 32-key chunk and 64-row
+//     q tile, so tiles that no pair can pass are skipped.
 //   stats  one block per (b, h, 64 q rows): m, l by the forward's online
-//       recurrence over the key tiles, and delta (bf16: by the same
-//       recurrence over dO.V^T); fp32 to scratch.
-//   dq  one block per (b, h, 64 q rows), looping over the live key tiles:
-//       S and dO.V^T for the tile, dS into shared memory, dQ += dS K in
-//       registers.  Written once.
-//   dkdv  one block per (b, KV head, key tile, head split), looping over
-//       its query heads and the live 64-row q tiles: S and dO.V^T again,
-//       P and dS into shared memory, dV += P^T dO and dK += dS^T Q in
-//       registers.  No atomics: with one split the block writes dK and dV
-//       once; with several (MQA's few key tiles would leave most SMs idle:
-//       gemma-2b has 128 key tiles of 32 for 132 SMs) each split writes
-//       fp32 partials and flash_bwd_reduce sums them in split order.  So
-//       two launches on the same inputs give the same bits.
-// Two paths, one for each dtype (the wrapper hands both views that 16-byte
-// copies can read):
-//   bf16: the tensor cores, mma.sync m16n8k16 (bf16 operands, fp32 sums)
-//     with operands from shared memory by ldmatrix (.trans for the
-//     transposed ones: K in dQ, P^T, dS^T, dO and Q in dK and dV), rows
-//     padded by 16 bytes so an ldmatrix hits eight bank groups.  8 warps
-//     (stats: 4), 64 q rows a tile, 64 keys a tile in stats and dq,
-//     8192 / D keys in dkdv (64 accumulators a thread for dK and dV at
-//     every D).  P and dS are rounded to bf16 as operands.
-//   fp32: plain fp32 FMAs, tiles as fp32 rows padded by 4 floats (16-byte
-//     float4 reads, a quarter warp's rows on distinct banks), 32-key
-//     tiles, 256 threads each owning a 2 x 4 patch of the score tile and a
-//     4-row (dq) or 2-key (dk, dv) by D / 16-column patch of its outputs;
-//     dS stays fp32.  At D = 256 a dkdv block takes 213.8 KB of shared
-//     memory, one per SM.
+//     recurrence and delta = dO . O from the fp32 output; fp32 to scratch.
+//   dq  one block per (b, h, 64 q rows), looping over the live 32-key
+//     tiles: S and dO.V^T, dS in shared memory, dQ += dS K in registers.
+//   dkdv  one block per (b, KV head, 32-key tile, head split), looping over
+//     its query heads and live q tiles; fp32 partials for several splits.
+//   Tiles as fp32 rows padded by 4 floats (16-byte float4 reads), 256
+//   threads each owning a 2 x 4 patch of the score tile; at D = 256 a dkdv
+//   block takes 213.8 KB of shared memory, one per SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <climits>
 #include <cstdint>
+
+#include "hopper.cuh"                 // TMA, mbarriers, wgmma
 
 namespace {
 
@@ -112,6 +117,13 @@ struct BwdParams {
   const int* pos;                     // positions [S], or null
   const int* kb;                      // (min, max) position per key tile
   const int* qb;                      // (min, max) position per q tile
+  // bf16 (wgmma) only
+  const int* kbd;                     // the same per key tile of dq
+  const float* o32;                   // the forward's fp32 output
+  const float* lse;                   // its rows' logsumexp [B, H, Sq]
+  float* delta;                       // scratch [B, H, Sq]
+  float score_mul;                    // (softcap ? cap : scale) * log2(e)
+  float tanh_mul;                     // 2 log2(e) scale / cap
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -598,495 +610,695 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
   }
 }
 
-// dK, dV = the sum of the splits' partials, in split order, in T.
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// dK, dV = the sum of the splits' partials, in split order, in T (dK and
+// dV are the wrapper's own contiguous tensors): four columns a thread.
 template <typename T, int D>
 __global__ void flash_bwd_reduce_kernel(const BwdParams p) {
   const size_t n = (size_t)p.B * p.Sk * p.KV * D;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int d = (int)(idx % D);
-    const size_t row = idx / D;
+  const float4* part = reinterpret_cast<const float4*>(p.part);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int d = (int)(4 * i % D);
+    const size_t row = 4 * i / D;
     const int hk = (int)(row % p.KV);
     const int key = (int)((row / p.KV) % p.Sk);
     const int b = (int)(row / ((size_t)p.KV * p.Sk));
-    float sk = 0.f, sv = 0.f;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
     for (int s = 0; s < p.nsplit; ++s) {
-      sk += p.part[2 * (size_t)s * n + idx];
-      sv += p.part[(2 * (size_t)s + 1) * n + idx];
+      add4(sk, part[2 * (size_t)s * (n / 4) + i]);
+      add4(sv, part[(2 * (size_t)s + 1) * (n / 4) + i]);
     }
-    ((T*)p.dk)[b * p.dk_b + key * p.dk_s + hk * p.dk_h + d] = from_f<T>(sk);
-    ((T*)p.dv)[b * p.dv_b + key * p.dv_s + hk * p.dv_h + d] = from_f<T>(sv);
+    store4((T*)p.dk + b * p.dk_b + key * p.dk_s + hk * p.dk_h + d, sk);
+    store4((T*)p.dv + b * p.dv_b + key * p.dv_s + hk * p.dv_h + d, sv);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: mma.sync m16n8k16, bf16 operands from shared
-// memory by ldmatrix, fp32 accumulators in registers.  The same three
-// kernels in the same order; S and dO.V^T of a tile, P and dS go through
-// shared memory as bf16 (dS rounded to bf16 for the dq and dk products,
-// where the fp32 kernels keep it in fp32).
+// bf16: wgmma fed by TMA, warp-specialised.  After the delta pre-pass,
+// dq (one block per 128 q rows of one head) and dkdv (one block per 64 keys
+// of one KV head and head split); a reduce sums MQA's head splits.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kRowPad = 8;            // bf16 of padding per shared row: the
-                                      // 8 rows of an ldmatrix hit 8 bank
-                                      // groups
-constexpr int kMmaBK = 64;            // keys per tile in stats and dq
-constexpr int kStatsThreads = 128;    // 4 warps, 16 q rows each
+constexpr int kT = 64;                // rows of every tile, q and keys
+constexpr int kWThreads = 384;        // producer + two consumer warpgroups
+constexpr uint32_t kBoxBytes = kT * 128;   // one TMA box: 64 rows x 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Keys per block of the dk/dv kernel: 64 accumulators a thread for dK and
-// dV together at every D (32, 64, 128 keys).
+// The dkdv ring's stages: what fits in 227 KB beside the resident K and V
+// (D = 256: 64 KB resident, 2 x 64 KB of Q and dO, 32 KB of P f).
 template <int D>
-__host__ __device__ constexpr int mma_key_tile() { return 8192 / D; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
+__host__ __device__ constexpr int dkdv_stages() {
+  return D == 256 ? 2 : D == 128 ? 4 : 8;
 }
 
-// d += a b for one 16 x 8 x 16 tile (a: 4 registers of bf16 pairs, rows
-// g and g + 8, k pairs 2t and 2t + 8; b: k pairs 2t and 2t + 8 of column g;
-// d: rows g and g + 8, columns 2t, 2t + 1; g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lane i gives the address of
-// row i % 8 of matrix i / 8; r[j] is this lane's pair of matrix j (trans:
-// of its transpose).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row))
-      : "memory");
-}
-
-// The four ldmatrix layouts, as the row this lane addresses at (r0, c0):
-// A (16 x 16, m x k) from [m][k] storage; A from [k][m] storage (trans);
-// B (two n-tiles of 8, k 16) from [n][k] storage; B from [k][n] (trans).
-__device__ __forceinline__ const bf16* a_rows(const bf16* base, int ld,
-                                              int m0, int k0, int lane) {
-  return base + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 +
-         (lane >> 4) * 8;
-}
-__device__ __forceinline__ const bf16* at_rows(const bf16* base, int ld,
-                                               int m0, int k0, int lane) {
-  return base + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ const bf16* b_rows(const bf16* base, int ld,
-                                              int n0, int k0, int lane) {
-  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
-         ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ const bf16* bt_rows(const bf16* base, int ld,
-                                               int n0, int k0, int lane) {
-  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
-         (lane >> 4) * 8;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + rows) of one (b, head) into bf16 shared rows of
-// stride D + kRowPad, 16 bytes a copy (the wrapper checks alignment); rows
-// past S read as zeros.
+// dkdv's shared memory: resident K and V, the ring (Q and dO tiles), its
+// row statistics (lse, delta: 64 + 64 floats a stage), the two buffers that
+// carry P f from warpgroup 0 to warpgroup 1 (16 KB each), the mbarriers,
+// and slack to align the tiles to 1024 bytes (the 128-byte swizzle's
+// period).
 template <int D>
-__device__ __forceinline__ void load_rows16(bf16* dst, const bf16* base,
-                                            int64_t s_stride, int row0,
-                                            int rows, int S, int threads) {
-  constexpr int V = D / 8;
-  for (int idx = threadIdx.x; idx < rows * V; idx += threads) {
-    const int r = idx / V, c = idx % V, s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(base + (int64_t)s * s_stride +
-                                            8 * c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kRowPad) + 8 * c) = val;
+constexpr size_t dkdv_smem_bytes() {
+  return 1024 + 2 * 128 * (size_t)D * (1 + dkdv_stages<D>()) +
+         512 * dkdv_stages<D>() + 2 * 16384 +
+         8 * (1 + 2 * dkdv_stages<D>() + 4);
+}
+
+// dq's key tiles and stages: 128 resident q rows of Q and dO (128 KB at
+// D = 256) leave room for two stages of 48-key K and V tiles (96 KB).
+template <int D>
+__host__ __device__ constexpr int dq_key_tile() {
+  return D == 256 ? 48 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D == 256 ? 2 : D == 128 ? 4 : 8;
+}
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 1024 + 2 * (size_t)D * (2 * 128 + 2 * dq_stages<D>() *
+                                 dq_key_tile<D>()) +
+         8 * (1 + 2 * dq_stages<D>());
+}
+
+// May the 64 q rows of chunk qt and the bk keys of tile kt hold a pair
+// that passes the masks?  With positions, p.qb holds each 64-row q chunk's
+// least and greatest position and kb each bk-key tile's.
+__device__ __forceinline__ bool w_live(const BwdParams& p, int qt, int kt,
+                                       int bk, const int* kb) {
+  const int q0 = qt * kT, k0 = kt * bk;
+  if (q0 >= p.Sq || k0 >= p.Sk) return false;
+  bool live = true;
+  if (p.pos) {
+    const long long klo = kb[2 * kt], khi = kb[2 * kt + 1];
+    const long long qlo = p.qb[2 * qt], qhi = p.qb[2 * qt + 1];
+    if (p.causal) live = klo <= qhi;
+    if (p.window) live = live && khi > qlo - p.window;
+  } else {
+    const long long qhi = min(q0 + kT, p.Sq) - 1;
+    const long long khi = min(k0 + bk, p.Sk) - 1;
+    if (p.causal) live = k0 <= qhi;
+    if (p.window) live = live && khi > q0 - p.window;
+  }
+  return live;
+}
+
+// Does that pair of tiles need element masks: a ragged end, or some pair
+// that fails the causal or window mask?
+__device__ __forceinline__ bool w_edge(const BwdParams& p, int qt, int kt,
+                                       int bk, const int* kb) {
+  const long long q0 = qt * kT, k0 = kt * bk;
+  if (q0 + kT > p.Sq || k0 + bk > p.Sk) return true;
+  long long qlo = q0, qhi = q0 + kT - 1, klo = k0, khi = k0 + bk - 1;
+  if (p.pos) {
+    klo = kb[2 * kt]; khi = kb[2 * kt + 1];
+    qlo = p.qb[2 * qt]; qhi = p.qb[2 * qt + 1];
+  }
+  bool edge = false;
+  if (p.causal) edge = khi > qlo;
+  if (p.window) edge = edge || klo <= qhi - p.window;
+  return edge;
+}
+
+// May query qi see key kj (both in range)?
+__device__ __forceinline__ bool w_pair_ok(const BwdParams& p, int qi,
+                                          int kj) {
+  if (qi >= p.Sq || kj >= p.Sk) return false;
+  long long qp = qi, kp = kj;
+  if (p.pos) {
+    qp = p.pos[qi];
+    kp = p.pos[kj];
+  }
+  bool ok = true;
+  if (p.causal) ok = kp <= qp;
+  if (p.window) ok = ok && kp > qp - p.window;
+  return ok;
+}
+
+// The forward's capped score in log2 units from a dot product, and dS's
+// softcap factor 1 - tanh^2 = 4 r (1 - r), by the forward's operations
+// (softcap_log2 in flash_attention.cu), so that P = 2^(s - lse) meets the
+// forward's statistics.  Without a cap the score is dot * score_mul and
+// the factor 1; callers branch on the cap outside their unrolled loops.
+__device__ __forceinline__ float capped_log2(const BwdParams& p, float dot,
+                                             float* f) {
+  const float y = fminf(1.f + ex2(dot * p.tanh_mul), 1e30f);
+  float r = __int_as_float(0x7EF311C3 - __float_as_int(y));
+#pragma unroll
+  for (int n = 0; n < 3; ++n) r = fmaf(r, fmaf(-y, r, 1.f), r);
+  *f = 4.f * r * (1.f - r);
+  return fmaf(r, -2.f * p.score_mul, p.score_mul);
+}
+
+// bf16 A operands of wgmma from an accumulator: chunks 2 kk and 2 kk + 1 of
+// a 64 x N result are the 16 columns of k-step kk.
+template <int N>
+__device__ __forceinline__ void to_a(const float (&x)[N],
+                                     uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// acc[j] += X[m0 .. m0 + 16) . Y[n0 + 8 j ..)^T over D, for NT n-tiles
-// (NT even): the score-like products Q K^T and dO V^T, both operands with
-// D contiguous.
-template <int D, int NT>
-__device__ __forceinline__ void rows_dot_rows(const bf16* X, const bf16* Y,
-                                              int m0, int n0, int lane,
-                                              float (&acc)[NT][4]) {
-  constexpr int L = D + kRowPad;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < D; k += 16) {
-    uint32_t a[4];
-    ldsm_x4(a, a_rows(X, L, m0, k, lane));
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, b_rows(Y, L, n0 + 8 * j, k, lane));
-      mma_bf16(acc[j], a, b[0], b[1]);
-      mma_bf16(acc[j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
+// dK and dV: one block per (b, KV head, 64 keys, head split).  K and V stay
+// resident; the ring streams 64-row tiles of Q and dO (every live q tile of
+// each query head of the split).  The two consumer warpgroups split the
+// work by role, so neither waits on the other's products:
+//   warpgroup 0: S^T = K Q^T by wgmma (both K-major); P = 2^(s - lse) in
+//     registers, masked; P f (f: the softcap factor 1 - tanh^2, else 1) to
+//     shared memory for warpgroup 1; dV += P^T dO with P^T (bf16) from
+//     registers and dO MN-major.
+//   warpgroup 1: dP^T = V dO^T; dS = P f (dP - delta) with warpgroup 0's
+//     P f; dK += dS^T Q, dS^T (bf16) from registers, Q MN-major.
+// P f goes through two 16 KB buffers, each thread's 32 values at the slots
+// its twin in the other warpgroup reads (the two hold the same elements of
+// the 64 x 64 tile), with mbarriers for "full" and "empty".  dV and dK (64
+// x D: D / 2 floats a thread) stay in registers for the whole loop.
 template <int D>
-__global__ void __launch_bounds__(kStatsThreads, 1)
-flash_bwd_stats_mma(const BwdParams p) {
-  constexpr int L = D + kRowPad;
-  constexpr int NT = kMmaBK / 8;
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const BwdParams p) {
+  constexpr int NST = dkdv_stages<D>();
+  constexpr uint32_t TB = 128 * D;          // one 64-row tile of D columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [kBQ][L]
-  bf16* dOs = Qs + kBQ * L;                         // [kBQ][L]
-  bf16* Ks = dOs + kBQ * L;                         // [kMmaBK][L]
-  bf16* Vs = Ks + kMmaBK * L;                       // [kMmaBK][L]
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t sK = (base + 1023) & ~1023u;
+  const uint32_t sV = sK + TB;
+  const uint32_t sT = sV + TB;              // stage s: Q at sT + 2 s TB,
+                                            // dO at sT + (2 s + 1) TB
+  const uint32_t sX = sT + 2 * NST * TB;    // P f: 2 buffers of 16 KB
+  const uint32_t sSt = sX + 2 * 16384;      // lse, delta: 512 B a stage
+  const uint32_t bar_r = sSt + 512 * NST;
+  const uint32_t full = bar_r + 8;          // stage s at + 8 s
+  const uint32_t empty = full + 8 * NST;
+  const uint32_t x_full = empty + 8 * NST;  // P f buffer x at + 8 x
+  const uint32_t x_empty = x_full + 16;
+  float* st_gen = reinterpret_cast<float*>(smem_raw + (sSt - base));
+  float4* x_gen = reinterpret_cast<float4*>(smem_raw + (sX - base));
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.KV);
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* kg = (const bf16*)p.k + b * p.k_b + hk * p.k_h;
-  const bf16* vg = (const bf16*)p.v + b * p.v_b + hk * p.v_h;
-  load_rows16<D>(Qs, (const bf16*)p.q + b * p.q_b + h * p.q_h, p.q_s, q0,
-                 kBQ, p.Sq, kStatsThreads);
-  load_rows16<D>(dOs, (const bf16*)p.dout + b * p.do_b + h * p.do_h, p.do_s,
-                 q0, kBQ, p.Sq, kStatsThreads);
-
-  // m and l by the forward's online recurrence; a = sum_j exp(s - m) dp
-  // by the same one, so delta = a / l = sum_j P_ij (dO_i . v_j) from the
-  // fp32 products the dq and dk kernels use (rowsum(dO o O) would carry
-  // the bf16 output's rounding, whole where dS cancels)
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < p.Sk; k0 += kMmaBK) {
-    if (!tile_live(p, qt, k0, kMmaBK)) continue;
-    __syncthreads();
-    load_rows16<D>(Ks, kg, p.k_s, k0, kMmaBK, p.Sk, kStatsThreads);
-    load_rows16<D>(Vs, vg, p.v_s, k0, kMmaBK, p.Sk, kStatsThreads);
-    __syncthreads();
-    float s[NT][4], dp[NT][4];
-    rows_dot_rows<D, NT>(Qs, Ks, 16 * warp, 0, lane, s);
-    rows_dot_rows<D, NT>(dOs, Vs, 16 * warp, 0, lane, dp);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = q0 + 16 * warp + g + 8 * half;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float tt;
-          float& v = s[j][2 * half + e];
-          v = pair_ok(p, i, k0 + 8 * j + 2 * t + e) ? score(p, v, &tt)
-                                                     : kNegInf;
-          mx = fmaxf(mx, v);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[half], mx);
-      float sum = 0.f, dsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float w = expf(s[j][2 * half + e] - mn);
-          sum += w;
-          dsum = fmaf(w, dp[j][2 * half + e], dsum);
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-      const float r = expf(m[half] - mn);
-      l[half] = l[half] * r + sum;
-      a[half] = a[half] * r + dsum;
-      m[half] = mn;
-    }
-  }
-  if (t == 0) {
-    const size_t n = (size_t)p.B * p.H * p.Sq;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = q0 + 16 * warp + g + 8 * half;
-      if (i < p.Sq) {
-        const size_t at = (size_t)bh * p.Sq + i;
-        p.stats[at] = m[half];
-        p.stats[n + at] = l[half];
-        p.stats[2 * n + at] = l[half] > 0.f ? a[half] / l[half] : 0.f;
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_mma(const BwdParams p) {
-  constexpr int L = D + kRowPad, LS = kMmaBK + kRowPad;
-  constexpr int SNT = kMmaBK / 16;    // score n-tiles a warp computes: 4
-  constexpr int QNT = D / 16;         // dq n-tiles a warp owns: D / 2 cols
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [kBQ][L]
-  bf16* dOs = Qs + kBQ * L;                         // [kBQ][L]
-  bf16* Ks = dOs + kBQ * L;                         // [kMmaBK][L]
-  bf16* Vs = Ks + kMmaBK * L;                       // [kMmaBK][L]
-  bf16* dSs = Vs + kMmaBK * L;                      // [kBQ][LS]
-  float* st = reinterpret_cast<float*>(dSs + kBQ * LS);
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H, hk = h / (p.H / p.KV);
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;   // q rows 16 wm; half wn
-  const bf16* kg = (const bf16*)p.k + b * p.k_b + hk * p.k_h;
-  const bf16* vg = (const bf16*)p.v + b * p.v_b + hk * p.v_h;
-  load_rows16<D>(Qs, (const bf16*)p.q + b * p.q_b + h * p.q_h, p.q_s, q0,
-                 kBQ, p.Sq, kThreads);
-  load_rows16<D>(dOs, (const bf16*)p.dout + b * p.do_b + h * p.do_h, p.do_s,
-                 q0, kBQ, p.Sq, kThreads);
-  load_stats(p, bh, q0, st);
-
-  float acc[QNT][4];
-#pragma unroll
-  for (int j = 0; j < QNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int k0 = 0; k0 < p.Sk; k0 += kMmaBK) {
-    if (!tile_live(p, qt, k0, kMmaBK)) continue;
-    __syncthreads();
-    load_rows16<D>(Ks, kg, p.k_s, k0, kMmaBK, p.Sk, kThreads);
-    load_rows16<D>(Vs, vg, p.v_s, k0, kMmaBK, p.Sk, kThreads);
-    __syncthreads();
-    float s[SNT][4], dp[SNT][4];
-    rows_dot_rows<D, SNT>(Qs, Ks, 16 * wm, 8 * SNT * wn, lane, s);
-    rows_dot_rows<D, SNT>(dOs, Vs, 16 * wm, 8 * SNT * wn, lane, dp);
-#pragma unroll
-    for (int j = 0; j < SNT; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = 16 * wm + g + 8 * half;
-        const int c = 8 * (SNT * wn + j) + 2 * t;
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float pn;
-          entry<bf16>(p, pair_ok(p, q0 + r, k0 + c + e), s[j][2 * half + e],
-                      dp[j][2 * half + e], st[r], st[kBQ + r],
-                      st[2 * kBQ + r], &pn, &ds[e]);
-        }
-        *reinterpret_cast<uint32_t*>(dSs + r * LS + c) = pack(ds[0], ds[1]);
-      }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, a_rows(dSs, LS, 16 * wm, kk, lane));
-#pragma unroll
-      for (int j = 0; j < QNT; j += 2) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, bt_rows(Ks, L, (D / 2) * wn + 8 * j, kk, lane));
-        mma_bf16(acc[j], a, bb[0], bb[1]);
-        mma_bf16(acc[j + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + 16 * wm + g + 8 * half;
-    if (row >= p.Sq) continue;
-    bf16* out = (bf16*)p.dq + b * p.dq_b + h * p.dq_h + row * p.dq_s;
-#pragma unroll
-    for (int j = 0; j < QNT; ++j) {
-      const int c = (D / 2) * wn + 8 * j + 2 * t;
-      *reinterpret_cast<uint32_t*>(out + c) =
-          pack(acc[j][2 * half] * p.scale, acc[j][2 * half + 1] * p.scale);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_mma(const BwdParams p) {
-  constexpr int BC = mma_key_tile<D>();
-  constexpr int L = D + kRowPad, LP = BC + kRowPad;
-  constexpr int MT = BC / 16;         // key m-tiles of dK, dV: 2, 4, 8
-  constexpr int DC = 64;              // columns a warp owns of each
-  constexpr int SNT = BC / 16;        // score n-tiles a warp computes
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);     // [BC][L]
-  bf16* Vs = Ks + BC * L;                           // [BC][L]
-  bf16* Qs = Vs + BC * L;                           // [kBQ][L]
-  bf16* dOs = Qs + kBQ * L;                         // [kBQ][L]
-  bf16* Ps = dOs + kBQ * L;                         // [kBQ][LP]
-  bf16* dSs = Ps + kBQ * LP;                        // [kBQ][LP]
-  float* st = reinterpret_cast<float*>(dSs + kBQ * LP);
-
-  const int kt = blockIdx.x;
   const int G = p.H / p.KV, per = G / p.nsplit;
-  const int split = blockIdx.y % p.nsplit;
-  const int bk = blockIdx.y / p.nsplit;
-  const int b = bk / p.KV, hk = bk % p.KV;
-  const int k0 = kt * BC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int am = warp % MT, ac = warp / MT;  // keys 16 am, columns DC ac
-  const int wm = warp & 3, wn = warp >> 2;   // score rows 16 wm; half wn
-  load_rows16<D>(Ks, (const bf16*)p.k + b * p.k_b + hk * p.k_h, p.k_s, k0,
-                 BC, p.Sk, kThreads);
-  load_rows16<D>(Vs, (const bf16*)p.v + b * p.v_b + hk * p.v_h, p.v_s, k0,
-                 BC, p.Sk, kThreads);
+  // every head and split of a key tile before the next, the heaviest
+  // causal tile first
+  const int kt = blockIdx.y;
+  const int split = blockIdx.x % p.nsplit;
+  const int b = blockIdx.x / p.nsplit / p.KV;
+  const int hk = blockIdx.x / p.nsplit % p.KV;
+  const int h0 = hk * G + split * per;
+  const int nq = (p.Sq + kT - 1) / kT;
+  // item n: q tile n % nq of query head h0 + n / nq
 
-  float dk[DC / 8][4], dv[DC / 8][4];
-#pragma unroll
-  for (int j = 0; j < DC / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_r, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);      // TMA bytes + the stats warp
+      mbar_init(empty + 8 * s, 8);          // lane 0 of each consumer warp
+    }
+    for (int x = 0; x < 2; ++x) {
+      mbar_init(x_full + 8 * x, 128);       // every thread of warpgroup 0
+      mbar_init(x_empty + 8 * x, 128);      // every thread of warpgroup 1
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int nq = (p.Sq + kBQ - 1) / kBQ;
-  for (int hh = 0; hh < per; ++hh) {
-    const int h = hk * G + split * per + hh;
-    const int bh = b * p.H + h;
-    const bf16* qg = (const bf16*)p.q + b * p.q_b + h * p.q_h;
-    const bf16* dg = (const bf16*)p.dout + b * p.do_b + h * p.do_h;
-    for (int qt = 0; qt < nq; ++qt) {
-      if (!tile_live(p, qt, k0, BC)) continue;
-      const int q0 = qt * kBQ;
-      __syncthreads();
-      load_rows16<D>(Qs, qg, p.q_s, q0, kBQ, p.Sq, kThreads);
-      load_rows16<D>(dOs, dg, p.do_s, q0, kBQ, p.Sq, kThreads);
-      load_stats(p, bh, q0, st);
-      __syncthreads();
-      float s[SNT][4], dp[SNT][4];
-      rows_dot_rows<D, SNT>(Qs, Ks, 16 * wm, 8 * SNT * wn, lane, s);
-      rows_dot_rows<D, SNT>(dOs, Vs, 16 * wm, 8 * SNT * wn, lane, dp);
-#pragma unroll
-      for (int j = 0; j < SNT; ++j)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = 16 * wm + g + 8 * half;
-          const int c = 8 * (SNT * wn + j) + 2 * t;
-          float pn[2], ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            entry<bf16>(p, pair_ok(p, q0 + r, k0 + c + e),
-                        s[j][2 * half + e], dp[j][2 * half + e], st[r],
-                        st[kBQ + r], st[2 * kBQ + r], &pn[e], &ds[e]);
-          *reinterpret_cast<uint32_t*>(Ps + r * LP + c) = pack(pn[0], pn[1]);
-          *reinterpret_cast<uint32_t*>(dSs + r * LP + c) =
-              pack(ds[0], ds[1]);
+  if (threadIdx.x < 128) {
+    // Producer: one thread starts every TMA load; a second warp writes
+    // each stage's row statistics (lse in log2 units, delta).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_r, 2 * TB);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sK + c * kBoxBytes, &tm_k, bar_r, 64 * c, kt * kT, hk, b);
+        tma_load(sV + c * kBoxBytes, &tm_v, bar_r, 64 * c, kt * kT, hk, b);
+      }
+      for (int n = 0, it = 0; n < per * nq; ++n) {
+        if (!w_live(p, n % nq, kt, kT, p.kb)) continue;
+        const int s = it % NST, round = it / NST;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * TB);
+        const uint32_t dst = sT + 2 * s * TB;
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(dst + c * kBoxBytes, &tm_q, full + 8 * s, 64 * c,
+                   n % nq * kT, h0 + n / nq, b);
+          tma_load(dst + TB + c * kBoxBytes, &tm_do, full + 8 * s, 64 * c,
+                   n % nq * kT, h0 + n / nq, b);
         }
-      __syncthreads();
+        ++it;
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      const int lane = threadIdx.x - 32;
+      for (int n = 0, it = 0; n < per * nq; ++n) {
+        if (!w_live(p, n % nq, kt, kT, p.kb)) continue;
+        const int s = it % NST, round = it / NST;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const size_t row0 = ((size_t)b * p.H + h0 + n / nq) * p.Sq;
+        float* st = st_gen + 128 * s;
 #pragma unroll
-      for (int kk = 0; kk < kBQ; kk += 16) {
-        uint32_t ap[4], as[4];
-        ldsm_x4_t(ap, at_rows(Ps, LP, 16 * am, kk, lane));
-        ldsm_x4_t(as, at_rows(dSs, LP, 16 * am, kk, lane));
-#pragma unroll
-        for (int j = 0; j < DC / 8; j += 2) {
-          uint32_t bo[4], bq[4];
-          ldsm_x4_t(bo, bt_rows(dOs, L, DC * ac + 8 * j, kk, lane));
-          mma_bf16(dv[j], ap, bo[0], bo[1]);
-          mma_bf16(dv[j + 1], ap, bo[2], bo[3]);
-          ldsm_x4_t(bq, bt_rows(Qs, L, DC * ac + 8 * j, kk, lane));
-          mma_bf16(dk[j], as, bq[0], bq[1]);
-          mma_bf16(dk[j + 1], as, bq[2], bq[3]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = lane + 32 * h, i = n % nq * kT + r;
+          st[r] = i < p.Sq ? p.lse[row0 + i] * kLog2e : 0.f;
+          st[kT + r] = i < p.Sq ? p.delta[row0 + i] : 0.f;
         }
+        mbar_arrive(full + 8 * s);
+        ++it;
       }
     }
+    return;
   }
 
-  const size_t n = (size_t)p.B * p.Sk * p.KV * D;
+  // Consumers: thread (warp, g, t) of warpgroup cw holds keys k0 + ra and
+  // k0 + rb (ra = 16 warp + g, rb = ra + 8) and, in every 8-column chunk j
+  // of a product, the columns 8 j + 2 t and 8 j + 2 t + 1.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + g, rb = ra + 8;
+
+  float acc[D / 2];                         // dV (warpgroup 0) or dK
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = k0 + 16 * am + g + 8 * half;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t sa = cw ? sV : sK;         // the score product's A
+  mbar_wait(bar_r, 0);
+
+  for (int n = 0, it = 0; n < per * nq; ++n) {
+    const int qt = n % nq;
+    if (!w_live(p, qt, kt, kT, p.kb)) continue;
+    const int s = it % NST, x = it & 1;
+    const uint32_t xpar = (it >> 1) & 1;
+    const uint32_t tq = sT + 2 * s * TB, tdo = tq + TB;
+    mbar_wait(full + 8 * s, (it / NST) & 1);
+
+    // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T (64 x 64)
+    float sc[32];
+    const uint32_t sb = cw ? tdo : tq;
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      const uint32_t ro = (kd / 64) * kBoxBytes + (kd % 64) * 2;
+      wgmma_ss(sc, sw128_desc(sa + ro, 16, 1024),
+               sw128_desc(sb + ro, 16, 1024), kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // columns c(i) = 8 (i / 4) + 2 t + (i & 1): this tile's q rows
+    const float* st = st_gen + 128 * s;
+    float4* xb = x_gen + x * 1024;
+    if (cw == 0) {
+      float f[32];                          // P f
+      if (p.softcap != 0.f) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const float s2 = capped_log2(p, sc[i], &f[i]);
+          sc[i] = ex2(s2 - st[(i / 4) * 8 + 2 * t + (i & 1)]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] = ex2(sc[i] * p.score_mul - st[(i / 4) * 8 + 2 * t + (i & 1)]);
+          f[i] = 1.f;
+        }
+      }
+      if (w_edge(p, qt, kt, kT, p.kb)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (!w_pair_ok(p, qt * kT + (i / 4) * 8 + 2 * t + (i & 1),
+                         kt * kT + ((i & 2) ? rb : ra)))
+            sc[i] = 0.f;
+      }
+      if (it >= 2) mbar_wait(x_empty + 8 * x, xpar ^ 1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        xb[j * 128 + tid] = make_float4(sc[4 * j] * f[4 * j],
+                                        sc[4 * j + 1] * f[4 * j + 1],
+                                        sc[4 * j + 2] * f[4 * j + 2],
+                                        sc[4 * j + 3] * f[4 * j + 3]);
+      mbar_arrive(x_full + 8 * x);
+    } else {
+      mbar_wait(x_full + 8 * x, xpar);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pf = xb[j * 128 + tid];
+        const float v[4] = {pf.x, pf.y, pf.z, pf.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = v[e] * (sc[4 * j + e] -
+                                  st[kT + 8 * j + 2 * t + (e & 1)]);
+      }
+      mbar_arrive(x_empty + 8 * x);
+    }
+
+    // warpgroup 0: dV += P^T dO; warpgroup 1: dK += dS^T Q (64 q rows, 4
+    // steps of k16; A from registers, the streaming tile MN-major)
+    uint32_t a[4][4];
+    to_a(sc, a);
+    const uint32_t bt = cw ? tq : tdo;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[kk], sw128_desc(bt + kk * 16 * 128, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    ++it;
+  }
+
+  // warpgroup 0 holds dV, warpgroup 1 dK (times scale), for keys k0 + ra
+  // and k0 + rb: into dK and dV, or into this split's partials
+  const int k0 = kt * kT;
+  const float mul = cw ? p.scale : 1.f;
+  const size_t n = (size_t)p.B * p.Sk * p.KV * D;
+  float* part = p.nsplit > 1
+                    ? p.part + (2 * (size_t)split + (cw ? 0 : 1)) * n
+                    : nullptr;
+  bf16* out = cw ? (bf16*)p.dk + b * p.dk_b + hk * p.dk_h
+                 : (bf16*)p.dv + b * p.dv_b + hk * p.dv_h;
+  const int64_t out_s = cw ? p.dk_s : p.dv_s;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int key = k0 + (hf ? rb : ra);
     if (key >= p.Sk) continue;
     const size_t row = (((size_t)b * p.Sk + key) * p.KV + hk) * D;
 #pragma unroll
-    for (int j = 0; j < DC / 8; ++j) {
-      const int c = DC * ac + 8 * j + 2 * t;
-      const float k0v = dk[j][2 * half] * p.scale;
-      const float k1v = dk[j][2 * half + 1] * p.scale;
-      const float v0 = dv[j][2 * half], v1 = dv[j][2 * half + 1];
-      if (p.nsplit == 1) {
-        *reinterpret_cast<uint32_t*>((bf16*)p.dk + b * p.dk_b +
-                                     hk * p.dk_h + key * p.dk_s + c) =
-            pack(k0v, k1v);
-        *reinterpret_cast<uint32_t*>((bf16*)p.dv + b * p.dv_b +
-                                     hk * p.dv_h + key * p.dv_s + c) =
-            pack(v0, v1);
-      } else {
-        float* pk = p.part + (2 * (size_t)split) * n + row + c;
-        float* pv = p.part + (2 * (size_t)split + 1) * n + row + c;
-        pk[0] = k0v;
-        pk[1] = k1v;
-        pv[0] = v0;
-        pv[1] = v1;
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * t;
+      const float x0 = acc[4 * j + 2 * hf] * mul;
+      const float x1 = acc[4 * j + 2 * hf + 1] * mul;
+      if (p.nsplit == 1)
+        *reinterpret_cast<uint32_t*>(out + key * out_s + d) =
+            pack_bf16(x0, x1);
+      else
+        *reinterpret_cast<float2*>(part + row + d) = make_float2(x0, x1);
     }
   }
 }
 
+// dQ: one block per (b, head, 128 q rows), the forward's layout.  Q and dO
+// stay resident; the ring streams K and V tiles of BK keys (48 at D = 256,
+// else 64), every tile live for either 64-row half.  Consumer warpgroup cw
+// owns q rows 64 cw .. 64 cw + 63 and needs nothing from the other: S = Q
+// K^T and dP = dO V^T by wgmma (both K-major), dS = P (dP - delta) f with P
+// = 2^(s - lse) in registers, then dQ += dS K with dS (bf16) from
+// registers and K MN-major; dQ (64 x D, D / 2 floats a thread) stays in
+// registers.
 template <int D>
-constexpr size_t stats_mma_smem() {
-  return sizeof(bf16) * 2 * (kBQ + kMmaBK) * (D + kRowPad);
+__global__ void __launch_bounds__(kWThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const BwdParams p) {
+  constexpr int BK = dq_key_tile<D>(), NST = dq_stages<D>();
+  constexpr uint32_t QC = 128 * 128;        // 128 rows of one 64-column box
+  constexpr uint32_t KC = BK * 128;         // BK rows of one box
+  constexpr uint32_t QB = QC * (D / 64), KB = KC * (D / 64);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(smem_raw) +
+                       1023) & ~1023u;
+  const uint32_t sdO = sQ + QB;
+  const uint32_t sK = sdO + QB;             // stage s at + 2 s KB; V: + KB
+  const uint32_t bar_r = sK + 2 * NST * KB;
+  const uint32_t full = bar_r + 8;
+  const uint32_t empty = full + 8 * NST;
+
+  // every head of a q tile before the next, the heaviest causal tile first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int hk = h / (p.H / p.KV), g0 = q0 / kT;
+  const int nk = (p.Sk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_r, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);          // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread starts every TMA load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_r, 2 * QB);
+      for (int c = 0; c < D / 64; ++c)
+        for (int half = 0; half < 2; ++half) {
+          tma_load(sQ + c * QC + half * kBoxBytes, &tm_q, bar_r, 64 * c,
+                   q0 + 64 * half, h, b);
+          tma_load(sdO + c * QC + half * kBoxBytes, &tm_do, bar_r, 64 * c,
+                   q0 + 64 * half, h, b);
+        }
+      for (int j = 0, it = 0; j < nk; ++j) {
+        if (!w_live(p, g0, j, BK, p.kbd) && !w_live(p, g0 + 1, j, BK, p.kbd))
+          continue;
+        const int s = it % NST, round = it / NST;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * KB);
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sK + 2 * s * KB + c * KC, &tm_k, full + 8 * s, 64 * c,
+                   j * BK, hk, b);
+          tma_load(sK + (2 * s + 1) * KB + c * KC, &tm_v, full + 8 * s,
+                   64 * c, j * BK, hk, b);
+        }
+        ++it;
+      }
+    }
+    return;
+  }
+
+  // Consumers: thread (warp, g, t) of warpgroup cw holds q rows row0 = q0 +
+  // 64 cw + 16 warp + g and row1 = row0 + 8, and in every 8-column chunk j
+  // of a product the columns 8 j + 2 t and 8 j + 2 t + 1.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row0 = q0 + 64 * cw + 16 * warp + lane / 4, row1 = row0 + 8;
+  const size_t srow = ((size_t)b * p.H + h) * p.Sq;
+  float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;
+  if (row0 < p.Sq) {
+    lse0 = p.lse[srow + row0] * kLog2e;
+    dl0 = p.delta[srow + row0];
+  }
+  if (row1 < p.Sq) {
+    lse1 = p.lse[srow + row1] * kLog2e;
+    dl1 = p.delta[srow + row1];
+  }
+  const uint32_t qa = sQ + 64 * cw * 128, da = sdO + 64 * cw * 128;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_r, 0);
+
+  for (int j = 0, it = 0; j < nk; ++j) {
+    if (!w_live(p, g0, j, BK, p.kbd) && !w_live(p, g0 + 1, j, BK, p.kbd))
+      continue;
+    const int s = it % NST;
+    const uint32_t ks = sK + 2 * s * KB, vs = ks + KB;
+    mbar_wait(full + 8 * s, (it / NST) & 1);
+    if (w_live(p, g0 + cw, j, BK, p.kbd)) {
+      // S = Q K^T and dP = dO V^T: 64 x BK, D / 16 steps of k16
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D; kd += 16) {
+        const uint32_t qo = (kd / 64) * QC + (kd % 64) * 2;
+        const uint32_t ko = (kd / 64) * KC + (kd % 64) * 2;
+        wgmma_ss(sc, sw128_desc(qa + qo, 16, 1024),
+                 sw128_desc(ks + ko, 16, 1024), kd > 0);
+      }
+#pragma unroll
+      for (int kd = 0; kd < D; kd += 16) {
+        const uint32_t qo = (kd / 64) * QC + (kd % 64) * 2;
+        const uint32_t ko = (kd / 64) * KC + (kd % 64) * 2;
+        wgmma_ss(dp, sw128_desc(da + qo, 16, 1024),
+                 sw128_desc(vs + ko, 16, 1024), kd > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = 2^(s - lse) (dP - delta) f into dp; 0 where masked
+      if (p.softcap != 0.f) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float f;
+          const float s2 = capped_log2(p, sc[i], &f);
+          dp[i] = ex2(s2 - ((i & 2) ? lse1 : lse0)) *
+                  (dp[i] - ((i & 2) ? dl1 : dl0)) * f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          dp[i] = ex2(sc[i] * p.score_mul - ((i & 2) ? lse1 : lse0)) *
+                  (dp[i] - ((i & 2) ? dl1 : dl0));
+      }
+      if (w_edge(p, g0 + cw, j, BK, p.kbd)) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (!w_pair_ok(p, (i & 2) ? row1 : row0,
+                         j * BK + (i / 4) * 8 + 2 * t + (i & 1)))
+            dp[i] = 0.f;
+      }
+
+      // dQ += dS K: BK / 16 steps of k16, K MN-major
+      uint32_t a[BK / 16][4];
+      to_a(dp, a);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs(acc, a[kk], sw128_desc(ks + kk * 16 * 128, KC, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+    ++it;
+  }
+
+  bf16* out = (bf16*)p.dq + b * p.dq_b + h * p.dq_h;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = hf ? row1 : row0;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (int64_t)row * p.dq_s + 8 * j +
+                                   2 * t) =
+          pack_bf16(acc[4 * j + 2 * hf] * p.scale,
+                    acc[4 * j + 2 * hf + 1] * p.scale);
+  }
 }
+
+// delta_i = dO_i . O_i for every (b, h, query row i), O the forward's fp32
+// output (o32, [B, Sq, H, D] contiguous), into p.delta [B, H, Sq]: one
+// warp a row, 8 columns a lane at a time, summed in a fixed order.
 template <int D>
-constexpr size_t dq_mma_smem() {
-  return sizeof(bf16) * (2 * (kBQ + kMmaBK) * (D + kRowPad) +
-                         kBQ * (kMmaBK + kRowPad)) + sizeof(float) * 3 * kBQ;
-}
-template <int D>
-constexpr size_t dkdv_mma_smem() {
-  return sizeof(bf16) * (2 * (mma_key_tile<D>() + kBQ) * (D + kRowPad) +
-                         2 * kBQ * (mma_key_tile<D>() + kRowPad)) +
-         sizeof(float) * 3 * kBQ;
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const BwdParams p) {
+  const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (int64_t)p.B * p.H * p.Sq) return;
+  const int i = (int)(row % p.Sq);
+  const int bh = (int)(row / p.Sq), b = bh / p.H, h = bh % p.H;
+  const bf16* dg = (const bf16*)p.dout + b * p.do_b + i * p.do_s +
+                   h * p.do_h;
+  const float* og = p.o32 + (((int64_t)b * p.Sq + i) * p.H + h) * D;
+  float acc = 0.f;
+  for (int d = 8 * lane; d < D; d += 256) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(dg + d);
+    const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float4 o0 = *reinterpret_cast<const float4*>(og + d);
+    const float4 o1 = *reinterpret_cast<const float4*>(og + d + 4);
+    const float2 e0 = __bfloat1622float2(e[0]), e1 = __bfloat1622float2(e[1]);
+    const float2 e2 = __bfloat1622float2(e[2]), e3 = __bfloat1622float2(e[3]);
+    acc = fmaf(e0.x, o0.x, acc);
+    acc = fmaf(e0.y, o0.y, acc);
+    acc = fmaf(e1.x, o0.z, acc);
+    acc = fmaf(e1.y, o0.w, acc);
+    acc = fmaf(e2.x, o1.x, acc);
+    acc = fmaf(e2.y, o1.y, acc);
+    acc = fmaf(e3.x, o1.z, acc);
+    acc = fmaf(e3.y, o1.w, acc);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) p.delta[row] = acc;
 }
 
 template <typename Kernel>
-cudaError_t launch_n(Kernel kernel, dim3 grid, int threads, size_t smem,
-                     const BwdParams& p, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
+cudaError_t launch_w(Kernel kernel, dim3 grid, size_t smem,
+                     const CUtensorMap (&tm)[4], const BwdParams& p,
+                     cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, s>>>(p);
+  kernel<<<grid, kWThreads, smem, s>>>(tm[0], tm[1], tm[2], tm[3], p);
   return cudaGetLastError();
 }
 
+// The bf16 backward: with positions, the position bounds of 64-row chunks
+// (q and dkdv's keys) and of dq's key tiles; then delta, dq, dkdv and, for
+// several head splits, the reduce.  bounds holds 2 * (ceil(S / 64) +
+// ceil(S / 48)) ints.
 template <int D>
-int launch_mma(const BwdParams& p, cudaStream_t s) {
-  const int nq = (p.Sq + kBQ - 1) / kBQ;
-  const int nk = (p.Sk + mma_key_tile<D>() - 1) / mma_key_tile<D>();
-  cudaError_t err = launch_n(flash_bwd_stats_mma<D>, dim3(nq, p.B * p.H),
-                             kStatsThreads, stats_mma_smem<D>(), p, s);
+int launch_wgmma(BwdParams p, void* bounds, cudaStream_t s) {
+  constexpr int BK = dq_key_tile<D>();
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap tm[4], td[4];           // q, k, v, dout: 64-row boxes; dq's
+  if (!encode_map(encode, &tm[0], p.q, D, p.Sq, p.H, p.B, p.q_s, p.q_h,
+                  p.q_b, kT) ||
+      !encode_map(encode, &tm[1], p.k, D, p.Sk, p.KV, p.B, p.k_s, p.k_h,
+                  p.k_b, kT) ||
+      !encode_map(encode, &tm[2], p.v, D, p.Sk, p.KV, p.B, p.v_s, p.v_h,
+                  p.v_b, kT) ||
+      !encode_map(encode, &tm[3], p.dout, D, p.Sq, p.H, p.B, p.do_s,
+                  p.do_h, p.do_b, kT) ||
+      !encode_map(encode, &td[1], p.k, D, p.Sk, p.KV, p.B, p.k_s, p.k_h,
+                  p.k_b, BK) ||
+      !encode_map(encode, &td[2], p.v, D, p.Sk, p.KV, p.B, p.v_s, p.v_h,
+                  p.v_b, BK))
+    return (int)cudaErrorInvalidValue;
+  td[0] = tm[0];
+  td[3] = tm[3];
+  const int nk = (p.Sk + kT - 1) / kT;
+  if (p.pos) {                        // Sq == Sk
+    const int nd = (p.Sk + BK - 1) / BK;
+    int* kb = (int*)bounds;
+    p.kb = p.qb = kb;
+    p.kbd = kb + 2 * nk;
+    pos_bounds_kernel<<<(nk + 127) / 128, 128, 0, s>>>(p.pos, p.Sk, kT, nk,
+                                                       kb);
+    pos_bounds_kernel<<<(nd + 127) / 128, 128, 0, s>>>(p.pos, p.Sk, BK, nd,
+                                                       kb + 2 * nk);
+  }
+  const int64_t rows = (int64_t)p.B * p.H * p.Sq;
+  flash_bwd_delta<D><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess)
-    err = launch_n(flash_bwd_dq_mma<D>, dim3(nq, p.B * p.H), kThreads,
-                   dq_mma_smem<D>(), p, s);
+    err = launch_w(flash_bwd_dq_wgmma<D>,
+                   dim3(p.B * p.H, (p.Sq + 127) / 128), dq_smem_bytes<D>(),
+                   td, p, s);
   if (err == cudaSuccess)
-    err = launch_n(flash_bwd_dkdv_mma<D>, dim3(nk, p.B * p.KV * p.nsplit),
-                   kThreads, dkdv_mma_smem<D>(), p, s);
+    err = launch_w(flash_bwd_dkdv_wgmma<D>,
+                   dim3(p.B * p.KV * p.nsplit, nk), dkdv_smem_bytes<D>(), tm,
+                   p, s);
   if (err == cudaSuccess && p.nsplit > 1) {
     flash_bwd_reduce_kernel<bf16, D><<<264, kThreads, 0, s>>>(p);
     err = cudaGetLastError();
@@ -1094,15 +1306,15 @@ int launch_mma(const BwdParams& p, cudaStream_t s) {
   return (int)err;
 }
 
-int launch_mma_d(const BwdParams& p, int D, cudaStream_t s) {
+int launch_wgmma_d(const BwdParams& p, int D, void* bounds,
+                   cudaStream_t s) {
   switch (D) {
-    case 64: return launch_mma<64>(p, s);
-    case 128: return launch_mma<128>(p, s);
-    case 256: return launch_mma<256>(p, s);
+    case 64: return launch_wgmma<64>(p, bounds, s);
+    case 128: return launch_wgmma<128>(p, bounds, s);
+    case 256: return launch_wgmma<256>(p, bounds, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
 template <int D>
 constexpr size_t stats_smem() {
   return sizeof(float) * (kBQ + kBK) * (D + kPad);
@@ -1160,21 +1372,30 @@ int launch_fma_d(const BwdParams& p, int D, cudaStream_t s) {
 // Plain C entry point, loaded with ctypes.  q, o, dout, dq are [B, Sq, H, D]
 // views and k, v, dk, dv [B, Sk, KV, D] views given by their strides
 // (strides: 24 int64, three (b, s, head) triples in the order q, k, v, o,
-// dout, dq, dk, dv; D contiguous).  stats is fp32 scratch of 3 * B * H * Sq
-// elements; partials fp32 scratch of 2 * nsplit * B * Sk * KV * D elements
-// when nsplit > 1 (else unused), with nsplit dividing H / KV.  positions
-// (int32 [S], Sq == Sk) masks by position when not null, with bounds int32
-// scratch of 2 * (ceil(Sk / 32) + ceil(Sq / 64)) elements.  Launches on
-// `stream` and returns the CUDA error (0 when every launch was accepted).
-extern "C" int flash_attention_bwd_launch(
+// dout, dq, dk, dv; D contiguous).  partials is fp32 scratch of
+// 2 * nsplit * B * Sk * KV * D elements when nsplit > 1 (else unused), with
+// nsplit dividing H / KV.  positions (int32 [S], Sq == Sk) masks by
+// position when not null, with bounds int32 scratch (bf16: 2 * (ceil(S /
+// 64) + ceil(S / 48)) elements; fp32: 2 * (ceil(Sk / 32) + ceil(Sq /
+// 64))).
+//   bf16 (wgmma): o32 and lse are the forward's fp32 output ([B, Sq, H, D],
+//     contiguous) and rows' logsumexp ([B, H, Sq]) from
+//     flash_attention_stats_launch; stats is fp32 scratch of B * H * Sq
+//     elements (delta); o is not read.  q, k, v and dout must be views
+//     TMA can map (16-byte aligned, strides multiples of 16 bytes).
+//   fp32 (FMAs): o32 and lse are not read; stats is fp32 scratch of
+//     3 * B * H * Sq elements.
+// Launches on `stream` and returns the CUDA error (0 when every launch
+// was accepted).
+extern "C" int flash_attention_grad_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, int B, int H, int KV,
-    int Sq, int Sk, int D, const int64_t* strides, float scale,
-    float softcap, int causal, int window, int dtype_bf16,
-    const void* positions, void* bounds, void* stats, void* partials,
-    int nsplit, void* stream) {
+    const void* o32, const void* lse, const void* dout, void* dq, void* dk,
+    void* dv, int B, int H, int KV, int Sq, int Sk, int D,
+    const int64_t* strides, float scale, float softcap, int causal,
+    int window, int dtype_bf16, const void* positions, void* bounds,
+    void* stats, void* partials, int nsplit, void* stream) {
   if (KV <= 0 || H % KV || nsplit < 1 || (H / KV) % nsplit ||
-      (positions && Sq != Sk))
+      (positions && Sq != Sk) || (dtype_bf16 && (!o32 || !lse)))
     return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
@@ -1194,8 +1415,14 @@ extern "C" int flash_attention_bwd_launch(
   p.scale = scale; p.softcap = softcap;
   p.causal = causal; p.window = window;
   p.pos = (const int*)positions;
-  p.kb = p.qb = nullptr;
+  p.kb = p.qb = p.kbd = nullptr;
+  p.o32 = (const float*)o32;
+  p.lse = (const float*)lse;
+  p.delta = (float*)stats;
+  p.score_mul = (softcap != 0.f ? softcap : scale) * kLog2e;
+  p.tanh_mul = softcap != 0.f ? 2.f * kLog2e * scale / softcap : 0.f;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype_bf16) return launch_wgmma_d(p, D, bounds, s);
   if (positions) {
     const int nkt = (Sk + kBK - 1) / kBK, nqt = (Sq + kBQ - 1) / kBQ;
     int* kb = (int*)bounds;
@@ -1208,5 +1435,5 @@ extern "C" int flash_attention_bwd_launch(
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return dtype_bf16 ? launch_mma_d(p, D, s) : launch_fma_d(p, D, s);
+  return launch_fma_d(p, D, s);
 }

@@ -3,9 +3,11 @@ card, the plain torch version (``ref.flash_attention_ref``) for tensors on
 the CPU.
 
 Where autograd records the card's call (grad mode on and an input that
-requires a gradient), it goes through ``FlashAttention``, whose backward
-launches the backward kernel (``flash_attention.attend_bwd``); otherwise
-the forward kernel is called directly. A second derivative through the
+requires a gradient), it goes through ``FlashAttention``: its bf16 forward
+also keeps each row's logsumexp and the fp32 output (``attend(...,
+stats=True)``), and its backward hands them to the backward kernel
+(``flash_attention.attend_bwd``); otherwise the forward kernel is called
+directly, with no statistics. A second derivative through the
 backward kernel raises (``once_differentiable``) instead of reading as
 zero. A tensor on the card always goes to the kernels: if they cannot be
 built or launched, the call raises; there is no fallback. ``launches``
@@ -34,20 +36,25 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kw):
-        out = _cuda.attend(q, k, v, **kw)
+        lse = out32 = None
+        if q.dtype == torch.bfloat16:        # the backward's statistics
+            out, lse, out32 = _cuda.attend(q, k, v, stats=True, **kw)
+        else:
+            out = _cuda.attend(q, k, v, **kw)
         positions = kw["positions"]
         ctx.kw = {n: w for n, w in kw.items() if n != "positions"}
-        ctx.save_for_backward(q, k, v, out, positions)
+        ctx.save_for_backward(q, k, v, out, positions, lse, out32)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out, positions = ctx.saved_tensors
+        q, k, v, out, positions, lse, out32 = ctx.saved_tensors
         if _cuda.bwd_layout_fault(dout):     # e.g. an expanded or offset view
             dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = _cuda.attend_bwd(q, k, v, out, dout,
-                                      positions=positions, **ctx.kw)
+                                      positions=positions, lse=lse,
+                                      out32=out32, **ctx.kw)
         return dq, dk, dv, None
 
 

@@ -7,7 +7,11 @@ denominator last), materialising the [Sq, Sk] scores.  ``ops`` runs it for
 CPU tensors and ``chip_smoke.py`` holds the kernel against it on the card.
 
 ``flash_attention_bwd_ref`` is the backward kernel's plain version: the
-gradient of ``flash_attention_ref`` by autograd.
+gradient of ``flash_attention_ref`` by autograd.  ``flash_attention_stats_ref``
+is the plain version of what the bf16 forward also writes for the backward
+when autograd records it: the fp32 output before its rounding and each
+row's logsumexp of its scores; ``delta_ref`` the backward's pre-pass,
+rowsum(dO o O) from that fp32 output.
 
 ``mha_ref`` is the twin of the JAX package's oracle
 ``kernels/flash_attention/ref.py::mha_ref``.
@@ -78,15 +82,9 @@ def _allowed(Sq: int, Sk: int, causal: bool, window: int, device,
     return ok
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0,
-                        softcap: float = 0.0,
-                        scale: Optional[float] = None,
-                        positions: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """q [B,Sq,H,D]; k, v [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype; query
-    head h reads KV head h // (H // KV).  ``positions`` (int [S], with
-    Sq == Sk == S) masks by position instead of by index."""
+def _attention_f32(q, k, v, causal, window, softcap, scale, positions):
+    """The plain version's fp32 output [B,KV,G,Sq,D], row maxima and
+    denominators [B,KV,G,Sq,1] (see ``flash_attention_ref``)."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     scale = scale or D ** -0.5
@@ -99,10 +97,48 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ok = _allowed(Sq, Sk, causal, window, q.device, positions)
     s = torch.where(ok, s, torch.tensor(NEG_INF, dtype=s.dtype,
                                         device=s.device))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p.to(v.dtype).float(), vf.float()) / l
+    return torch.matmul(p.to(v.dtype).float(), vf.float()) / l, m, l
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        scale: Optional[float] = None,
+                        positions: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """q [B,Sq,H,D]; k, v [B,Sk,KV,D] -> [B,Sq,H,D] in q's dtype; query
+    head h reads KV head h // (H // KV).  ``positions`` (int [S], with
+    Sq == Sk == S) masks by position instead of by index."""
+    B, Sq, H, D = q.shape
+    out, _, _ = _attention_f32(q, k, v, causal, window, softcap, scale,
+                               positions)
     return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def flash_attention_stats_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              scale: Optional[float] = None,
+                              positions: Optional[torch.Tensor] = None):
+    """(out32, lse): ``flash_attention_ref``'s output before its rounding
+    to q's dtype (fp32 [B,Sq,H,D]) and each row's logsumexp over the keys
+    of its masked scores (fp32 [B,H,Sq]; natural log, in the domain of
+    the scaled and capped scores; a row with no key it may see reads
+    NEG_INF + ln(Sk))."""
+    B, Sq, H, D = q.shape
+    out, m, l = _attention_f32(q, k, v, causal, window, softcap, scale,
+                               positions)
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D),
+            (m + torch.log(l)).reshape(B, H, Sq))
+
+
+def delta_ref(out32: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The backward's delta: rowsum(dO o O) in fp32 from the fp32 output
+    [B,Sq,H,D] and its gradient -> [B,H,Sq]."""
+    return (dout.float() * out32.float()).sum(-1).permute(0, 2, 1)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,

@@ -85,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"                 // TMA, mbarriers, wgmma
+
 namespace {
 
 constexpr int kP = 64;                // head dim: one 128-byte bf16 row
@@ -109,173 +111,6 @@ __device__ __forceinline__ float load_scalar(const void* p, int i,
                                              int bf16) {
   return bf16 ? __bfloat162float(((const __nv_bfloat16*)p)[i])
               : ((const float*)p)[i];
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 4-d tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// One box of shared memory into a 4-d tensor map (a bulk async store),
-// then wait until the copy has read shared memory.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n"
-      "cp.async.bulk.commit_group;\n"
-      "cp.async.bulk.wait_group.read 0;\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// Generic-proxy writes to shared memory made visible to wgmma's reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A wgmma descriptor of a tile in TMA's 128-byte swizzle: start address,
-// leading and stride byte offsets, layout type 1 (128B swizzle).  K-major
-// operands ignore the leading offset and step 8 rows by the stride offset
-// (1,024 bytes); MN-major ones (the transpose bits) step 64 columns by the
-// leading offset and 8 k-rows by the stride offset.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of wgmma accumulators
-// between the asynchronous product's start and its wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d (+)= A.B for one m64n64k16 step, A and B K-major from shared memory;
-// acc == 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d += A.B for one m64n64k16 step: A (bf16) from registers, B MN-major
-// from shared memory (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A.B for one m64n128k16 step, A and B both MN-major from shared
-// memory (both transpose bits).
-__device__ __forceinline__ void wgmma_ss_n128_tt(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // The cumulative log decay of the first n steps of chunk j for (b, h):
@@ -403,7 +238,7 @@ ssd_chunk_state_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       const uint32_t off = (q * kTile + 16 * kk) * 128;
-      wgmma_ss_n128_tt(d, sw128_desc(sX + off, c * 128, 1024),
+      wgmma_ss_tt(d, sw128_desc(sX + off, c * 128, 1024),
                        sw128_desc(sB + off, c * 128, 1024));
     }
     wgmma_commit();
@@ -586,7 +421,7 @@ ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
   for (int kd = 0; kd < kN; kd += 16) {
     const uint32_t off = (kd / 64) * kBoxBytes + (kd % 64) * 2;
-    wgmma_ss_n64(o, sw128_desc(sC + off, 16, 1024),
+    wgmma_ss(o, sw128_desc(sC + off, 16, 1024),
                  sw128_desc(hb + off, 16, 1024), kd > 0);
   }
   wgmma_commit();
@@ -614,7 +449,7 @@ ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
     for (int kd = 0; kd < kN; kd += 16) {
       const uint32_t off = (kd / 64) * kBoxBytes + (kd % 64) * 2;
-      wgmma_ss_n64(sc, sw128_desc(sC + off, 16, 1024),
+      wgmma_ss(sc, sw128_desc(sC + off, 16, 1024),
                    sw128_desc(sb + off, 16, 1024), kd > 0);
     }
     wgmma_commit();
@@ -655,7 +490,7 @@ ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap tm_x,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_rs_n64(o, pa[kk], sw128_desc(xs + kk * 16 * 128, kBoxBytes, 1024));
+      wgmma_rs(o, pa[kk], sw128_desc(xs + kk * 16 * 128, kBoxBytes, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -696,55 +531,6 @@ ssd_chunk_out_kernel(const __grid_constant__ CUtensorMap tm_x,
 // host
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
-// library needs no -lcuda.
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map {cols, rows, heads, B} of a bf16 view (strides in elements,
-// columns contiguous) with a box of 64 rows by 64 columns of one (b, head),
-// 128-byte swizzled.  The stride of an axis of length 1 is never used: it
-// is replaced by `cols` so that TMA's rule (a positive multiple of 16
-// bytes) holds for any view.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                int cols, int64_t rows, int heads, int B, int64_t r_stride,
-                int64_t h_stride, int64_t b_stride) {
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {
-      2 * (cuuint64_t)(rows > 1 ? r_stride : cols),
-      2 * (cuuint64_t)(heads > 1 ? h_stride : cols),
-      2 * (cuuint64_t)(B > 1 ? b_stride : cols)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)kTile, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 bool tiled(int B, int S, int H, int P, int N, int chunk) {
   return B > 0 && H > 0 && P == kP && N == kN && chunk > 0 &&
          chunk % kTile == 0 && chunk <= kMaxChunk && S % chunk == 0;
@@ -783,8 +569,9 @@ extern "C" int ssd_chunk_state_launch(
   if (!encode) return (int)cudaErrorNotSupported;
   CUtensorMap tx, tb;
   if (!encode_map(encode, &tx, x, P, S, H, B, strides[1], strides[2],
-                  strides[0]) ||
-      !encode_map(encode, &tb, Bm, N, S, 1, B, strides[7], 0, strides[6]))
+                  strides[0], kTile) ||
+      !encode_map(encode, &tb, Bm, N, S, 1, B, strides[7], 0, strides[6],
+                  kTile))
     return (int)cudaErrorInvalidValue;
   const Params p = params(dt, A, nullptr, S, H, chunk, strides, a_bf16, 0);
   const size_t smem = state_smem_bytes(chunk);
@@ -824,13 +611,15 @@ extern "C" int ssd_chunk_out_launch(
   const Params p = params(dt, A, D, S, H, chunk, strides, a_bf16, d_bf16);
   CUtensorMap tx, tb, tc, th, ty;
   if (!encode_map(encode, &tx, x, P, S, H, B, strides[1], strides[2],
-                  strides[0]) ||
-      !encode_map(encode, &tb, Bm, N, S, 1, B, strides[7], 0, strides[6]) ||
-      !encode_map(encode, &tc, Cm, N, S, 1, B, strides[9], 0, strides[8]) ||
+                  strides[0], kTile) ||
+      !encode_map(encode, &tb, Bm, N, S, 1, B, strides[7], 0, strides[6],
+                  kTile) ||
+      !encode_map(encode, &tc, Cm, N, S, 1, B, strides[9], 0, strides[8],
+                  kTile) ||
       !encode_map(encode, &th, h_before, N, (int64_t)B * p.nc * H * P, 1, 1,
-                  N, 0, 0) ||
+                  N, 0, 0, kTile) ||
       !encode_map(encode, &ty, y, P, S, H, B, strides[11], strides[12],
-                  strides[10]))
+                  strides[10], kTile))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       ssd_chunk_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -78,10 +78,11 @@ def test_cpu_ssd_scan_keeps_its_gradient():
 
 
 def test_backward_layout_follows_alignment():
-    """The backward reads views by 16-byte copies: it takes 16-byte aligned
-    views whose strides are multiples of 16 bytes, and names what a view
-    lacks; a stride on an axis of length 1 never counts (autograd hands a
-    [1, S, H, D] gradient a batch stride of 1)."""
+    """The backward reads views by TMA tensor maps (bf16) or 16-byte copies
+    (fp32): it takes 16-byte aligned views whose strides are multiples of
+    16 bytes and not 0, and names what a view lacks; a stride on an axis of
+    length 1 never counts (autograd hands a [1, S, H, D] gradient a batch
+    stride of 1)."""
     from repro_torch.kernels.flash_attention import flash_attention as K
 
     t = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16)
@@ -98,8 +99,10 @@ def test_backward_layout_follows_alignment():
     assert "multiples of 4" in K.bwd_layout_fault(
         torch.zeros((1, 64, 3, 66))[..., :64])
     assert "contiguous" in K.bwd_layout_fault(t.transpose(2, 3))
-    assert K.bwd_key_tile(torch.bfloat16, 256) == 32
-    assert K.bwd_key_tile(torch.bfloat16, 64) == 128
-    assert K.bwd_key_tile(torch.float32, 256) == 32
+    assert "stride 0" in K.bwd_layout_fault(t[:, :1].expand(2, 64, 4, 128))
+    assert K.bwd_layout_fault(t[:, :, :1].expand(2, 64, 1, 128)) is None
+    assert K.bwd_key_tile(torch.bfloat16) == 64
+    assert K.bwd_key_tile(torch.float32) == 32
+    assert K.kv_splits(1, 1, 4096, 8, 132, 64) == 8        # gemma-2b, bf16
     assert K.kv_splits(1, 1, 4096, 8, 132, 32) == 4        # gemma-2b
     assert K.kv_splits(1, 8, 8192, 2, 132, 32) == 1        # gemma2-9b

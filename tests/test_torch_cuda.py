@@ -523,6 +523,26 @@ def test_ssd_scan_is_deterministic(cuda, dtype):
     assert torch.equal(y0, y1) and torch.equal(h0, h1)
 
 
+def test_ssd_scan_bitwise_equal_to_parent_build(cuda):
+    """Both paths (the wgmma passes at mamba2-780m's widths, the simple
+    kernel in fp32) against a build of the parent commit's ssd_scan.cu and
+    ssd_passes.cu (build/ssd_scan_parent/, or $SSD_PARENT_DIR): the
+    shared Hopper header changed no output bit."""
+    import importlib
+
+    from repro_torch.kernels import ssd_scan as SS
+    SSK = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    parent = SSK.load(_parent_build("ssd_scan_parent", "SSD_PARENT_DIR",
+                                    "ssd_scan_parent",
+                                    ["ssd_scan.cu", "ssd_passes.cu"]))
+    for dtype, path in ((torch.bfloat16, "wgmma"), (torch.float32, "simple")):
+        args = _ssd_inputs(2, 2048, 48, 64, 128, dtype, cuda, seed=6)
+        y0, h0 = SS.ssd_scan(*args, chunk=256)
+        y1, h1 = SSK.scan(*args, chunk=256, lib=parent, path=path)
+        assert torch.equal(y0, y1) and torch.equal(h0, h1), dtype
+
+
 # ---------------------------------------------------------------------------
 # dvv_ops: the tiled and general paths, and the staged front ends
 # ---------------------------------------------------------------------------
@@ -720,6 +740,103 @@ def test_flash_kernel_index_masks_bitwise_equal_to_parent_build(cuda):
                                         **FLASH_MODES[mode])), (dtype, mode)
 
 
+def _parent_build(name, env, default, files):
+    """The path of a library built from the parent commit's sources
+    (``files``: their names under build/``default`` or ``$env``); the
+    test skips without them."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from repro_torch.kernels import build as _build
+
+    src = Path(os.environ.get(env, _build.BUILD_ROOT.parent / default))
+    if not all((src / f).exists() for f in files):
+        pytest.skip(f"needs the parent commit's sources {files} in {src}")
+    csrc = _build.BUILD_ROOT / f"{name}_src"
+    shutil.rmtree(csrc, ignore_errors=True)
+    csrc.mkdir(parents=True)
+    for f in files:
+        shutil.copyfile(src / f, csrc / f)
+    return _build.build(name, csrc)
+
+
+def test_flash_kernel_position_masks_bitwise_equal_to_parent_build(cuda):
+    """The position instance and the index instance, without the
+    statistics the recorded forward adds, against a build of the parent
+    commit's flash_attention.cu (build/flash_attention_parent/, or
+    $FLASH_PARENT_DIR): bitwise equal outputs."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    parent = K.load(_parent_build("flash_attention_parent2",
+                                  "FLASH_PARENT_DIR",
+                                  "flash_attention_parent",
+                                  ["flash_attention.cu"]))
+    for dtype, S, D in ((torch.bfloat16, 4160, 256), (torch.bfloat16, 320, 64),
+                        (torch.float32, 320, 128)):
+        q, k, v = _qkv(1, S, 4, 2, D, dtype, cuda, seed=9)
+        pos = torch.from_numpy(_flash_positions(S)["repeated"].astype(
+            np.int32)).to(cuda)
+        for mode in ("causal", "window_softcap", "bidir"):
+            for p in (None, pos):
+                assert torch.equal(
+                    K.attend(q, k, v, positions=p, **FLASH_MODES[mode]),
+                    K.attend(q, k, v, positions=p, lib=parent,
+                             **FLASH_MODES[mode])), (dtype, mode, p is None)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir",
+                                  "positions"])
+def test_flash_forward_statistics_equal_plain_version(cuda, ieee_fp32, D,
+                                                      mode):
+    """attend(stats=True): the same bf16 output as without statistics, the
+    fp32 output it rounds from (bitwise its source; within BF16_ROW_TOL
+    of the plain version's fp32 output, whose p rounds against the final
+    maximum and not the running one) and each row's logsumexp within 1e-4
+    of the plain version's relative to max(1, |lse|) (fp32 sums in another
+    order, ex2.approx)."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_stats_ref,
+    )
+
+    q, k, v = _qkv(2, 200, 4, 2, D, torch.bfloat16, cuda, seed=14)
+    kw = dict(FLASH_MODES["causal" if mode == "positions" else mode])
+    if mode == "positions":
+        kw["positions"] = torch.from_numpy(_flash_positions(200)[
+            "shuffled"].astype(np.int32)).to(cuda)
+    K.reset_launches()
+    out, lse, out32 = K.attend(q, k, v, stats=True, **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention"] == 1
+    assert torch.equal(out, K.attend(q, k, v, **kw))
+    assert torch.equal(out, out32.to(torch.bfloat16))
+    want32, want_lse = flash_attention_stats_ref(q, k, v, **kw)
+    assert lse.shape == (2, 4, 200) and out32.shape == (2, 200, 4, D)
+    assert float(((lse - want_lse).abs() / want_lse.abs().clamp_min(1.0))
+                 .max()) < 1e-4
+    assert row_scaled_err(out32, want32) < BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("mode", ["causal", "window_softcap", "positions"])
+def test_flash_backward_with_and_without_lse_is_bitwise_equal(cuda, mode):
+    """attend_bwd given the recorded forward's statistics and attend_bwd
+    recomputing them by one forward launch give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    q, k, v = _qkv(1, 320, 8, 2, 128, torch.bfloat16, cuda, seed=15)
+    dout = _qkv(1, 320, 8, 1, 128, torch.bfloat16, cuda, seed=16)[0]
+    kw = dict(FLASH_MODES["causal" if mode == "positions" else mode])
+    if mode == "positions":
+        kw["positions"] = torch.from_numpy(_flash_positions(320)[
+            "repeated"].astype(np.int32)).to(cuda)
+    out, lse, out32 = K.attend(q, k, v, stats=True, **kw)
+    given = K.attend_bwd(q, k, v, out, dout, lse=lse, out32=out32, **kw)
+    again = K.attend_bwd(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(given, again))
+
+
 def test_flash_wrapper_rejects_bad_positions(cuda):
     q, k, v = _qkv(1, 64, 4, 2, 64, torch.bfloat16, cuda)
     pos = torch.arange(64, dtype=torch.int32, device=cuda)
@@ -770,9 +887,10 @@ def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32):
 #: magnitude of the plain version's gradient, that magnitude floored at
 #: 1e-2 (N(0, 1) inputs give gradients of order 0.1-10; a gradient that is
 #: exactly 0, as dq with a single key, is held absolutely).  fp32 sums in
-#: another order; bf16 also reads delta from the forward kernel's bf16
-#: output (the plain version keeps its own in fp32).  (A per-row scale
-#: does not fit: a causal row 0's dq is 0 up to rounding.)
+#: another order; bf16 also rounds P and dS to bf16 as wgmma operands and
+#: reads delta from the forward kernel's fp32 output, whose p was rounded
+#: to bf16 against the running maximum.  (A per-row scale does not fit: a
+#: causal row 0's dq is 0 up to rounding.)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -832,6 +950,19 @@ def test_flash_backward_with_positions_equals_plain_version(
     _assert_grads_close(got, want, q, k)
 
 
+@pytest.mark.parametrize("which", ["repeated", "shuffled"])
+@pytest.mark.parametrize("mode", ["causal", "window_softcap"])
+def test_flash_backward_with_positions_at_head_dim_256(cuda, ieee_fp32,
+                                                       which, mode):
+    """bf16 at D 256, where dq's key tiles are 48 keys and its position
+    bounds are taken over 48-key chunks beside dkdv's 64-key ones."""
+    q, k, v = _qkv(1, 400, 4, 2, 256, torch.bfloat16, cuda, seed=17)
+    pos = torch.from_numpy(_flash_positions(400)[which].astype(
+        np.int32)).to(cuda)
+    got, want = _bwd_case(q, k, v, positions=pos, **FLASH_MODES[mode])
+    _assert_grads_close(got, want, q, k)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq,Sk", [(1, 1), (33, 33), (96, 160), (160, 96)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -873,7 +1004,7 @@ def test_flash_backward_is_deterministic(cuda, shape, dtype):
     B, S, H, KV, D = shape
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     q, k, v = _qkv(B, S, H, KV, D, dtype, cuda, seed=8)
-    splits = K.kv_splits(B, KV, S, H // KV, sms, K.bwd_key_tile(dtype, D))
+    splits = K.kv_splits(B, KV, S, H // KV, sms, K.bwd_key_tile(dtype))
     assert (splits > 1) == (KV == 1)
     dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=9)[0]
     out = K.attend(q, k, v, causal=True, softcap=50.0)

@@ -200,6 +200,32 @@ def test_layout_check_takes_what_tma_maps():
         _check_layout("v", x.float(), bf16, cpu)
 
 
+@pytest.mark.parametrize("edit", ["shared_header", "package_source",
+                                  "package_header"])
+def test_build_hash_covers_sources_and_headers(tmp_path, edit):
+    """kernels/build.py keys a library by its sources and the headers they
+    may include (the package's own and kernels/csrc/, passed as -I), so an
+    edit to any of them names another library and nothing stale loads."""
+    import shutil
+
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.flash_attention.flash_attention import CSRC
+
+    csrc, inc = tmp_path / "csrc", tmp_path / "include"
+    shutil.copytree(CSRC, csrc)
+    shutil.copytree(B.INCLUDE, inc)
+    assert (inc / "hopper.cuh").exists()
+    before = B.library_path("flash_attention", csrc, inc)
+    assert before == B.library_path("flash_attention", csrc, inc)
+    target = {"shared_header": inc / "hopper.cuh",
+              "package_source": csrc / "flash_attention_bwd.cu",
+              "package_header": csrc / "local.cuh"}[edit]
+    text = target.read_text() if target.exists() else ""
+    target.write_text(text + "\n// edited\n")
+    after = B.library_path("flash_attention", csrc, inc)
+    assert after != before and after.parent.parent == before.parent.parent
+
+
 #: Position vectors the card tests also use (S = 64): repeated ids (an
 #: image's patches), a sequence that steps back, gaps.
 POSITIONS = {

@@ -7,7 +7,13 @@ by ``params_from_numpy``):
     to on the card) against ``jax.vjp`` of the JAX package's
     ``_attend_naive`` over the option grid (causal, bidirectional, window,
     softcap, GQA and MQA, masks by position), fp32: within 1e-5 of each
-    gradient's largest magnitude;
+    gradient's largest magnitude; the statistics the bf16 forward keeps
+    for the backward (``ref.flash_attention_stats_ref``: each row's
+    logsumexp and the fp32 output; ``ref.delta_ref``) against
+    ``jax.nn.logsumexp`` of that path's masked scores, its output and
+    rowsum(dO o O); and a float64 emulation of the bf16 kernels' numerics
+    showing that delta taken from the forward's fp32 output keeps dq's
+    worst row within 0.08 of the plain version's;
   * ``loss_fn`` and every gradient leaf against ``jax.value_and_grad`` of
     the JAX package's ``loss_fn`` on the smoke configs of gemma-2b,
     gemma2-9b, qwen3-14b and mamba2-780m, fp32: the loss within 1e-5, each
@@ -56,7 +62,8 @@ from repro_torch.ckpt import CheckpointManager as TCkpt
 from repro_torch.core import DVV_MECHANISM as T_DVV
 from repro_torch.data import PipelineConfig as TPipe
 from repro_torch.kernels.flash_attention.ref import (
-    flash_attention_bwd_ref, flash_attention_ref,
+    delta_ref, flash_attention_bwd_ref, flash_attention_ref,
+    flash_attention_stats_ref, grad_row_err,
 )
 from repro_torch.launch.steps import make_train_step as t_make_train_step
 from repro_torch.models import ModelConfig as TModelConfig
@@ -70,6 +77,7 @@ from repro_torch.store import KVCluster as TKV
 from repro_torch.store import SimNetwork as TNet
 
 JA = importlib.import_module("repro.models.attention")
+JL = importlib.import_module("repro.models.layers")
 
 pytestmark = pytest.mark.torch
 
@@ -139,6 +147,130 @@ def test_flash_backward_plain_version_matches_jax_grad(mode, heads,
     for g, w, t in zip(got, want, (tq, tk, tv)):
         assert g.shape == t.shape and g.dtype == t.dtype
         assert _rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+@pytest.mark.parametrize("positions", [False, True])
+def test_flash_statistics_plain_versions_match_jax(mode, positions):
+    """The row logsumexp of ``flash_attention_stats_ref`` against
+    ``jax.nn.logsumexp`` of the JAX package's masked scores (its default
+    path's products, softcap and ``_mask_bias``), within 1e-5 of max(1,
+    |lse|); its fp32 output against that path's output and ``delta_ref``
+    against rowsum(dO o O) taken in JAX, within 1e-5 of the largest
+    magnitude (fp32 sums in another order)."""
+    H, KV = 4, 2
+    B, S, D = 2, 80, 16
+    kw = BWD_MODES[mode]
+    rng = np.random.default_rng([H, KV, len(mode), positions, 1])
+    q, dout = (rng.normal(size=(B, S, H, D)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.normal(size=(B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    pos = (rng.permutation(S) // 3 if positions else np.arange(S)).astype(
+        np.int32)
+    spec = JA.AttnSpec(n_heads=H, n_kv_heads=KV, head_dim=D,
+                       attn_softcap=kw["softcap"],
+                       sliding_window=kw["window"], causal=kw["causal"])
+    jpos = jnp.asarray(pos)
+    qg = jnp.asarray(q).reshape(B, S, KV, H // KV, D)
+    scores = jnp.einsum("bqkgh,bskh->bkgqs", qg, jnp.asarray(k)).astype(
+        jnp.float32) * D ** -0.5
+    scores = JL.softcap(scores, kw["softcap"]) + \
+        JA._mask_bias(jpos, jpos, spec)[None, None, None]
+    want_lse = jax.nn.logsumexp(scores, axis=-1).reshape(B, H, S)
+    want_out = JA._attend_naive(qg, jnp.asarray(k), jnp.asarray(v), jpos,
+                                jpos, spec).reshape(B, S, H, D)
+    want_delta = jnp.sum(jnp.asarray(dout) * want_out, axis=-1).transpose(
+        0, 2, 1)
+    tkw = dict(kw, positions=_t(pos) if positions else None)
+    out32, lse = flash_attention_stats_ref(*(_t(a) for a in (q, k, v)),
+                                           **tkw)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert out32.shape == (B, S, H, D) and out32.dtype == torch.float32
+    assert float(np.max(np.abs(_np(lse) - _np(want_lse)) /
+                        np.maximum(1.0, np.abs(_np(want_lse))))) <= 1e-5
+    assert _rel(out32, want_out) <= 1e-5
+    assert _rel(delta_ref(out32, _t(dout)), want_delta) <= 1e-5
+
+
+LOG2E = 1.0 / np.log(2.0)
+#: dq's worst row (``grad_row_err``) against the plain version's bf16
+#: gradient that the bf16 backward must stay under when it takes delta from
+#: the forward's fp32 output (0.034 at global_capped's inputs below; from
+#: the bf16 output 0.110); the card gate is 2^-2.
+DELTA_EMULATION_TOL = 0.08
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _emulated_dq(q, k, v, dout, cap, bf16_output=False):
+    """dq of the bf16 kernels in float64 (causal): the forward's online
+    softmax over 80-key tiles with p (fp32) rounded to bf16 against the
+    running maximum before p.v, its fp32 output O and logsumexp; then
+    delta = rowsum(dO o O) (O rounded to bf16 first if ``bf16_output``),
+    P = 2^(s - lse), dS = P (dP - delta) (1 - tanh^2) rounded to bf16 as
+    the dQ product's operand, dq = scale dS K."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    scale = D ** -0.5
+    qf = q.double().reshape(B, S, KV, H // KV, D).permute(0, 2, 3, 1, 4)
+    kf = k.double().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.double().permute(0, 2, 1, 3)[:, :, None]
+    dof = dout.double().reshape(B, S, KV, H // KV, D).permute(0, 2, 3, 1, 4)
+    dot = qf @ kf.transpose(-1, -2)
+    if cap:
+        th = torch.tanh(dot * scale / cap)
+        s2, fac = cap * LOG2E * th, 1 - th * th
+    else:
+        s2, fac = dot * scale * LOG2E, torch.ones_like(dot)
+    ok = torch.ones(S, S, dtype=torch.bool).tril()
+    s2 = torch.where(ok, s2, torch.tensor(-1e38, dtype=torch.float64))
+    m = torch.full(s2.shape[:-1] + (1,), -1e38, dtype=torch.float64)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape, dtype=torch.float64)
+    for k0 in range(0, S, 80):
+        tile = s2[..., k0:k0 + 80]
+        mn = torch.maximum(m, tile.amax(-1, keepdim=True))
+        c = torch.exp2(m - mn)
+        p = torch.exp2(tile - mn).float().double()
+        l = l * c + p.sum(-1, keepdim=True)
+        acc = acc * c + _bf16(p) @ vf[..., k0:k0 + 80, :]
+        m = mn
+    out = (acc / l).float().double()
+    if bf16_output:
+        out = _bf16(out)
+    delta = (dof * out).sum(-1, keepdim=True)
+    P = torch.where(ok, torch.exp2(s2 - m - torch.log2(l)),
+                    torch.zeros((), dtype=torch.float64))
+    dS = _bf16(P * (dof @ vf.transpose(-1, -2) - delta) * fac)
+    return (scale * (dS @ kf)).permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+@pytest.mark.parametrize("case", ["global_capped", "gemma_2b"])
+def test_delta_from_the_fp32_output_keeps_dq_near_the_plain_version(case):
+    """The bf16 backward's delta taken from the forward's fp32 output, on
+    chip_smoke.py's global_capped row (q 30 times N(0, 1), softcap 50:
+    rows where dS cancels) and gemma-2b's (MQA, no cap), scaled down to
+    512 positions, head_dim 256: dq's worst row within
+    DELTA_EMULATION_TOL of the plain version's bf16 gradient; with the
+    softcap, delta from the bf16 output reads above that bound."""
+    H, KV, q_scale, cap = (4, 2, 30.0, 50.0) if case == "global_capped" \
+        else (4, 1, 1.0, 0.0)
+    S, D = 512, 256
+    rng = np.random.default_rng([0, S, H])
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (1, S, h, D), dtype=np.float32) * x).to(torch.bfloat16)
+        for h, x in ((H, q_scale), (KV, 1.0), (KV, 1.0), (H, 1.0)))
+    plain = flash_attention_bwd_ref(q, k, v, None, dout, causal=True,
+                                    softcap=cap)[0]
+    assert grad_row_err(_emulated_dq(q, k, v, dout, cap), plain) \
+        < DELTA_EMULATION_TOL
+    if cap:
+        assert grad_row_err(_emulated_dq(q, k, v, dout, cap,
+                                         bf16_output=True), plain) \
+            > DELTA_EMULATION_TOL
 
 
 # ---------------------------------------------------------------------------

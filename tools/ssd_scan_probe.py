@@ -20,7 +20,8 @@ recorded between the passes' launches, mean over --reps calls).
 --baseline builds a second library from other sources (for example the
 parent commit's ssd_scan.cu, saved under build/, which is gitignored and
 copied to the card) and times it in turns with the package's kernels on
-the same inputs: baseline, kernel, kernel, baseline.  A baseline that has
+the same inputs: baseline, kernel, kernel, baseline, and says whether
+the two builds' y and h_final are bitwise equal.  A baseline that has
 the passes' entry points takes the same path as the package; one built
 from ssd_scan.cu alone (whose entry point ssd_scan_launch keeps its
 signature) runs its one kernel.  A quick check of a kernel change;
@@ -118,13 +119,13 @@ def main() -> int:
         row = {"variant": variant, "dtype": dtype,
                "shape": [B, S, CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE],
                "chunk": CS.SSD_CHUNK, "path": path, "tol": tol}
-        calls = {}
+        calls, outs = {}, {}
         for name, lib in libs.items():
             run = "wgmma" if path == "wgmma" and hasattr(
                 lib, "ssd_chunk_state_launch") else "simple"
             calls[name] = partial(SS.scan, *inputs, chunk=CS.SSD_CHUNK,
                                   lib=lib, path=run)
-            y, h = calls[name]()
+            y, h = outs[name] = calls[name]()
             row[f"{name}_path"] = run
             row[f"{name}_rel_err"] = {
                 "y": float((y.float() - want_y).abs().max()
@@ -132,7 +133,11 @@ def main() -> int:
                 "h_final": float((h - want_h).abs().max()
                                  / want_h.abs().max())}
             del y, h
-        del want_y, want_h
+        if args.baseline:
+            row["bitwise_equal_to_baseline"] = all(
+                bool(torch.equal(a, b))
+                for a, b in zip(outs["kernel"], outs["baseline"]))
+        del want_y, want_h, outs
         torch.cuda.empty_cache()
         for name in order:
             row.setdefault(f"{name}_ms", []).append(
