@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
-qwen3-moe-30b-a3b serving, gemma-2b training) on one CUDA card.
+qwen3-moe-30b-a3b serving, gemma-2b and mamba2-780m training) on one CUDA
+card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -64,6 +65,16 @@ exits non-zero:
            the share of the bound reached.  The yardstick is the
            backward of scaled_dot_product_attention (causal rows) or of
            compiled FlexAttention (softcap, window, positions).
+           ssd_scan_bwd: the SSD scan's gradient (dy given, dh_final none,
+           from the forward's fp32 statistics as autograd's SSDScan hands
+           them over) at mamba2-780m's training shape (bf16 [1, 4096], 48
+           heads of 64, state 128, chunk 256) and fp32 [1, 1024]: bf16
+           within the flash backward's two gates against the plain
+           backward passes (ref.ssd_passes_bwd, with the bf16 kernel's
+           rounding, and in fp32 as the exact gradient); fp32 to 1e-4 of
+           the plain version's autograd; two launches bitwise equal; each
+           of the four kernels' device ms, the bound and its share.  No
+           PyTorch call computes the SSD gradient: no library yardstick.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -179,13 +190,29 @@ exits non-zero:
            against the same through the plain versions on the card (1e-4);
            2 steps, a save, a restore into a fresh Trainer and 2 more steps
            give the state_fingerprint of 4 uninterrupted steps.
+  ssm_train  mamba2-780m at full width and depth (48 layers, 780 M fp32
+           parameters and fp32 AdamW moments, 9.4 GB; bf16 compute, remat)
+           trained as train trains gemma-2b, tokens [1, 4096]: 4 timed
+           steps (ssd_scan launches a step: 96 forward with the
+           recompute, 48 backward), one traced step (device time by
+           kernel class), peak memory; finite losses and norms, parameters
+           that move.  No save (train saves once).
+  ssm_train_parity  mamba2-780m cut to 2 layers at full width, fp32,
+           remat, tokens [1, 1024]: the loss and every gradient leaf
+           through the ssd_scan kernels against the same through the plain
+           version (autograd through ref.ssd_chunked) on the card (1e-4),
+           the worst leaves named; then each layer's scan, on the inputs
+           and dy of the kernels' run, reduced into its A_log and dt_bias
+           by the kernels and by the plain version in fp32, each held to
+           the plain version in float64 (the kernels' within 1e-4).
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
 time of one call: for each CUDA kernel of the call, the mean over the
 launches the trace recorded ("device_launches_traced" of "device_reps"
 calls), summed over the call's kernels ("device_kernels_ms" gives each;
-the SSD scan's wgmma path has three, every other call one).  The trace
+the SSD scan's wgmma path has three, its backward four, the flash
+backward up to four, every other call one).  The trace
 phases give the kernels' share of traced prefill device time.  The model
 phases report the peak device memory of the timed prefill itself, before
 the checks of its logits (isfinite builds temporaries as large as the
@@ -294,8 +321,22 @@ SSD_ROWS = (
     ("main_path", "bfloat16", *SSM_PREFILL, 5e-2),
 )
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 256
-#: the common part of the names of the SSD scan's CUDA kernels (both paths)
+#: the common part of the names of the SSD scan's CUDA kernels (both paths
+#: of the forward, and the backward's)
 SSD_KERNELS = "ssd_"
+#: the common part of the names of the SSD backward's CUDA kernels
+SSD_BWD_KERNELS = "ssd_bwd_"
+# ssd_scan backward rows at mamba2-780m's widths: (variant, dtype, B, S);
+# the first is ssm_train's shape.  fp32 gradients to BWD_FP32_TOL of the
+# plain version's (autograd through ref.ssd_chunked); bf16 ones within the
+# flash backward's two gates (ref.BF16_GRAD_ROW_TOL by grad_row_err against
+# the plain backward passes with the bf16 kernel's rounding,
+# ref.ssd_passes_bwd, and ref.BF16_GRAD_RMS_RATIO by grad_rms_err against
+# the exact gradient, those passes in fp32).
+SSD_BWD_ROWS = (
+    ("train_bf16", "bfloat16", 1, 4096),
+    ("fp32", "float32", 1, 1024),
+)
 
 # qwen3-moe-30b-a3b serving (src/repro_torch/configs/qwen3_moe_30b_a3b.py)
 MOE_ARCH = "qwen3-moe-30b-a3b"
@@ -352,6 +393,9 @@ TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOKENS = 2, 1024
 #: magnitude (the kernels' fp32 sums run in another order; the CPU twins
 #: hold the plain versions to the JAX package within the same bound)
 TRAIN_PARITY_TOL = 1e-4
+# mamba2-780m training: TRAIN_TOKENS as gemma-2b's, no save (train saves
+# once); its parity cut, 2 layers at full width, fp32, tokens [1, 1024]
+SSM_TRAIN_PARITY_LAYERS, SSM_TRAIN_PARITY_TOKENS = 2, 1024
 
 
 def emit(obj) -> None:
@@ -1040,6 +1084,122 @@ def ssd_rows(seed: int):
                      "bound_ms": b_ms, "bound_by": b_by, "flops": nops,
                      "bytes": nbytes, "library": None, "library_ms": None})
         del args, y, h, kern, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssd_bwd_ops(B: int, S: int) -> int:
+    """The products the SSD gradient needs, on the (c/64)(c/64 + 1)/2
+    64 x 64 tile pairs at or below each chunk's diagonal: per (batch,
+    chunk) C B^T, and dCB B and dCB^T C taken once on the heads' sum of dCB
+    (B and C are shared by the heads; N deep); per (batch, chunk, head)
+    dy x^T and scores^T dy (P deep), and dy h, x dS, B dS and pass (a)'s
+    exp(acs) dy^T C (c P N each).  The kernel itself takes all five tile
+    products per head."""
+    c, P, N = SSD_CHUNK, SSD_HEAD_DIM, SSD_STATE
+    n = c // 64
+    tiles = n * (n + 1) // 2 * 64 * 64
+    macs = tiles * 3 * N + SSD_HEADS * (tiles * 2 * P + 4 * c * P * N)
+    return 2 * B * (S // c) * macs
+
+
+def ssd_bwd_rows(seed: int):
+    """The ssd_scan backward kernel against its plain versions at
+    mamba2-780m's widths (SSD_BWD_ROWS), from the forward's statistics as
+    autograd's SSDScan hands them over, dh_final None (the training path):
+    the gates of SSD_BWD_ROWS, two launches bitwise equal, times (each
+    kernel's device ms too), bound and the share of it reached.  No
+    PyTorch call computes the SSD gradient: no library yardstick."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_passes_bwd
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    names = ("dxh", "ddt", "dA", "dBc", "dCc", "dD")
+
+    def autograd_plain(args, dy):
+        leaves = [a.detach().float().requires_grad_() for a in args]
+        with torch.enable_grad():
+            y, _ = ssd_chunked(*leaves, SSD_CHUNK)
+            return torch.autograd.grad(y, leaves, dy.float())
+
+    rows = []
+    for i, (variant, dtype, B, S) in enumerate(SSD_BWD_ROWS):
+        bf16 = dtype == "bfloat16"
+        args = ssd_inputs(B, S, getattr(torch, dtype), seed + 10 + i)
+        g = torch.Generator(device="cuda").manual_seed(seed + 20 + i)
+        dy = torch.randn(args[0].shape, generator=g,
+                         device="cuda").to(args[0].dtype)
+        _, _, h_before = K.scan(*args, chunk=SSD_CHUNK, stats=True)
+        call = partial(K.scan_bwd, *args, dy, None, h_before,
+                       chunk=SSD_CHUNK)
+        K.reset_launches()
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        launched = K.bwd_launches["ssd_scan_bwd"]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        if bf16:
+            plain_call = partial(ssd_passes_bwd, *args, dy, None, SSD_CHUNK,
+                                 operand_dtype=torch.bfloat16)
+            want = plain_call()
+            exact = ssd_passes_bwd(*(a.float() for a in args), dy.float(),
+                                   None, SSD_CHUNK)
+            row_err = {n: grad_row_err(a, w)
+                       for n, a, w in zip(names, got, want)}
+            rms = {n: grad_rms_err(a, e) for n, a, e in zip(names, got, exact)}
+            plain_rms = {n: grad_rms_err(w, e)
+                         for n, w, e in zip(names, want, exact)}
+            ratio = {n: rms[n] / max(plain_rms[n], 1e-30) for n in names}
+            faults = [f"{n}: row {row_err[n]:.3g}" for n in names
+                      if not row_err[n] <= BF16_GRAD_ROW_TOL] + \
+                     [f"{n}: rms ratio {ratio[n]:.3g}" for n in names
+                      if not ratio[n] <= BF16_GRAD_RMS_RATIO]
+            del exact
+        else:
+            plain_call = partial(autograd_plain, args, dy)
+            want = plain_call()
+            row_err = rms = plain_rms = ratio = None
+            faults = []
+        err = {n: float((a.float() - w.float()).abs().max())
+               for n, a, w in zip(names, got, want)}
+        rel = {n: err[n] / max(float(w.float().abs().max()), 1e-30)
+               for n, w in zip(names, want)}
+        if not bf16:
+            faults = [f"{n}: rel {rel[n]:.3g}" for n in names
+                      if not rel[n] <= BWD_FP32_TOL]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        if faults or not bitwise or not finite or launched != 2:
+            raise AssertionError(
+                f"ssd_scan backward {variant}: {'; '.join(faults)}; bitwise "
+                f"{bitwise}, finite {finite}, launches {launched}")
+        del got, want
+        torch.cuda.empty_cache()
+        elem = args[0].element_size()
+        H, P, N = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+        # x, dy, dx; dt, ddt; B, C, dB, dC; A, D, dA, dD; h_before (fp32)
+        nbytes = (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N
+                  + 4 * H) * elem + B * (S // SSD_CHUNK) * H * P * N * 4
+        nops = ssd_bwd_ops(B, S)
+        b_ms, b_by = bound(nbytes, nops, FLOPS_PER_S[dtype])
+        row = {"name": "ssd_scan_bwd", "variant": variant,
+               "shape": [B, S, H, P, N], "chunk": SSD_CHUNK, "dtype": dtype,
+               "launches": launched, "max_abs_err": max(err.values()),
+               "abs_err": err, "rel_err": rel, "row_scaled_err": row_err,
+               "rms_err": rms, "plain_rms_err": plain_rms,
+               "rms_err_ratio": ratio, "bitwise_repeatable": bitwise,
+               "ms": cuda_ms(call, 5), "plain_ms": cuda_ms(plain_call, 2),
+               **kernel_device_ms(call, 5, SSD_BWD_KERNELS),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": nops,
+               "bytes": nbytes, "library": None, "library_ms": None}
+        row["bound_share"] = b_ms / row["ms"]
+        rows.append(row)
+        del args, dy, h_before, call, plain_call
         torch.cuda.empty_cache()
     return rows
 
@@ -2031,12 +2191,15 @@ def state_bytes(trainer) -> int:
         trainer.params, trainer.opt_state) for t in tree_leaves(tree))
 
 
-def train_phase(seed: int, device="cuda"):
-    """gemma-2b at full width and depth (fp32 parameters and moments, bf16
-    compute, remat) trained TRAIN_STEPS steps on tokens [1, 4096] from the
+def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
+                kernel=None, save=True):
+    """``arch`` at full width and depth (fp32 parameters and moments, bf16
+    compute, remat) trained TRAIN_STEPS steps on TRAIN_TOKENS from the
     port's SyntheticTokens, as launch/train.py drives it, and one more
-    step traced on the card (device time by kernel class); then one save
-    of the whole state through the CheckpointManager."""
+    step traced on the card (device time by kernel class); then, with
+    ``save``, one save of the whole state through the CheckpointManager.
+    ``kernel`` is the kernel package whose forward and backward every
+    layer launches each step (flash_attention by default)."""
     import shutil
 
     import torch
@@ -2044,46 +2207,47 @@ def train_phase(seed: int, device="cuda"):
     from repro_torch.kernels import dvv_ops, flash_attention as FA
     from repro_torch.models import count_params
 
-    cfg = get_config(TRAIN_ARCH)
-    blob = ROOT / "build" / "chip_smoke_ckpt" / "train"
+    kernel = kernel or FA
+    (fwd_name,), (bwd_name,) = kernel.launches, kernel.bwd_launches
+    cfg, tokens = get_config(arch), TRAIN_TOKENS
+    blob = ROOT / "build" / "chip_smoke_ckpt" / phase
     shutil.rmtree(blob, ignore_errors=True)
     blob.mkdir(parents=True)
-    trainer, store = make_trainer(cfg, TRAIN_TOKENS, blob, seed,
+    trainer, store = make_trainer(cfg, tokens, blob, seed,
                                   device=device, steps=TRAIN_STEPS + 1)
     t = time.perf_counter()
     restored = trainer.try_restore()
     torch.cuda.synchronize()
-    out = {"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+    out = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "param_count": count_params(cfg),
            "param_dtype": cfg.param_dtype,
            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
-           "tokens": list(TRAIN_TOKENS), "restored": restored,
+           "tokens": list(tokens), "restored": restored,
            "init_s": time.perf_counter() - t,
            "state_bytes": state_bytes(trainer)}
+    layer0 = trainer.params["blocks"]["layer0"]
+    first = layer0["attn"]["wq"] if "attn" in layer0 else \
+        layer0["mamba"]["in_x"]
     probe = {"embed": trainer.params["embed"][:8].clone(),
-             "wq": trainer.params["blocks"]["layer0"]["attn"]["wq"][0]
-             .clone()}
+             "layer0": first[0].clone()}
     torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
+    kernel.reset_launches()
     dvv_ops.reset_launches()
     steps = []
     for _ in range(TRAIN_STEPS):
-        fwd, bwd = FA.launches["flash_attention"], \
-            FA.bwd_launches["flash_attention_bwd"]
+        fwd, bwd = kernel.launches[fwd_name], kernel.bwd_launches[bwd_name]
         t = time.perf_counter()
         trainer.run(steps=1)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
         row = trainer.metrics_log[-1]
         steps.append({"step": row["step"], "s": sec,
-                      "tokens_per_s": TRAIN_TOKENS[0] * TRAIN_TOKENS[1]
-                      / sec, "loss": row["loss"],
-                      "grad_norm": row["grad_norm"],
-                      "flash_attention": FA.launches["flash_attention"]
-                      - fwd,
-                      "flash_attention_bwd":
-                      FA.bwd_launches["flash_attention_bwd"] - bwd})
-    launches = {**FA.launches, **FA.bwd_launches, **dvv_ops.launches}
+                      "tokens_per_s": tokens[0] * tokens[1] / sec,
+                      "loss": row["loss"], "grad_norm": row["grad_norm"],
+                      fwd_name: kernel.launches[fwd_name] - fwd,
+                      bwd_name: kernel.bwd_launches[bwd_name] - bwd})
+    launches = {**kernel.launches, **kernel.bwd_launches,
+                **dvv_ops.launches}
     out.update(steps=steps, launches=launches,
                peak_bytes=torch.cuda.max_memory_allocated(),
                s_per_step_after_first=sum(r["s"] for r in steps[1:])
@@ -2092,22 +2256,25 @@ def train_phase(seed: int, device="cuda"):
         out["trace"] = traced_train_step(trainer)
     moved = {n: not torch.equal(t, ref) for n, t, ref in (
         ("embed", trainer.params["embed"][:8], probe["embed"]),
-        ("wq", trainer.params["blocks"]["layer0"]["attn"]["wq"][0],
-         probe["wq"]))}
+        ("layer0", first[0], probe["layer0"]))}
     out["params_moved"] = moved
     bad = [r for r in steps if not (math.isfinite(r["loss"])
                                     and math.isfinite(r["grad_norm"]))]
     if bad or not all(moved.values()):
         raise AssertionError(f"training gave non-finite losses or norms "
                              f"{bad}, or left parameters in place {moved}")
-    per_step = [(r["flash_attention"], r["flash_attention_bwd"])
-                for r in steps]
+    per_step = [(r[fwd_name], r[bwd_name]) for r in steps]
     want = (2 * cfg.n_layers, cfg.n_layers) if cfg.remat \
         else (cfg.n_layers, cfg.n_layers)
     if device == "cuda" and per_step != [want] * TRAIN_STEPS:
-        raise AssertionError(f"flash launches per step {per_step}, "
+        raise AssertionError(f"{fwd_name} launches per step {per_step}, "
                              f"expected {want} (forward with its "
                              f"recompute, backward)")
+    if not save:
+        del trainer
+        shutil.rmtree(blob, ignore_errors=True)
+        torch.cuda.empty_cache()
+        return out
 
     need = 2 * out["state_bytes"]
     free = shutil.disk_usage(blob).free
@@ -2117,7 +2284,7 @@ def train_phase(seed: int, device="cuda"):
         saver = None
         torch.cuda.empty_cache()
         saver, _ = make_trainer(replace_layers(cfg, TRAIN_PARITY_LAYERS),
-                                TRAIN_TOKENS, blob, seed, store=store,
+                                tokens, blob, seed, store=store,
                                 device=device)
         saver.init_fresh()
         label = f"{TRAIN_PARITY_LAYERS}-layer cut: {free} bytes free, " \
@@ -2140,14 +2307,17 @@ def train_phase(seed: int, device="cuda"):
 def traced_train_step(trainer):
     """One more step under torch.profiler on the card: device-busy against
     wall seconds and device time by kernel class (the flash forward and
-    backward kernels, cuBLAS's GEMMs, the rest)."""
+    backward kernels, the SSD scan's forward and backward kernels,
+    cuBLAS's GEMMs, the rest)."""
     busy_us, per, wall_s = device_profile(lambda: trainer.run(steps=1))
-    classes = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0,
-               "other": 0.0}
+    classes = {"flash_fwd": 0.0, "flash_bwd": 0.0, "ssd_fwd": 0.0,
+               "ssd_bwd": 0.0, "gemm": 0.0, "other": 0.0}
     for key, (_, us) in per.items():
         name = key.lower()
         cls = "flash_fwd" if "flash_fwd_" in name else \
             "flash_bwd" if "flash_bwd_" in name else \
+            "ssd_bwd" if SSD_BWD_KERNELS in name else \
+            "ssd_fwd" if SSD_KERNELS in name else \
             "gemm" if any(g in name for g in GEMM_KERNELS) else "other"
         classes[cls] += us / 1e6
     return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
@@ -2190,6 +2360,15 @@ def plain_attention():
         yield
     finally:
         attention.gqa_flash_attention = original
+
+
+def leaf_paths(tree, prefix: str = ""):
+    """The names of ``tree``'s leaves ("blocks/layer0/mamba/in_x"), in
+    tree_leaves order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
 
 
 def loss_and_grads(params, batch, cfg):
@@ -2292,6 +2471,184 @@ def train_parity_phase(seed: int, device="cuda"):
     return out
 
 
+@contextmanager
+def plain_ssd():
+    """The SSM mixer's scan through the plain version (``repro_torch.
+    models.ssm`` calls ``ssd_scan`` by that name) on card tensors too,
+    with autograd's gradient: the reference side of ssm_train_parity."""
+    import importlib
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    ssm = importlib.import_module("repro_torch.models.ssm")
+    original = ssm.ssd_scan
+
+    def plain(xh, dt, A, Bc, Cc, D, *, chunk):
+        y, h = ssd_chunked(xh, dt, A, Bc, Cc, D, chunk)
+        return y, h.float()
+
+    ssm.ssd_scan = plain
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = original
+
+
+@contextmanager
+def recorded_ssd(calls: list):
+    """The SSM mixer's scan (``repro_torch.models.ssm`` calls ``ssd_scan``
+    by that name) as it is, each call that autograd records appended to
+    ``calls``: its inputs and, once the backward reaches it, dy, the
+    cotangent of y.  A remat recompute's call gets no dy (its graph is
+    not walked)."""
+    import importlib
+
+    ssm = importlib.import_module("repro_torch.models.ssm")
+    original = ssm.ssd_scan
+
+    def record(*args, chunk):
+        y, h = original(*args, chunk=chunk)
+        if y.requires_grad:
+            entry = {"inputs": [a.detach() for a in args]}
+            y.register_hook(lambda g: entry.__setitem__("dy", g.detach()))
+            calls.append(entry)
+        return y, h
+
+    ssm.ssd_scan = record
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = original
+
+
+def ssd_float64_witness(entry, chunk: int):
+    """One recorded scan's gradient on its own inputs and dy three ways:
+    through the kernels (fp32), autograd through the plain version in
+    fp32, and the same in float64.  Reduced as the model reduces them
+    into the leaves A_log (dA A, since A = -exp(A_log)) and dt_bias (sum
+    over (b, s) of ddt (1 - exp(-dt)), the derivative of the softplus
+    that made dt), each side's error against float64 over the largest
+    float64 magnitude, and kernels against plain fp32."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    args, dy = entry["inputs"], entry["dy"]
+
+    def leaves(fn, dtype):
+        xs = [a.detach().to(dtype).requires_grad_() for a in args]
+        with torch.enable_grad():
+            y, _ = fn(*xs)
+        _, ddt, dA, *_ = torch.autograd.grad(y, xs, dy.to(dtype))
+        dt, A = args[1].double(), args[2].double()
+        return {"A_log": dA.double() * A,
+                "dt_bias": (ddt.double() * -torch.expm1(-dt)).sum((0, 1))}
+
+    sides = {"kernels": leaves(partial(ssd_scan, chunk=chunk), torch.float32),
+             "plain": leaves(lambda *a: ssd_chunked(*a, chunk),
+                             torch.float32),
+             "float64": leaves(lambda *a: ssd_chunked(*a, chunk),
+                               torch.float64)}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    return {leaf: {"kernels_vs_float64": rel(sides["kernels"][leaf], w),
+                   "plain_vs_float64": rel(sides["plain"][leaf], w),
+                   "kernels_vs_plain": rel(sides["kernels"][leaf],
+                                           sides["plain"][leaf])}
+            for leaf, w in sides["float64"].items()}
+
+
+def ssm_grad_parity(seed: int, device="cuda"):
+    """mamba2-780m cut to SSM_TRAIN_PARITY_LAYERS layers at full width,
+    fp32 compute, remat, tokens [1, SSM_TRAIN_PARITY_TOKENS]: the loss and
+    every gradient leaf through the ssd_scan kernels (forward, recompute,
+    backward) against the same through the plain version on the card,
+    with the launches of each side; then each layer's scan, on the inputs
+    and dy the kernels' run gave it, reduced into its A_log and dt_bias
+    leaves by the kernels, the plain version in fp32 and in float64
+    (``ssd_float64_witness``).  Reads only: ``ssm_train_parity_phase``
+    holds them to their bounds."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import PipelineConfig, SyntheticTokens
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import init_params
+
+    cfg = replace(replace_layers(get_config(SSM_ARCH),
+                                 SSM_TRAIN_PARITY_LAYERS),
+                  compute_dtype="float32")
+    tokens = (1, SSM_TRAIN_PARITY_TOKENS)
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    params = init_params(gen, cfg, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticTokens(
+        PipelineConfig(cfg.vocab_size, tokens[1], tokens[0], seed=seed))
+        .next_batch().items()}
+    calls = []
+    SS.reset_launches()
+    with recorded_ssd(calls):
+        loss, grads = loss_and_grads(params, batch, cfg)
+    torch.cuda.synchronize()
+    launches = {**SS.launches, **SS.bwd_launches}
+    with plain_ssd():
+        SS.reset_launches()
+        want_loss, want = loss_and_grads(params, batch, cfg)
+        plain_launches = {**SS.launches, **SS.bwd_launches}
+    loss_diff = abs(float(loss) - float(want_loss))
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(grads, want)]
+    finite = {"kernels": all(bool(torch.isfinite(g).all()) for g in grads),
+              "plain": all(bool(torch.isfinite(w).all()) for w in want)}
+    names = leaf_paths(params)
+    worst = sorted(zip(rel, names), reverse=True)[:4]
+    del params, grads, want
+    witness = {f"layer{i}": ssd_float64_witness(c, cfg.ssm_chunk)
+               for i, c in enumerate(c for c in calls if "dy" in c)}
+    del calls
+    torch.cuda.empty_cache()
+    return {"phase": "ssm_train_parity", "arch": cfg.name, "seed": seed,
+            "finite": finite, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+            "remat": cfg.remat, "tokens": list(tokens), "loss": float(loss),
+            "loss_abs_diff": loss_diff, "grad_leaves": len(rel),
+            "grad_max_rel_diff": max(rel),
+            "grad_rel_diff_worst": {name: r for r, name in worst},
+            "float64_witness": witness, "tol": TRAIN_PARITY_TOL,
+            "kernel_launches": launches, "plain_launches": plain_launches}
+
+
+def ssm_train_parity_phase(seed: int, device="cuda"):
+    """``ssm_grad_parity``, held to its bounds: the loss and every leaf
+    within TRAIN_PARITY_TOL, finite on both sides, the layers' scans
+    through the kernels (twice a step with remat) and their backward,
+    the plain side through none, and each layer's A_log and dt_bias
+    through the kernels within TRAIN_PARITY_TOL of float64."""
+    out = ssm_grad_parity(seed, device)
+    n_layers = out["n_layers"]
+    if not (out["loss_abs_diff"] <= TRAIN_PARITY_TOL and
+            out["grad_max_rel_diff"] <= TRAIN_PARITY_TOL and
+            all(out["finite"].values())):
+        raise AssertionError(f"loss or gradients through the kernels differ "
+                             f"from the plain version's: {out}")
+    want_launches = {"ssd_scan": (2 if out["remat"] else 1) * n_layers,
+                     "ssd_scan_bwd": n_layers}
+    if device == "cuda" and out["kernel_launches"] != want_launches or \
+            set(out["plain_launches"].values()) != {0}:
+        raise AssertionError(f"parity launches {out['kernel_launches']}, "
+                             f"plain {out['plain_launches']}")
+    witness = out["float64_witness"]
+    if len(witness) != n_layers or any(
+            not side["kernels_vs_float64"] <= TRAIN_PARITY_TOL
+            for layer in witness.values() for side in layer.values()):
+        raise AssertionError(f"the kernels' A_log or dt_bias is not within "
+                             f"{TRAIN_PARITY_TOL} of float64 in every "
+                             f"layer: {witness}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def ptxas_lines(log: str):
@@ -2341,7 +2698,7 @@ def main() -> int:
 
     rows = dvv_rows(args.seed) + flash_rows(args.seed) + \
         flash_mrope_row(args.seed) + flash_bwd_rows(args.seed) + \
-        ssd_rows(args.seed)
+        ssd_rows(args.seed) + ssd_bwd_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)
@@ -2404,6 +2761,10 @@ def main() -> int:
     train = train_phase(args.seed)
     emit(train)
     emit(train_parity_phase(args.seed))
+    ssm_train = train_phase(args.seed, arch=SSM_ARCH, phase="ssm_train",
+                            kernel=SS, save=False)
+    emit(ssm_train)
+    emit(ssm_train_parity_phase(args.seed))
 
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
@@ -2416,6 +2777,9 @@ def main() -> int:
         "flash_attention_bwd":
             "src/repro/kernels/flash_attention/flash_attention.py:93",
         "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
+        # the gradient of that kernel's function, which the JAX package
+        # takes by autodiff of its jnp ssd_chunked (models/ssm.py:106)
+        "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
     }
     summary = []
     for r in rows:
@@ -2449,6 +2813,15 @@ def main() -> int:
             extra = {"variant": r["variant"], "dtype": r["dtype"],
                      "library": None, "rel_err": r["rel_err"],
                      "path": r["path"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
+        elif r["name"] == "ssd_scan_bwd":
+            if r["variant"] != "train_bf16":
+                continue
+            launches = ssm_train["launches"]["ssd_scan_bwd"]
+            source = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": None, "row_scaled_err": r["row_scaled_err"],
+                     "rms_err_ratio": r["rms_err_ratio"],
                      "device_kernels_ms": r["device_kernels_ms"]}
         elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
             launches = store["launches"][r["name"]]

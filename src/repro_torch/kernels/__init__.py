@@ -11,8 +11,8 @@ tensors), and <name>/ref.py the plain torch versions:
   * flash_attention — online-softmax attention with GQA, causal and
                       sliding-window masks and a logit softcap, forward
                       (prefill, training) and backward (training)
-  * ssd_scan        — the Mamba-2 SSD chunked forward scan (prefill of
-                      every SSM layer)
+  * ssd_scan        — the Mamba-2 SSD chunked scan, forward (prefill,
+                      training) and backward (training)
 
 ``build.py`` compiles each package with ``nvcc`` at first use.
 """

@@ -1,3 +1,3 @@
-from .ops import launches, reset_launches, ssd_scan
+from .ops import bwd_launches, launches, reset_launches, ssd_scan
 
-__all__ = ["ssd_scan", "launches", "reset_launches"]
+__all__ = ["ssd_scan", "launches", "bwd_launches", "reset_launches"]

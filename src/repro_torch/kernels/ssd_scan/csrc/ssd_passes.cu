@@ -16,7 +16,9 @@
 //     and acs_end, the chunk's total log decay;
 //   pass 2, ssd_state_pass, sequential over j, parallel over (b, h, P N):
 //     h_before_j = h, then h <- exp(acs_end_j) h + S_j; h_before in bf16
-//     (the operand dtype of pass 3), the last h as fp32 h_final;
+//     (the operand dtype of pass 3), the last h as fp32 h_final; and, where
+//     autograd records the call, h_before in fp32 as well (the backward's
+//     statistics, ssd_scan_bwd.cu);
 //   pass 3, ssd_chunk_out, one warpgroup per (b, j, h, 64-row t-tile):
 //     y_t = exp(acs_t) C_t . h_before_j
 //         + sum_{s <= t} (C_t . B_s) exp(acs_t - acs_s) dt_s x_s + D x_t.
@@ -272,6 +274,7 @@ __global__ void __launch_bounds__(kPassThreads)
 ssd_state_pass_kernel(const float4* __restrict__ states,
                       const float* __restrict__ chunk_sum,
                       uint2* __restrict__ h_before,
+                      float4* __restrict__ h_before32,
                       float4* __restrict__ h_final, int H, int nc,
                       int total) {
   constexpr int kPN4 = kP * kN / 4;   // float4s of one (b, j, h) state
@@ -298,7 +301,9 @@ ssd_state_pass_kernel(const float4* __restrict__ states,
         uint2 hb;
         hb.x = pack_bf16(hv.x, hv.y);
         hb.y = pack_bf16(hv.z, hv.w);
-        h_before[(((int64_t)b * nc + j0 + k) * H + h) * kPN4 + e] = hb;
+        const int64_t at = (((int64_t)b * nc + j0 + k) * H + h) * kPN4 + e;
+        h_before[at] = hb;
+        if (h_before32) h_before32[at] = hv;
         hv.x = fmaf(dec[k], hv.x, sv[k].x);
         hv.y = fmaf(dec[k], hv.y, sv[k].y);
         hv.z = fmaf(dec[k], hv.z, sv[k].z);
@@ -558,7 +563,9 @@ Params params(const void* dt, const void* A, const void* D, int S, int H,
 // the last axis of x, B, C and y contiguous; A and D are contiguous [H]
 // (a_bf16, d_bf16: bf16, else fp32).  Scratch, contiguous: states fp32
 // [B, nc, H, P, N], chunk_sum fp32 [B, H, nc], h_before bf16
-// [B, nc, H, P, N]; h_final fp32 [B, H, P, N].
+// [B, nc, H, P, N]; h_final fp32 [B, H, P, N].  ssd_state_pass_stats_launch
+// also writes h_before in fp32, [B, nc, H, P, N] contiguous, into
+// h_before32 (null: not written, as ssd_state_pass_launch).
 
 extern "C" int ssd_chunk_state_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
@@ -585,19 +592,30 @@ extern "C" int ssd_chunk_state_launch(
   return (int)cudaGetLastError();
 }
 
-extern "C" int ssd_state_pass_launch(const float* states,
-                                     const float* chunk_sum, void* h_before,
-                                     float* h_final, int B, int nc, int H,
-                                     int P, int N, void* stream) {
+extern "C" int ssd_state_pass_stats_launch(const float* states,
+                                           const float* chunk_sum,
+                                           void* h_before, float* h_before32,
+                                           float* h_final, int B, int nc,
+                                           int H, int P, int N,
+                                           void* stream) {
   if (B <= 0 || nc <= 0 || H <= 0 || P != kP || N != kN)
     return (int)cudaErrorInvalidValue;
   const int total = B * H * (kP * kN / 4);
   ssd_state_pass_kernel<<<(total + kPassThreads - 1) / kPassThreads,
                           kPassThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(states), chunk_sum,
-      reinterpret_cast<uint2*>(h_before), reinterpret_cast<float4*>(h_final),
-      H, nc, total);
+      reinterpret_cast<uint2*>(h_before),
+      reinterpret_cast<float4*>(h_before32),
+      reinterpret_cast<float4*>(h_final), H, nc, total);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ssd_state_pass_launch(const float* states,
+                                     const float* chunk_sum, void* h_before,
+                                     float* h_final, int B, int nc, int H,
+                                     int P, int N, void* stream) {
+  return ssd_state_pass_stats_launch(states, chunk_sum, h_before, nullptr,
+                                     h_final, B, nc, H, P, N, stream);
 }
 
 extern "C" int ssd_chunk_out_launch(

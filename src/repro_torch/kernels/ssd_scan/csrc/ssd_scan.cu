@@ -75,6 +75,8 @@ struct Params {
   const void* D;
   void* y;
   float* h_final;
+  float* h_before;   // fp32 [B,nc,H,P,N], the state before each chunk, or
+                     // null (not written)
   // strides in elements; the last axis of x, B, C and y is contiguous
   int64_t x_b, x_s, x_h, dt_b, dt_s, dt_h, b_b, b_s, c_b, c_s, y_b, y_s, y_h;
   int H, S, P, N, chunk;
@@ -304,6 +306,21 @@ ssd_scan_kernel(const Params p) {
   const int nc = p.S / c;
   for (int ic = 0; ic < nc; ++ic) {
     const int s0 = ic * c;
+    if (p.h_before) {                 // the backward's statistics: h now
+      float* hb = p.h_before + (((int64_t)b * nc + ic) * p.H + h) * P * N;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int q = 4 * ti + i;
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh) {
+          const int n = 4 * ci + 64 * jh;
+          if (q < P && n < N)
+            *reinterpret_cast<float4*>(hb + q * N + n) =
+                make_float4(hr[i][4 * jh], hr[i][4 * jh + 1],
+                            hr[i][4 * jh + 2], hr[i][4 * jh + 3]);
+        }
+      }
+    }
     __syncthreads();                  // the last chunk's readers are done
     for (int i = tid; i < c; i += kThreads)
       dts[i] = to_f(dtg[(int64_t)(s0 + i) * p.dt_s]);
@@ -493,7 +510,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  x [B,S,H,P], dt [B,S,H],
+// Plain C entry points, loaded with ctypes.  x [B,S,H,P], dt [B,S,H],
 // B and C [B,S,N] and y [B,S,H,P] are given by their strides (13 int64:
 // x's b, s, h; dt's b, s, h; B's b, s; C's b, s; y's b, s, h), with the
 // last axis of x, B, C and y contiguous; A and D are contiguous [H];
@@ -503,18 +520,21 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // accepted); shapes the thread mappings do not cover (P > 64, N > 128,
 // P or N or chunk not a multiple of 4, a chunk that is neither <= 64 nor a
 // multiple of 64, S % chunk != 0) return cudaErrorInvalidValue.
-extern "C" int ssd_scan_launch(
+// ssd_scan_stats_launch also writes the state before each chunk, fp32
+// [B,nc,H,P,N] contiguous, into h_before (the backward's statistics; null:
+// not written, and the kernel computes as ssd_scan_launch's).
+extern "C" int ssd_scan_stats_launch(
     const void* x, const void* dt, const void* A, const void* Bm,
-    const void* Cm, const void* D, void* y, float* h_final, int B, int S,
-    int H, int P, int N, int chunk, const int64_t* strides, int io_bf16,
-    int a_bf16, int d_bf16, void* stream) {
+    const void* Cm, const void* D, void* y, float* h_final, float* h_before,
+    int B, int S, int H, int P, int N, int chunk, const int64_t* strides,
+    int io_bf16, int a_bf16, int d_bf16, void* stream) {
   if (P <= 0 || P > kMaxP || P % 4 || N <= 0 || N > kMaxN || N % 4 ||
       chunk <= 0 || chunk % 4 || (chunk > kTile && chunk % kTile) ||
       S % chunk || B <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.dt = dt; p.A = A; p.Bm = Bm; p.Cm = Cm; p.D = D;
-  p.y = y; p.h_final = h_final;
+  p.y = y; p.h_final = h_final; p.h_before = h_before;
   p.x_b = strides[0]; p.x_s = strides[1]; p.x_h = strides[2];
   p.dt_b = strides[3]; p.dt_s = strides[4]; p.dt_h = strides[5];
   p.b_b = strides[6]; p.b_s = strides[7];
@@ -524,4 +544,14 @@ extern "C" int ssd_scan_launch(
   p.a_bf16 = a_bf16; p.d_bf16 = d_bf16;
   cudaStream_t s = (cudaStream_t)stream;
   return io_bf16 ? launch<__nv_bfloat16>(p, B, s) : launch<float>(p, B, s);
+}
+
+extern "C" int ssd_scan_launch(
+    const void* x, const void* dt, const void* A, const void* Bm,
+    const void* Cm, const void* D, void* y, float* h_final, int B, int S,
+    int H, int P, int N, int chunk, const int64_t* strides, int io_bf16,
+    int a_bf16, int d_bf16, void* stream) {
+  return ssd_scan_stats_launch(x, dt, A, Bm, Cm, D, y, h_final, nullptr, B,
+                               S, H, P, N, chunk, strides, io_bf16, a_bf16,
+                               d_bf16, stream);
 }

@@ -6,7 +6,11 @@ kernel's front end without an import cycle.
 
 It computes in the inputs' dtype, as the JAX function does: bf16 inputs
 give bf16 intermediates and a bf16 state.  ``lax.scan`` over the chunks
-becomes a Python loop.  ``ops`` runs it for CPU tensors and
+becomes a Python loop.  One difference: the intra-chunk decay takes exp of
+the masked difference only, so that its gradient stays finite where
+exp(acs_t - acs_s) above the diagonal overflows (a chunk whose total log
+decay passes 88 in fp32, as mamba2-780m's do at chunk 256); the JAX
+function's gradient is NaN there.  Values are the same.  ``ops`` runs it for CPU tensors and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
 Below it, the plain version of each pass of the bf16 kernel of
@@ -15,10 +19,22 @@ in fp32, whose composition ``ssd_passes`` is the same scan.  Given
 ``operand_dtype=torch.bfloat16`` they round what that kernel rounds (the
 operands of its products: x exp(acs_end - acs) dt, B, C, x, h_before and
 the scores) and nothing else.
+
+Last, the plain version of each pass of the backward kernel of
+``csrc/ssd_scan_bwd.cu``, in fp32, whose composition ``ssd_passes_bwd`` is
+the gradient of the scan: ``state_grad_from_y`` (what y asks of the state
+before each chunk), ``state_pass_bwd`` (the state's gradient carried from
+the last chunk to the first), ``chunk_bwd`` (every local gradient of a
+chunk) and ``reduce_bwd`` (the sums over heads and over (batch,
+sequence)).  The backward kernel computes in fp32 from the upcast inputs
+and rounds no operand of its own; what it reads that was rounded is the
+forward's fp32 state before each chunk, whose chunk states the bf16
+forward formed from bf16 operands.  ``operand_dtype`` rounds that (through
+``chunk_state``) and nothing else.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,12 +67,14 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # ---- intra-chunk (quadratic, attention-like) ----
     # scores[t,s] = (C_t . B_s) * exp(acs_t - acs_s) * dt_s  for s <= t
+    # exp of the masked difference only: above the diagonal exp(acs_t -
+    # acs_s) overflows once the chunk's decay passes 88 (fp32), and the
+    # gradient of a where over an inf is NaN (0 * inf) though its value is 0
     diff = acs[:, :, :, None, :] - acs[:, :, None, :, :]       # [B,nc,c,c,H]
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=xh.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), dtype=diff.dtype,
-                                    device=diff.device))
+                                 device=xh.device))[None, None, :, :, None]
+    zero = torch.zeros((), dtype=diff.dtype, device=diff.device)
+    decay = torch.where(mask, torch.exp(torch.where(mask, diff, zero)), zero)
     del diff
     cb = torch.einsum("bnck,bnmk->bncm", Cr, Br)               # C_t . B_s
     scores = cb[..., None] * decay * dtr[:, :, None, :, :]     # [B,nc,c,c,H]
@@ -172,3 +190,144 @@ def ssd_passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_before, h_final = state_pass(states, chunk_sum, operand_dtype)
     return chunk_out(xh, dt, A, Bc, Cc, D, h_before, chunk,
                      operand_dtype), h_final
+
+
+# ---------------------------------------------------------------------------
+# the backward's passes (csrc/ssd_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def state_grad_from_y(dy: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Cc: torch.Tensor, chunk: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward pass (a).  dh_y [B,nc,H,P,N] = sum_t exp(acs_t) dy_t^T C_t
+    within each chunk (what y asks of the state before the chunk), and
+    chunk_sum [B,H,nc] = acs_end; fp32."""
+    B_, S, H, P = dy.shape
+    N, nc = Cc.shape[-1], S // chunk
+    acs = chunk_cumsum(dt, A, chunk)                           # [B,H,nc,c]
+    dyw = dy.float().reshape(B_, nc, chunk, H, P) * \
+        torch.exp(acs).permute(0, 2, 3, 1)[..., None]
+    Cr = Cc.float().reshape(B_, nc, chunk, N)
+    return torch.einsum("bnthp,bntk->bnhpk", dyw, Cr), \
+        acs[..., -1].contiguous()
+
+
+def state_pass_bwd(dh_y: torch.Tensor, chunk_sum: torch.Tensor,
+                   dh_final: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backward pass (b).  dstates [B,nc,H,P,N] fp32, the gradient of the
+    state after each chunk (of the chunk's state sum S_j): g <- dh_final
+    (zero where None), then from the last chunk to the first dstates_j = g
+    and g <- dh_y_j + exp(chunk_sum_j) g."""
+    decay = torch.exp(chunk_sum.float())                       # [B,H,nc]
+    g = torch.zeros_like(dh_y[:, 0]) if dh_final is None \
+        else dh_final.float().expand_as(dh_y[:, 0])
+    out = [None] * dh_y.shape[1]
+    for j in reversed(range(dh_y.shape[1])):
+        out[j] = g
+        g = dh_y[:, j] + decay[:, :, j, None, None] * g
+    return torch.stack(out, dim=1)
+
+
+def chunk_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+              h_before: torch.Tensor, dstates: torch.Tensor,
+              dy: torch.Tensor, chunk: int) -> Dict[str, torch.Tensor]:
+    """Backward pass (c): every local gradient of each (batch, chunk,
+    head), fp32, with L[t,s] = exp(acs_t - acs_s) [s <= t], CB = C B^T,
+    G = dy x^T, tail_s = exp(acs_end - acs_s) dt_s, h = h_before_j and
+    dS = dstates_j:
+
+    - dx_s = sum_t CB L dt_s dy_t + tail_s dS B_s + D dy_s;
+    - dCB = G L dt_s (per head), so dC_t = dCB B + exp(acs_t) dy_t h and
+      dB_s = dCB^T C + tail_s x_s dS;
+    - the direct ddt_s = sum_t CB L G + exp(acs_end - acs_s) <x_s B_s^T,
+      dS>, and the gradient of acs from L, from exp(acs_t) of the
+      inter-chunk term, from the tail and from the decay exp(acs_end) of
+      h into the next chunk, exp(acs_end) <h, dS>;
+    - da = the reverse cumulative sum of dacs within the chunk, ddt +=
+      A da, and the chunk's parts of dA (sum_s dt_s da_s) and dD
+      (sum_t dy_t . x_t).
+
+    Returns dxh [B,S,H,P], ddt [B,S,H], dB_heads and dC_heads [B,S,H,N]
+    (each head's part: B and C are shared by the heads), dA_part and
+    dD_part [B,H,nc]."""
+    B_, S, H, P = xh.shape
+    N, nc = Bc.shape[-1], S // chunk
+    acs = chunk_cumsum(dt, A, chunk)                           # [B,H,nc,c]
+    acs_end = acs[..., -1:]
+    dtr = dt.float().reshape(B_, nc, chunk, H).permute(0, 3, 1, 2)
+    x = xh.float().reshape(B_, nc, chunk, H, P)
+    g = dy.float().reshape(B_, nc, chunk, H, P)
+    Br = Bc.float().reshape(B_, nc, chunk, N)
+    Cr = Cc.float().reshape(B_, nc, chunk, N)
+    hb, dS = h_before.float(), dstates.float()                # [B,nc,H,P,N]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    diff = acs[..., :, None] - acs[..., None, :]               # [B,H,nc,t,s]
+    Lm = torch.where(mask, torch.exp(torch.where(mask, diff, 0.)), 0.)
+    cb = torch.einsum("bntk,bnsk->bnts", Cr, Br)[:, None]      # [B,1,nc,t,s]
+    G = torch.einsum("bnthp,bnshp->bhnts", g, x)
+    Ldt = Lm * dtr[..., None, :]
+    E = cb * Lm * G                                            # CB L G
+    dCB = G * Ldt
+    w = torch.exp(acs_end - acs)                               # [B,H,nc,c]
+    tail = w * dtr
+    eacs = torch.exp(acs)
+
+    def rows(t):                                    # [B,H,nc,c] -> rows
+        return t.permute(0, 2, 3, 1)[..., None]     # [B,nc,c,H,1]
+
+    dx = torch.einsum("bhnts,bnthp->bnshp", cb * Ldt, g) + \
+        torch.einsum("bnsk,bnhpk->bnshp", Br, dS) * rows(tail) + \
+        g * D.float()[None, None, None, :, None]
+    dC_inter = torch.einsum("bnthp,bnhpk->bnthk", g, hb) * rows(eacs)
+    dC = torch.einsum("bhnts,bnsk->bnthk", dCB, Br) + dC_inter
+    xdS = torch.einsum("bnshp,bnhpk->bnshk", x, dS)
+    dB = torch.einsum("bhnts,bntk->bnshk", dCB, Cr) + xdS * rows(tail)
+    Q = torch.einsum("bnsk,bnshk->bhns", Br, xdS)              # <x B^T, dS>
+    M = E * dtr[..., None, :]
+    dacs = M.sum(-1) - M.sum(-2) - tail * Q + \
+        torch.einsum("bntk,bnthk->bhnt", Cr, dC_inter)
+    end = (tail * Q).sum(-1) + torch.exp(acs_end[..., 0]) * \
+        torch.einsum("bnhpk,bnhpk->bhn", hb, dS)
+    dacs = torch.cat([dacs[..., :-1], dacs[..., -1:] + end[..., None]], -1)
+    da = dacs.flip(-1).cumsum(-1).flip(-1)
+    ddt = E.sum(-2) + w * Q + A.float()[None, :, None, None] * da
+    return {"dxh": dx.reshape(B_, S, H, P),
+            "ddt": ddt.permute(0, 2, 3, 1).reshape(B_, S, H),
+            "dB_heads": dB.reshape(B_, S, H, N),
+            "dC_heads": dC.reshape(B_, S, H, N),
+            "dA_part": (dtr * da).sum(-1),
+            "dD_part": torch.einsum("bnthp,bnthp->bhn", g, x)}
+
+
+def reduce_bwd(parts: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """Backward pass (d): dB and dC [B,S,N] summed over heads, dA and dD
+    [H] over (batch, chunk); with pass (c)'s dxh and ddt, the six
+    gradients (dxh, ddt, dA, dBc, dCc, dD), fp32."""
+    return (parts["dxh"], parts["ddt"], parts["dA_part"].sum((0, 2)),
+            parts["dB_heads"].sum(2), parts["dC_heads"].sum(2),
+            parts["dD_part"].sum((0, 2)))
+
+
+def ssd_passes_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+                   dy: torch.Tensor, dh_final: Optional[torch.Tensor],
+                   chunk: int, operand_dtype: Optional[torch.dtype] = None
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The backward's four passes composed: the gradient of ``ssd_chunked``
+    (y, h_final) for the cotangents dy [B,S,H,P] and dh_final [B,H,P,N]
+    (None: zero), as (dxh, ddt, dA, dBc, dCc, dD), each in its input's
+    dtype.  The state before each chunk [B,nc,H,P,N] is recomputed by
+    ``chunk_state`` (rounding as ``operand_dtype`` says) and ``state_pass``
+    in fp32, as the kernel's forward writes it."""
+    states, chunk_sum = chunk_state(xh, dt, A, Bc, chunk, operand_dtype)
+    h_before, _ = state_pass(states, chunk_sum)
+    del states
+    dh_y, chunk_sum = state_grad_from_y(dy, dt, A, Cc, chunk)
+    dstates = state_pass_bwd(dh_y, chunk_sum, dh_final)
+    del dh_y
+    grads = reduce_bwd(chunk_bwd(xh, dt, A, Bc, Cc, D, h_before, dstates,
+                                 dy, chunk))
+    return tuple(g.to(t.dtype) for g, t in zip(grads,
+                                                (xh, dt, A, Bc, Cc, D)))

@@ -13,6 +13,12 @@ from dtype, shape and layout alone:
 - ``"simple"`` (``csrc/ssd_scan.cu``): every other call, fp32 among them;
   one block walks a (batch, head)'s chunks in order.
 
+``scan(..., stats=True)`` also returns the fp32 state before each chunk,
+the backward's statistics (either path; ``stats=False`` writes nothing
+more and computes the same bits).  ``scan_bwd`` is the gradient
+(``csrc/ssd_scan_bwd.cu``: four passes, every call the forward takes),
+which the JAX package takes by autodiff of its jnp ``ssd_chunked``.
+
 The source notes at the top of the ``.cu`` files say what bounds each on an
 H100 and what its design does about that.
 
@@ -24,8 +30,10 @@ raises.
 Launch: ``scan`` checks device, dtype, shape and layout, allocates ``y``,
 ``h_final`` and the scratch with ``torch.empty``, launches on PyTorch's
 current stream without synchronising, raises if a C entry point reports a
-CUDA error, and adds one to ``launches["ssd_scan"]`` (one per call,
-whatever the number of CUDA kernels) and to ``path_launches[path]``.
+CUDA error, and, where it launches, adds one to ``launches["ssd_scan"]``
+(one per call, whatever the number of CUDA kernels) and to
+``path_launches[path]``; ``scan_bwd`` the same, to
+``bwd_launches["ssd_scan_bwd"]``.
 """
 from __future__ import annotations
 
@@ -48,6 +56,14 @@ WGMMA_P, WGMMA_N, WGMMA_TILE, WGMMA_MAX_CHUNK = 64, 128, 64, 256
 launches: Dict[str, int] = {"ssd_scan": 0}
 #: The same calls by path (``wgmma_path``).
 path_launches: Dict[str, int] = {"wgmma": 0, "simple": 0}
+#: Launches of the backward since the last ``reset_launches``: one per call.
+bwd_launches: Dict[str, int] = {"ssd_scan_bwd": 0}
+#: The device buffers of ``ssd_scan_bwd_launch``, in its order: inputs,
+#: outputs, scratch (``bwd_scratch_shapes``).
+BWD_BUFFERS = ("xh", "dt", "A", "Bc", "Cc", "D", "dy", "h_before",
+               "dh_final", "dxh", "ddt", "dA", "dBc", "dCc", "dD",
+               "dstates", "chunk_sum", "dB_heads", "dC_heads", "dA_part",
+               "dD_part")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -55,6 +71,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches["ssd_scan"] = 0
+    bwd_launches["ssd_scan_bwd"] = 0
     for k in path_launches:
         path_launches[k] = 0
 
@@ -81,6 +98,16 @@ def load(path) -> ctypes.CDLL:
             p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, p]
         for fn in (lib.ssd_chunk_state_launch, lib.ssd_state_pass_launch,
                    lib.ssd_chunk_out_launch):
+            fn.restype = ctypes.c_int
+    if hasattr(lib, "ssd_scan_bwd_launch"):       # with the backward
+        lib.ssd_scan_stats_launch.argtypes = [
+            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p, i, i, i, p]
+        lib.ssd_state_pass_stats_launch.argtypes = [
+            p, p, p, p, p, i, i, i, i, i, p]
+        lib.ssd_scan_bwd_launch.argtypes = [
+            p, i, i, i, i, i, i, p, i, i, i, p]
+        for fn in (lib.ssd_scan_stats_launch, lib.ssd_state_pass_stats_launch,
+                   lib.ssd_scan_bwd_launch):
             fn.restype = ctypes.c_int
     return lib
 
@@ -188,7 +215,8 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
 
 
-def _passes(lib, xh, dt, A, Bc, Cc, D, chunk, dims, events):
+def _passes(lib, xh, dt, A, Bc, Cc, D, chunk, dims, events,
+            h_before32=None):
     B, S, H, P, N = dims
     out = {name: torch.empty(shape, dtype=dtype, device=xh.device)
            for name, (shape, dtype) in
@@ -212,10 +240,17 @@ def _passes(lib, xh, dt, A, Bc, Cc, D, chunk, dims, events):
         out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
         B, S, H, P, N, chunk, strides, a16, stream), "ssd_chunk_state")
     mark()
-    _raise_on(lib.ssd_state_pass_launch(
-        out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
-        out["h_before"].data_ptr(), out["h_final"].data_ptr(),
-        B, S // chunk, H, P, N, stream), "ssd_state_pass")
+    if h_before32 is not None:       # the backward's statistics too
+        _raise_on(lib.ssd_state_pass_stats_launch(
+            out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
+            out["h_before"].data_ptr(), h_before32.data_ptr(),
+            out["h_final"].data_ptr(), B, S // chunk, H, P, N, stream),
+            "ssd_state_pass")
+    else:
+        _raise_on(lib.ssd_state_pass_launch(
+            out["states"].data_ptr(), out["chunk_sum"].data_ptr(),
+            out["h_before"].data_ptr(), out["h_final"].data_ptr(),
+            B, S // chunk, H, P, N, stream), "ssd_state_pass")
     mark()
     _raise_on(lib.ssd_chunk_out_launch(
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
@@ -248,14 +283,17 @@ def passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
          Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor, *,
          chunk: int, lib: Optional[ctypes.CDLL] = None,
-         path: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+         path: Optional[str] = None, stats: bool = False
+         ) -> Tuple[torch.Tensor, ...]:
     """The SSD scan on the card.  xh [B,S,H,P]; dt [B,S,H]; Bc, Cc [B,S,N]
     (xh, dt, Bc and Cc in one dtype, bf16 or fp32, any strides with the last
     axis of xh, Bc and Cc contiguous); A, D [H] in bf16 or fp32.  Returns
-    y [B,S,H,P] in xh's dtype and h_final [B,H,P,N] in fp32.  ``path``
-    (default ``wgmma_path``'s choice) and ``lib`` (another build, from
-    ``load``) are for comparing designs: ``path="simple"`` runs
-    ``csrc/ssd_scan.cu``'s kernel at any shape."""
+    y [B,S,H,P] in xh's dtype and h_final [B,H,P,N] in fp32; with
+    ``stats`` also h_before [B,nc,H,P,N] in fp32, the state before each
+    chunk, which ``scan_bwd`` reads.  ``path`` (default ``wgmma_path``'s
+    choice) and ``lib`` (another build, from ``load``) are for comparing
+    designs: ``path="simple"`` runs ``csrc/ssd_scan.cu``'s kernel at any
+    shape."""
     B, S, H, P, N = _check(xh, dt, A, Bc, Cc, D, chunk)
     tiled = wgmma_path(xh, Bc, Cc, chunk)
     path = path or tiled
@@ -263,30 +301,121 @@ def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"unknown ssd_scan path {path!r}")
     if path == "wgmma" and tiled != "wgmma":
         raise ValueError("the wgmma passes do not tile this call")
+    h_before = torch.empty((B, S // chunk, H, P, N), dtype=torch.float32,
+                           device=xh.device) if stats else None
     if B * H == 0:
         y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
-        return y, torch.empty((B, H, P, N), dtype=torch.float32,
+        h_final = torch.empty((B, H, P, N), dtype=torch.float32,
                               device=xh.device)
+        return (y, h_final, h_before) if stats else (y, h_final)
     A, D = A.contiguous(), D.contiguous()
     lib = lib or _load()
     with torch.cuda.device(xh.device):
         if path == "wgmma":
             out = _passes(lib, xh, dt, A, Bc, Cc, D, chunk,
-                          (B, S, H, P, N), None)
+                          (B, S, H, P, N), None, h_before)
             y, h_final = out["y"], out["h_final"]
         else:
             y = torch.empty((B, S, H, P), dtype=xh.dtype, device=xh.device)
             h_final = torch.empty((B, H, P, N), dtype=torch.float32,
                                   device=xh.device)
             held = _strides(xh, dt, Bc, Cc, y)
-            _raise_on(lib.ssd_scan_launch(
-                xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-                Cc.data_ptr(), D.data_ptr(), y.data_ptr(),
-                h_final.data_ptr(), B, S, H, P, N, chunk,
-                ctypes.cast(held, ctypes.c_void_p),
-                DTYPES[xh.dtype], DTYPES[A.dtype], DTYPES[D.dtype],
-                torch.cuda.current_stream(xh.device).cuda_stream),
-                "ssd_scan")
+            args = (xh.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                    Bc.data_ptr(), Cc.data_ptr(), D.data_ptr(), y.data_ptr(),
+                    h_final.data_ptr())
+            rest = (B, S, H, P, N, chunk, ctypes.cast(held, ctypes.c_void_p),
+                    DTYPES[xh.dtype], DTYPES[A.dtype], DTYPES[D.dtype],
+                    torch.cuda.current_stream(xh.device).cuda_stream)
+            if stats:
+                _raise_on(lib.ssd_scan_stats_launch(
+                    *args, h_before.data_ptr(), *rest), "ssd_scan")
+            else:
+                _raise_on(lib.ssd_scan_launch(*args, *rest), "ssd_scan")
     launches["ssd_scan"] += 1
     path_launches[path] += 1
-    return y, h_final
+    return (y, h_final, h_before) if stats else (y, h_final)
+
+
+def bwd_scratch_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The backward's fp32 scratch, allocated by the wrapper: dh_y and then
+    dS of each chunk (passes a, b), each chunk's total log decay, the
+    per-head parts of dB and dC, and the per-chunk parts of dA and dD
+    (pass c, summed by pass d)."""
+    nc, f = S // chunk, torch.float32
+    return {"dstates": ((B, nc, H, P, N), f), "chunk_sum": ((B, H, nc), f),
+            "dB_heads": ((B, S, H, N), f), "dC_heads": ((B, S, H, N), f),
+            "dA_part": ((B, H, nc), f), "dD_part": ((B, H, nc), f)}
+
+
+def _check_bwd(dims, xh, dy, dh_final, h_before, chunk) -> None:
+    B, S, H, P, N = dims
+    want = {"dy": (dy, (B, S, H, P), xh.dtype),
+            "h_before": (h_before, (B, S // chunk, H, P, N), torch.float32)}
+    if dh_final is not None:
+        want["dh_final"] = (dh_final, (B, H, P, N), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if t.device != xh.device:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{xh.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if dy.stride(-1) != 1 and P > 1:
+        raise ValueError("dy must have a contiguous last dimension")
+    for name in ("h_before", "dh_final"):
+        if name in want and not want[name][0].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+             dy: torch.Tensor, dh_final: Optional[torch.Tensor],
+             h_before: torch.Tensor, *, chunk: int,
+             lib: Optional[ctypes.CDLL] = None, keep: bool = False):
+    """The gradient of ``scan`` on the card: given the forward's inputs (as
+    ``scan`` takes them), dy [B,S,H,P] (xh's dtype, last axis contiguous),
+    dh_final [B,H,P,N] (fp32 contiguous, or None for zero) and the
+    forward's statistics h_before (``scan(..., stats=True)``), returns
+    (dxh, ddt, dA, dBc, dCc, dD), each contiguous in its input's dtype.
+    ``keep`` returns a dict of every buffer of the launch instead
+    (``BWD_BUFFERS``: the scratch of each pass too, to hold against
+    ``ref.py``'s passes)."""
+    dims = _check(xh, dt, A, Bc, Cc, D, chunk)
+    B, S, H, P, N = dims
+    _check_bwd(dims, xh, dy, dh_final, h_before, chunk)
+    lib = lib or _load()
+    dev = xh.device
+
+    def like(t, shape=None):
+        return torch.empty(shape or t.shape, dtype=t.dtype, device=dev)
+
+    out = {"dxh": like(xh, (B, S, H, P)), "ddt": like(dt, (B, S, H)),
+           "dA": like(A), "dBc": like(Bc, (B, S, N)),
+           "dCc": like(Cc, (B, S, N)), "dD": like(D)}
+    if B * H and S:
+        A, D = A.contiguous(), D.contiguous()
+        out.update({name: torch.empty(shape, dtype=dtype, device=dev)
+                    for name, (shape, dtype) in
+                    bwd_scratch_shapes(B, S, H, P, N, chunk).items()})
+        bufs = dict(xh=xh, dt=dt, A=A, Bc=Bc, Cc=Cc, D=D, dy=dy,
+                    h_before=h_before, dh_final=dh_final, **out)
+        ptrs = (ctypes.c_void_p * len(BWD_BUFFERS))(
+            *(bufs[n].data_ptr() if bufs[n] is not None else None
+              for n in BWD_BUFFERS))
+        held = _strides(xh, dt, Bc, Cc, dy)
+        with torch.cuda.device(dev):
+            _raise_on(lib.ssd_scan_bwd_launch(
+                ctypes.cast(ptrs, ctypes.c_void_p), B, S, H, P, N, chunk,
+                ctypes.cast(held, ctypes.c_void_p), DTYPES[xh.dtype],
+                DTYPES[A.dtype], DTYPES[D.dtype],
+                torch.cuda.current_stream(dev).cuda_stream), "ssd_scan_bwd")
+        bwd_launches["ssd_scan_bwd"] += 1
+    else:
+        for name in ("dxh", "ddt", "dA", "dBc", "dCc", "dD"):
+            out[name].zero_()
+    if keep:
+        return out
+    return tuple(out[n] for n in ("dxh", "ddt", "dA", "dBc", "dCc", "dD"))

@@ -6,11 +6,13 @@ The selective state-space layer with scalar-identity A per head:
     h_t = exp(dt_t·A) * h_{t-1} + dt_t * B_t ⊗ x_t          (per head)
     y_t = C_t · h_t + D * x_t
 
-Prefill (``ssm_forward``) always goes through the kernel's front end
-``ssd_scan``: the hand-written CUDA kernel for tensors on the card, its
-plain torch version ``ssd_chunked`` (re-exported here) for tensors on the
-CPU.  Decode is the O(1) recurrence in plain torch, as in the JAX package,
-which has no decode kernel.
+Prefill and training (``ssm_forward``) always go through the kernels'
+front end ``ssd_scan``: the hand-written CUDA kernels for tensors on the
+card (the forward scan, and where autograd records the call its
+hand-written backward), their plain torch version ``ssd_chunked``
+(re-exported here) for tensors on the CPU, whose gradient autograd takes.
+Decode is the O(1) recurrence in plain torch, as in the JAX package, which
+has no decode kernel.
 
 Projections stay *separate* (z, x, B, C, dt), as in the JAX package (its
 tensor-parallel note, DESIGN.md §6); the JAX package's sharding

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (dvv_ops, flash_attention and its
-backward, ssd_scan) against their plain torch versions, on the card.
+backward, ssd_scan and its backward) against their plain torch versions,
+on the card.
 Imports neither jax nor the JAX package, so it runs on a machine that has
 only the port:
 
@@ -541,6 +542,267 @@ def test_ssd_scan_bitwise_equal_to_parent_build(cuda):
         y0, h0 = SS.ssd_scan(*args, chunk=256)
         y1, h1 = SSK.scan(*args, chunk=256, lib=parent, path=path)
         assert torch.equal(y0, y1) and torch.equal(h0, h1), dtype
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan's backward
+# ---------------------------------------------------------------------------
+
+SSD_GRAD_NAMES = ("dxh", "ddt", "dA", "dBc", "dCc", "dD")
+#: fp32 gradients: max abs error over the plain version's largest
+#: magnitude (fp32 sums in another order)
+SSD_BWD_FP32_TOL = 1e-4
+
+
+def _ssd_cotangents(B, S, H, P, N, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((B, S, H, P), generator=g, device=device).to(dtype),
+            torch.randn((B, H, P, N), generator=g, device=device))
+
+
+def _plain_ssd_grads(args, dy, dh, chunk):
+    """The plain version's gradient: autograd through ref.ssd_chunked in
+    fp32 on the upcast inputs."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    with torch.enable_grad():
+        leaves = [a.detach().float().requires_grad_() for a in args]
+        y, h = ssd_chunked(*leaves, chunk)
+        outs, cots = ((y,), (dy.float(),)) if dh is None else \
+            ((y, h), (dy.float(), dh))
+        return torch.autograd.grad(outs, leaves, cots)
+
+
+def _assert_ssd_grads(got, args, dy, dh, chunk):
+    """fp32: each gradient within SSD_BWD_FP32_TOL of the plain version's.
+    bf16: the flash backward's two gates, each gradient against the plain
+    backward passes with the bf16 kernel's rounding (ref.ssd_passes_bwd,
+    operand_dtype bf16) by grad_row_err, and against the exact gradient
+    (the same in fp32 without rounding) by grad_rms_err within
+    BF16_GRAD_RMS_RATIO of the plain version's own."""
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_passes_bwd
+
+    for g, a in zip(got, args):
+        assert g.shape == a.shape and g.dtype == a.dtype
+        assert torch.isfinite(g).all()
+    if args[0].dtype == torch.float32:
+        for name, g, w in zip(SSD_GRAD_NAMES, got,
+                              _plain_ssd_grads(args, dy, dh, chunk)):
+            assert _grad_err(g, w) < SSD_BWD_FP32_TOL, name
+        return
+    up = [a.float() for a in args]
+    plain = ssd_passes_bwd(*args, dy, dh, chunk,
+                           operand_dtype=torch.bfloat16)
+    exact = ssd_passes_bwd(*up, dy.float(), dh, chunk)
+    for name, g, p, e in zip(SSD_GRAD_NAMES, got, plain, exact):
+        assert grad_row_err(g, p) <= BF16_GRAD_ROW_TOL, name
+        assert grad_rms_err(g, e) <= BF16_GRAD_RMS_RATIO * max(
+            grad_rms_err(p, e), 1e-30), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [8, 64, 256])
+@pytest.mark.parametrize("P,N", [(16, 16), (64, 128)])
+@pytest.mark.parametrize("dh_final", ["none", "random"])
+def test_ssd_backward_equals_plain_version(cuda, ieee_fp32, dtype, chunk, P,
+                                           N, dh_final):
+    """The backward kernel's six gradients against the plain version's
+    (_assert_ssd_grads) from the forward's own statistics, one launch
+    counted, with dh_final None (the training path) or random."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, H = {8: (1, 2), 64: (2, 5), 256: (1, 6)}[chunk]
+    S = 8 * chunk if chunk < 64 else 3 * chunk
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=7)
+    dy, dh = _ssd_cotangents(B, S, H, P, N, dtype, cuda, seed=7)
+    dh = None if dh_final == "none" else dh
+    _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
+    K.reset_launches()
+    got = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == {"ssd_scan_bwd": 1}
+    assert K.launches == {"ssd_scan": 0}
+    _assert_ssd_grads(got, args, dy, dh, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_passes_equal_plain_versions(cuda, ieee_fp32, dtype):
+    """Each pass of the backward against its plain version (ref.py) on the
+    kernel's own inputs to it: the chunk totals and dS of passes (a) and
+    (b) from the scan's inputs; pass (c)'s per-head parts of dB and dC and
+    per-chunk parts of dA and dD from the kernel's dS; 1e-4 of the largest
+    magnitude."""
+    import importlib
+
+    from repro_torch.kernels.ssd_scan import ref
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, S, H, P, N, chunk = 2, 512, 3, 64, 128, 128
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=8)
+    dy, dh = _ssd_cotangents(B, S, H, P, N, dtype, cuda, seed=8)
+    _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
+    out = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk, keep=True)
+    torch.cuda.synchronize()
+    up = [a.float() for a in args]
+    dh_y, chunk_sum = ref.state_grad_from_y(dy, up[1], up[2], up[4], chunk)
+    assert _rel(out["chunk_sum"], chunk_sum) < 1e-4
+    assert _rel(out["dstates"], ref.state_pass_bwd(dh_y, chunk_sum, dh)) \
+        < 1e-4
+    parts = ref.chunk_bwd(*up, h_before, out["dstates"], dy, chunk)
+    for name in ("dB_heads", "dC_heads", "dA_part", "dD_part"):
+        assert _rel(out[name], parts[name]) < 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits (no atomics;
+    the sums over heads and over chunks in a fixed order)."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    args = _ssd_inputs(2, 1024, 48, 64, 128, dtype, cuda, seed=9)
+    dy, dh = _ssd_cotangents(2, 1024, 48, 64, 128, dtype, cuda, seed=9)
+    _, _, h_before = K.scan(*args, chunk=256, stats=True)
+    a = K.scan_bwd(*args, dy, dh, h_before, chunk=256)
+    b = K.scan_bwd(*args, dy, dh, h_before, chunk=256)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_strided_and_unaligned_views(cuda, ieee_fp32, dtype):
+    """x, B and C as slices of one buffer, x starting 4 bytes in, dt a
+    strided slice and dy transposed in memory, at widths whose rows are not
+    whole 16-byte vectors (P 12, N 20): the plain version's gradients, as
+    from contiguous copies."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, S, H, P, N, chunk = 2, 128, 3, 12, 20, 32
+    args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=10)
+    flat = torch.zeros((B, S, 2 + H * P + 2 * N), dtype=dtype, device=cuda)
+    flat[..., 2:2 + H * P] = args[0].reshape(B, S, H * P)
+    flat[..., 2 + H * P:2 + H * P + N] = args[3]
+    flat[..., 2 + H * P + N:] = args[4]
+    x = flat[..., 2:2 + H * P].view(B, S, H, P)
+    Bc, Cc = flat[..., 2 + H * P:2 + H * P + N], flat[..., 2 + H * P + N:]
+    dt = torch.cat([args[1], args[1]], dim=-1)[..., :H]
+    assert x.data_ptr() % 16 and not dt.is_contiguous()
+    dy, dh = _ssd_cotangents(B, S, H, P, N, dtype, cuda, seed=10)
+    dy_t = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    views = [x, dt, args[2], Bc, Cc, args[5]]
+    _, _, h_before = K.scan(*views, chunk=chunk, stats=True)
+    got = K.scan_bwd(*views, dy_t, dh, h_before, chunk=chunk)
+    want = K.scan_bwd(*(a.contiguous() for a in views), dy, dh, h_before,
+                      chunk=chunk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _assert_ssd_grads(got, args, dy, dh, chunk)
+
+
+def test_ssd_backward_rejects_bad_inputs(cuda):
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    args = _ssd_inputs(1, 64, 2, 16, 16, torch.bfloat16, cuda)
+    dy, dh = _ssd_cotangents(1, 64, 2, 16, 16, torch.bfloat16, cuda)
+    _, _, hb = K.scan(*args, chunk=16, stats=True)
+    with pytest.raises(TypeError):
+        K.scan_bwd(*args, dy.float(), dh, hb, chunk=16)
+    with pytest.raises(TypeError):
+        K.scan_bwd(*args, dy, dh.bfloat16(), hb, chunk=16)
+    with pytest.raises(TypeError):
+        K.scan_bwd(*args, dy, dh, hb.bfloat16(), chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        K.scan_bwd(*args, dy[:, :32], dh, hb, chunk=16)
+    with pytest.raises(ValueError, match="contiguous last"):
+        K.scan_bwd(*args, dy.transpose(2, 3).contiguous().transpose(2, 3),
+                   dh, hb, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.scan_bwd(*args, dy, dh.transpose(2, 3), hb, chunk=16)
+    with pytest.raises(ValueError, match="shape"):
+        K.scan_bwd(*args, dy, dh, hb[:, :2], chunk=16)
+    with pytest.raises(ValueError):
+        K.scan_bwd(*args, dy.cpu(), dh, hb, chunk=16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        K.scan_bwd(*args, dy, dh, hb, chunk=48)
+
+
+@pytest.mark.parametrize("B, S, H", [(0, 64, 4), (1, 0, 4), (1, 64, 0)])
+def test_ssd_backward_of_an_empty_call_launches_nothing(cuda, B, S, H):
+    """An empty batch, sequence or head axis: scan_bwd gives zero
+    gradients of the inputs' shapes and launches nothing, so it counts
+    nothing."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    args = [torch.ones(shape, device=cuda) for shape in (
+        (B, S, H, 8), (B, S, H), (H,), (B, S, 16), (B, S, 16), (H,))]
+    dy = torch.zeros((B, S, H, 8), device=cuda)
+    h_before = torch.zeros((B, S // 16, H, 8, 16), device=cuda)
+    K.reset_launches()
+    got = K.scan_bwd(*args, dy, None, h_before, chunk=16)
+    assert K.bwd_launches == {"ssd_scan_bwd": 0}
+    for g, a in zip(got, args):
+        assert g.shape == a.shape and not g.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_forward_statistics_leave_the_scan_bitwise(cuda, dtype):
+    """scan(stats=True) writes the fp32 state before each chunk (the plain
+    version's, 1e-5 of the largest) and gives the same y and h_final bits
+    as the call without statistics, on both paths (bf16 at mamba2-780m's
+    widths takes the wgmma passes, fp32 the simple kernel)."""
+    import importlib
+
+    from repro_torch.kernels.ssd_scan import ref
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    args = _ssd_inputs(2, 1024, 48, 64, 128, dtype, cuda, seed=11)
+    y0, h0 = K.scan(*args, chunk=256)
+    y1, h1, h_before = K.scan(*args, chunk=256, stats=True)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    bf = dtype == torch.bfloat16
+    states, chunk_sum = ref.chunk_state(*(a.float() for a in args[:4]), 256,
+                                        torch.bfloat16 if bf else None)
+    want, _ = ref.state_pass(states, chunk_sum)
+    assert h_before.dtype == torch.float32
+    assert _rel(h_before, want) < (1e-2 if bf else 1e-5)
+
+
+def test_ssd_backward_through_autograd(cuda, ieee_fp32):
+    """ssd_scan with inputs that need a gradient records SSDScan: the
+    forward launches once with statistics, backward() launches the
+    backward kernel once and gives the plain version's gradients (y alone,
+    then y and h_final); a second derivative raises; under no_grad the
+    forward runs alone."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    args = _ssd_inputs(1, 256, 4, 64, 128, torch.float32, cuda, seed=12)
+    dy, dh = _ssd_cotangents(1, 256, 4, 64, 128, torch.float32, cuda,
+                             seed=12)
+    for use_h in (False, True):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        SS.reset_launches()
+        y, h = SS.ssd_scan(*leaves, chunk=64)
+        assert type(y.grad_fn).__name__ == "SSDScanBackward"
+        (y * dy).sum().add((h * dh).sum() if use_h else 0).backward()
+        assert SS.launches == {"ssd_scan": 1}
+        assert SS.bwd_launches == {"ssd_scan_bwd": 1}
+        _assert_ssd_grads([t.grad for t in leaves], args, dy,
+                          dh if use_h else None, 64)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y, _ = SS.ssd_scan(*leaves, chunk=64)
+    dx, = torch.autograd.grad(y.square().sum(), leaves[0],
+                              create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
+    with torch.no_grad():
+        y, _ = SS.ssd_scan(*leaves, chunk=64)
+    assert y.grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -1180,47 +1442,52 @@ def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32):
 
 
 # ---------------------------------------------------------------------------
-# gradients stop loudly at the kernels without a backward
+# mamba2 trains through the ssd_scan kernels
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,kernel", [("mamba2-780m", "ssd_scan")])
-def test_backward_through_a_card_prefill_raises(cuda, arch, kernel):
-    """loss.backward() through the ssd_scan kernel raises
-    NotImplementedError naming ROADMAP.md Queue 1 item 7.1b (flash
-    attention has its backward kernel); the same loss on the CPU (plain
-    versions) has its gradient, and no_grad prefill still runs."""
+def test_backward_through_a_card_prefill_equals_the_cpu_run(cuda, ieee_fp32,
+                                                            arch, kernel):
+    """mamba2-780m's smoke config, fp32: one make_train_step on the card
+    (the ssd_scan forward and backward kernels) against the CPU's (plain
+    versions, autograd): loss, gradient norm, moments and parameters; one
+    forward and one backward launch a layer, and a recompute with remat."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
-    from repro_torch.models.lm import loss_fn
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
 
-    cfg = replace(get_config(arch).smoke(), head_dim=64,
-                  compute_dtype="float32")
-    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, 64)).astype(np.int32))
-    batch = {"tokens": toks, "labels": toks}
-    on_card = {k: t.to(cuda) for k, t in batch.items()}
-    leaves = _to(params, cuda)
-    for t in _leaves(leaves):
-        t.requires_grad_()
-    loss, _ = loss_fn(leaves, on_card, cfg)
-    assert loss.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7.1b"):
-        loss.backward()
-    for t in _leaves(params):
-        t.requires_grad_()
-    cpu_loss, _ = loss_fn(params, batch, cfg)
-    cpu_loss.backward()
-    assert params["embed"].grad is not None
-    with torch.no_grad():
-        again, _ = loss_fn(_to(params, cuda), on_card, cfg)
-    assert abs(float(again) - float(cpu_loss)) < 1e-3
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    return [tree]
+    for remat in (False, True):
+        cfg = replace(get_config(arch).smoke(), compute_dtype="float32",
+                      remat=remat)
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+        runs = []
+        for device in ("cpu", cuda):
+            params = _to(init_params(torch.Generator().manual_seed(0), cfg,
+                                     device="cpu"), device)
+            state = init_opt_state(params, opt)
+            SS.reset_launches()
+            params, state, m = make_train_step(cfg, opt)(
+                params, state, {k: t.to(device) for k, t in batch.items()})
+            runs.append((float(m["loss"]), float(m["grad_norm"]),
+                         [p.cpu() for p in tree_leaves(params)],
+                         [t.cpu() for t in tree_leaves(state["m"])],
+                         dict(SS.launches), dict(SS.bwd_launches)))
+        (cl, cn, cp, cm, _, _), (gl, gn, gp, gm, fwd, bwd) = runs
+        assert abs(gl - cl) < 1e-4 and abs(gn - cn) < 1e-4 * max(1, cn)
+        for a, b, ma, mb in zip(gp, cp, gm, cm):
+            assert float((ma - mb).abs().max()) <= 1e-4 * float(
+                mb.abs().max().clamp_min(1e-30))
+            clear = mb.abs() >= 1e-7
+            assert float(torch.where(clear, (a - b).abs(), 0.0).max()) < 1e-5
+            assert float((a - b).abs().max()) <= 2 * opt.lr + 1e-5
+        assert fwd[kernel] == cfg.n_layers * (2 if remat else 1)
+        assert bwd[f"{kernel}_bwd"] == cfg.n_layers
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,14 @@ y and h_final, and its bf16 case at 5e-2), an independent float64 oracle
 plain versions of the bf16 kernel's three passes (``ref.chunk_state``,
 ``state_pass``, ``chunk_out``), composed, against the same oracles; their
 bf16 operand rounding against fp32; and the wrapper's choice of path and
-its scratch shapes, which are pure Python.
+its scratch shapes, which are pure Python.  Last, the gradient: the port's
+autograd through its plain version and the plain versions of the backward
+kernel's four passes (``ref.ssd_passes_bwd``) against ``jax.vjp`` of the
+JAX package's ``ssd_chunked`` with numpy cotangents for y and h_final;
+each pass against autograd through the forward's passes; their bf16
+operand rounding against fp32.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,11 +22,17 @@ import torch
 
 from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
-from repro_torch.kernels.ssd_scan import launches, reset_launches, ssd_scan
-from repro_torch.kernels.ssd_scan.ref import (
-    chunk_out, chunk_state, ssd_passes, state_pass,
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import (
+    bwd_launches, launches, reset_launches, ssd_scan,
 )
-from repro_torch.kernels.ssd_scan.ssd_scan import scratch_shapes, wgmma_path
+from repro_torch.kernels.ssd_scan.ref import (
+    chunk_out, chunk_state, ssd_passes, ssd_passes_bwd, state_grad_from_y,
+    state_pass, state_pass_bwd,
+)
+from repro_torch.kernels.ssd_scan.ssd_scan import (
+    BWD_BUFFERS, bwd_scratch_shapes, scan_bwd, scratch_shapes, wgmma_path,
+)
 from repro_torch.models import ssd_chunked
 
 pytestmark = pytest.mark.torch
@@ -282,3 +294,213 @@ def test_scratch_shapes():
     nbytes = sum(np.prod(shape) * dtype.itemsize
                  for shape, dtype in got.values())
     assert nbytes == 4 * 128 * 48 * (64 * 128 * 6 + 4)
+
+
+# ---------------------------------------------------------------------------
+# the gradient: autograd through the plain version and the backward's passes
+# ---------------------------------------------------------------------------
+
+#: relative error (max |got - want| / max |want|) of each fp32 gradient
+GRAD_TOL = 1e-4
+GRAD_NAMES = ("dxh", "ddt", "dA", "dBc", "dCc", "dD")
+
+
+def _cotangents(shape, seed):
+    """dy [B,S,H,P] and dh_final [B,H,P,N] ~ N(0, 1), drawn with numpy."""
+    Bn, S, H, P, N, _ = shape
+    rng = np.random.default_rng([seed, 99, *shape])
+    return (rng.normal(size=(Bn, S, H, P)).astype(np.float32),
+            rng.normal(size=(Bn, H, P, N)).astype(np.float32))
+
+
+def _jax_vjp(arrs, dy, dh, chunk):
+    """jax.vjp of the JAX package's ssd_chunked: the six gradients for the
+    cotangents (dy, dh_final), a zero dh_final where ``dh`` is None."""
+    _, vjp = jax.vjp(lambda *a: jax_ssd_chunked(*a, chunk),
+                     *map(jnp.asarray, arrs))
+    dh = np.zeros((dy.shape[0], dy.shape[2], dy.shape[3],
+                   arrs[3].shape[-1]), np.float32) if dh is None else dh
+    return vjp((jnp.asarray(dy), jnp.asarray(dh)))
+
+
+def _assert_grads(got, want, tol=GRAD_TOL):
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert tuple(g.shape) == np.shape(w), name
+        assert _rel(_np(g), _np(w)) < tol, (name, _rel(_np(g), _np(w)))
+
+
+@pytest.mark.parametrize("dh_final", ["zero", "random"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_autograd_through_the_plain_version_matches_jax_vjp(shape, dh_final):
+    """The port's CPU path (autograd through ref.ssd_chunked, what
+    ssd_scan runs for CPU tensors) against jax.vjp of the JAX package's
+    ssd_chunked: every gradient to a relative 1e-4 in fp32.  A zero
+    dh_final is the training path's (h_final unused)."""
+    arrs = _draw(shape, seed=8)
+    dy, dh = _cotangents(shape, seed=8)
+    dh = None if dh_final == "zero" else dh
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    reset_launches()
+    y, h = ssd_scan(*leaves, chunk=shape[-1])
+    outs, cots = ((y,), (torch.from_numpy(dy),)) if dh is None else \
+        ((y, h), (torch.from_numpy(dy), torch.from_numpy(dh)))
+    got = torch.autograd.grad(outs, leaves, cots)
+    assert launches == {"ssd_scan": 0} and bwd_launches == {"ssd_scan_bwd": 0}
+    _assert_grads(got, _jax_vjp(arrs, dy, dh, shape[-1]))
+
+
+@pytest.mark.parametrize("dh_final", ["zero", "random"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_passes_match_jax_vjp(shape, dh_final):
+    """The plain versions of the backward kernel's passes, composed
+    (ref.ssd_passes_bwd: dh_y, the reverse state pass, the chunks' local
+    gradients, the sums over heads and chunks), against jax.vjp of the
+    JAX package's ssd_chunked: every gradient to a relative 1e-4 in fp32,
+    with dh_final None (zero) or random."""
+    arrs = _draw(shape, seed=9)
+    dy, dh = _cotangents(shape, seed=9)
+    dh = None if dh_final == "zero" else dh
+    got = ssd_passes_bwd(*map(torch.from_numpy, arrs), torch.from_numpy(dy),
+                         None if dh is None else torch.from_numpy(dh),
+                         shape[-1])
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_grads(got, _jax_vjp(arrs, dy, dh, shape[-1]))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_state_passes_match_autograd_of_the_forward_passes(shape):
+    """Passes (a) and (b) on their own: dh_y is the gradient of chunk_out's
+    y with respect to its h_before, and the reverse state pass's dstates
+    that of (y, h_final) with respect to chunk_state's chunk states,
+    through state_pass and chunk_out (autograd, fp32, 1e-5 relative)."""
+    xh, dt, A, Bc, Cc, D = map(torch.from_numpy, _draw(shape, seed=10))
+    dy, dh = map(torch.from_numpy, _cotangents(shape, seed=10))
+    chunk = shape[-1]
+    states, chunk_sum = chunk_state(xh, dt, A, Bc, chunk)
+    states.requires_grad_()
+    h_before, h_final = state_pass(states, chunk_sum)
+    y = chunk_out(xh, dt, A, Bc, Cc, D, h_before, chunk)
+    want_dhy, = torch.autograd.grad(y, h_before, dy, retain_graph=True)
+    want_dstates, = torch.autograd.grad((y, h_final), states, (dy, dh))
+    dh_y, got_sum = state_grad_from_y(dy, dt, A, Cc, chunk)
+    assert torch.equal(got_sum, chunk_sum)
+    assert _rel(dh_y.numpy(), want_dhy.numpy()) < 1e-5
+    dstates = state_pass_bwd(dh_y, chunk_sum, dh)
+    assert _rel(dstates.numpy(), want_dstates.numpy()) < 1e-5
+    assert torch.equal(dstates[:, -1], dh)        # the last chunk's is dh
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 4, 16, 32, 64),
+                                   (2, 512, 3, 64, 128, 256)])
+def test_bf16_backward_operand_rounding_within_tolerance(shape):
+    """The backward's passes on bf16 inputs with the bf16 kernel's
+    rounding (the forward's chunk states from bf16 operands, then each
+    gradient rounded to bf16 as the kernel writes it) against jax.vjp of
+    the fp32 oracle on the same upcast inputs: within test_kernels.py's
+    5e-2 on every gradient.  The rounding is what differs from fp32."""
+    arrs = [torch.from_numpy(a).bfloat16() for a in _draw(shape, seed=11)]
+    dy, dh = _cotangents(shape, seed=11)
+    dy16 = torch.from_numpy(dy).bfloat16()
+    up = [a.float() for a in arrs]
+    want = _jax_vjp([a.numpy() for a in up], dy16.float().numpy(), dh,
+                    shape[-1])
+    got = ssd_passes_bwd(*arrs, dy16, torch.from_numpy(dh), shape[-1],
+                         operand_dtype=torch.bfloat16)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _assert_grads(got, want, tol=5e-2)
+    got32 = ssd_passes_bwd(*up, dy16.float(), torch.from_numpy(dh),
+                           shape[-1])
+    _assert_grads(got32, want)
+    assert max(_rel(_np(g), _np(w)) for g, w in zip(got, want)) > \
+        max(_rel(_np(g), _np(w)) for g, w in zip(got32, want))
+
+
+def test_gradient_stays_finite_where_the_decay_overflows():
+    """A chunk of 256 whose total log decay reaches -128 (dt 0.5, A -1):
+    exp(acs_t - acs_s) above the diagonal overflows fp32.  The port's
+    autograd through its plain version stays finite (it takes exp of the
+    masked difference only; the JAX function's gradient is NaN there) and
+    equals the backward's passes, which never form those entries."""
+    shape = (1, 512, 2, 8, 16, 256)
+    xh, _, _, Bc, Cc, D = _draw(shape, seed=12)
+    dt = np.full((1, 512, 2), 0.5, np.float32)
+    A = np.full((2,), -1.0, np.float32)
+    arrs = [xh, dt, A, Bc, Cc, D]
+    dy, dh = _cotangents(shape, seed=12)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, h = ssd_scan(*leaves, chunk=256)
+    got = torch.autograd.grad((y, h), leaves, (torch.from_numpy(dy),
+                                               torch.from_numpy(dh)))
+    assert all(torch.isfinite(g).all() for g in got)
+    want = ssd_passes_bwd(*map(torch.from_numpy, arrs), torch.from_numpy(dy),
+                          torch.from_numpy(dh), 256)
+    _assert_grads(got, want)
+
+
+def test_gradient_at_mamba2_init_where_the_references_is_nan():
+    """mamba2-780m's initial A and dt (the JAX package's init_ssm_params at
+    its full width: A = -(1..48), dt = softplus(dt_bias) between 0.001 and
+    0.1) over one chunk of 256, x, B, C narrow (the overflow depends on A,
+    dt and the chunk alone).  Heads whose log decay passes 88 over the
+    chunk overflow exp(acs_t - acs_s) above the diagonal: jax.grad of the
+    JAX package's ssd_chunked is NaN in their dt and A (its where(mask,
+    exp(diff), 0) gives 0 * inf), so its first training step at this
+    init has a NaN leaf.  The port's autograd through its plain version
+    is finite, equals the backward's passes, and equals the reference
+    wherever the reference is finite (1e-4 relative)."""
+    from repro.models.ssm import SSMSpec, init_ssm_params
+
+    H, P, N, c = 48, 8, 16, 256
+    spec = SSMSpec(d_inner=H * 64, n_heads=H, headdim=64, d_state=128,
+                   chunk=c)
+    init = init_ssm_params(jax.random.PRNGKey(0), 1536, spec, jnp.float32)
+    A = np.array(-jnp.exp(init["A_log"]))
+    dt = np.broadcast_to(np.array(jax.nn.softplus(init["dt_bias"])),
+                         (1, c, H)).copy()
+    xh, _, _, Bc, Cc, D = _draw((1, c, H, P, N, c), seed=13)
+    arrs = [xh, dt, A, Bc, Cc, D]
+    dy, dh = _cotangents((1, c, H, P, N, c), seed=13)
+    want = [np.asarray(w) for w in _jax_vjp(arrs, dy, dh, c)]
+    nan = [np.isnan(w).any() for w in want]
+    assert nan == [False, True, True, False, False, False]
+    nan_heads, hot = np.isnan(want[2]), (-(dt * A).sum(1) > 88)[0]
+    assert nan_heads.any() and not (nan_heads & ~hot).any()
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrs]
+    y, h = ssd_scan(*leaves, chunk=c)
+    got = torch.autograd.grad((y, h), leaves, (torch.from_numpy(dy),
+                                               torch.from_numpy(dh)))
+    assert all(torch.isfinite(g).all() for g in got)
+    _assert_grads(got, ssd_passes_bwd(*map(torch.from_numpy, arrs),
+                                      torch.from_numpy(dy),
+                                      torch.from_numpy(dh), c))
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        ok = np.isfinite(w)
+        assert _rel(_np(g)[ok], w[ok]) < GRAD_TOL, name
+
+
+def test_backward_wrapper_takes_card_tensors_only():
+    """scan_bwd, the backward kernel's wrapper, raises on CPU tensors
+    before it builds anything (the CPU path is autograd through the plain
+    version); its buffer list names the C entry point's 21 pointers."""
+    arrs = [torch.from_numpy(a) for a in _draw((1, 32, 2, 8, 16, 16))]
+    with pytest.raises(ValueError, match="CUDA kernel given a tensor"):
+        scan_bwd(*arrs, torch.zeros(1, 32, 2, 8), None,
+                 torch.zeros(1, 2, 2, 8, 16), chunk=16)
+    assert len(BWD_BUFFERS) == len(set(BWD_BUFFERS)) == 21
+    assert set(bwd_scratch_shapes(1, 32, 2, 8, 16, 16)) < set(BWD_BUFFERS)
+
+
+def test_backward_scratch_shapes():
+    """The backward's fp32 scratch at mamba2-780m's training shape [1,
+    4096]: dh_y / dS [B, nc, H, P, N], the chunk totals, the per-head parts
+    of dB and dC [B, S, H, N] (201 MB of the 227 MB) and the per-chunk
+    parts of dA and dD."""
+    got = bwd_scratch_shapes(1, 4096, 48, 64, 128, 256)
+    assert got["dstates"] == ((1, 16, 48, 64, 128), torch.float32)
+    assert got["dB_heads"] == got["dC_heads"] == ((1, 4096, 48, 128),
+                                                  torch.float32)
+    assert got["chunk_sum"] == got["dA_part"] == got["dD_part"] == \
+        ((1, 48, 16), torch.float32)
+    nbytes = sum(np.prod(shape) * 4 for shape, _ in got.values())
+    assert nbytes == 4 * (16 * 48 * 64 * 128 + 2 * 4096 * 48 * 128
+                          + 3 * 48 * 16)

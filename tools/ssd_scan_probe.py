@@ -15,7 +15,15 @@ upcast inputs, the bound, and CUDA-event milliseconds per call (mean of
 --reps calls after one warm-up) of the kernel and of the plain version;
 on the wgmma path also each pass's CUDA-event milliseconds (events
 recorded between the passes' launches, mean over --reps calls).
---rows keeps only the named rows (prefill_bf16, fp32, main_path).
+Then one JSON line per row of chip_smoke.py's ssd_scan_bwd rows (the
+backward at mamba2-780m's training shape, bf16 [1, 4096], and fp32
+[1, 1024], dh_final None, from the forward's statistics): the error of
+each gradient against the plain version (bf16: ref.ssd_passes_bwd with the
+bf16 kernel's rounding; fp32: autograd through ref.ssd_chunked), the
+bound, CUDA-event milliseconds of the kernel and of the plain version, and
+each backward kernel's device milliseconds (profiler).
+--rows keeps only the named rows (prefill_bf16, fp32, main_path,
+bwd_train_bf16, bwd_fp32).
 
 --baseline builds a second library from other sources (for example the
 parent commit's ssd_scan.cu, saved under build/, which is gitignored and
@@ -24,8 +32,10 @@ the same inputs: baseline, kernel, kernel, baseline, and says whether
 the two builds' y and h_final are bitwise equal.  A baseline that has
 the passes' entry points takes the same path as the package; one built
 from ssd_scan.cu alone (whose entry point ssd_scan_launch keeps its
-signature) runs its one kernel.  A quick check of a kernel change;
-chip_smoke.py is the full run.
+signature) runs its one kernel.  A baseline with the backward's entry
+point (ssd_scan_bwd.cu built with ssd_scan.cu and ssd_passes.cu) is timed
+in turns on the backward rows too; one without it sits those rows out.
+A quick check of a kernel change; chip_smoke.py is the full run.
 """
 import argparse
 import importlib
@@ -46,7 +56,9 @@ import torch  # noqa: E402
 import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import build as _build  # noqa: E402
 SS = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_chunked, ssd_passes_bwd,
+)
 
 
 def card() -> str:
@@ -80,6 +92,65 @@ def pass_ms(args, lib, reps: int) -> dict:
     torch.cuda.synchronize()
     return {name: sum(ev[i].elapsed_time(ev[i + 1]) for ev in runs) / reps
             for i, name in enumerate(names)}
+
+
+def bwd_rows(libs, order, args) -> None:
+    """chip_smoke.py's ssd_scan_bwd rows, each build in turns."""
+    names = ("dxh", "ddt", "dA", "dBc", "dCc", "dD")
+    libs = {n: lib for n, lib in libs.items()
+            if hasattr(lib, "ssd_scan_bwd_launch")}
+    order = [n for n in order if n in libs]
+    for i, (variant, dtype, B, S) in enumerate(CS.SSD_BWD_ROWS):
+        variant = f"bwd_{variant}"
+        if args.rows and variant not in args.rows:
+            continue
+        inputs = CS.ssd_inputs(B, S, getattr(torch, dtype), args.seed + 10 + i)
+        g = torch.Generator(device="cuda").manual_seed(args.seed + 20 + i)
+        dy = torch.randn(inputs[0].shape, generator=g,
+                         device="cuda").to(inputs[0].dtype)
+        _, _, h_before = SS.scan(*inputs, chunk=CS.SSD_CHUNK, stats=True)
+        if dtype == "bfloat16":
+            plain = partial(ssd_passes_bwd, *inputs, dy, None, CS.SSD_CHUNK,
+                            operand_dtype=torch.bfloat16)
+        else:
+            def plain():
+                leaves = [a.detach().requires_grad_() for a in inputs]
+                y, _ = ssd_chunked(*leaves, CS.SSD_CHUNK)
+                return torch.autograd.grad(y, leaves, dy)
+        want = plain()
+        row = {"variant": variant, "dtype": dtype,
+               "shape": [B, S, CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE],
+               "chunk": CS.SSD_CHUNK}
+        calls, outs = {}, {}
+        for name, lib in libs.items():
+            calls[name] = partial(SS.scan_bwd, *inputs, dy, None, h_before,
+                                  chunk=CS.SSD_CHUNK, lib=lib)
+            outs[name] = calls[name]()
+            row[f"{name}_rel_err"] = {
+                n: float((a.float() - w.float()).abs().max()
+                         / w.float().abs().max())
+                for n, a, w in zip(names, outs[name], want)}
+        if "baseline" in libs:
+            row["bitwise_equal_to_baseline"] = all(
+                bool(torch.equal(a, b))
+                for a, b in zip(outs["kernel"], outs["baseline"]))
+        del want, outs
+        torch.cuda.empty_cache()
+        for name in order:
+            row.setdefault(f"{name}_ms", []).append(
+                CS.cuda_ms(calls[name], args.reps))
+        row["plain_ms"] = CS.cuda_ms(plain, 2)
+        row.update(CS.kernel_device_ms(calls["kernel"], args.reps,
+                                       CS.SSD_BWD_KERNELS))
+        elem = inputs[0].element_size()
+        H, P, N = CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE
+        nbytes = (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N
+                  + 4 * H) * elem + B * (S // CS.SSD_CHUNK) * H * P * N * 4
+        row["bound_ms"], row["bound_by"] = CS.bound(
+            nbytes, CS.ssd_bwd_ops(B, S), CS.FLOPS_PER_S[dtype])
+        print(json.dumps(row), flush=True)
+        del inputs, calls, dy, h_before
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -156,6 +227,7 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         del inputs, calls
         torch.cuda.empty_cache()
+    bwd_rows(libs, order, args)
     print(card(), flush=True)
     return 0
 
