@@ -70,11 +70,16 @@ exits non-zero:
            them over) at mamba2-780m's training shape (bf16 [1, 4096], 48
            heads of 64, state 128, chunk 256) and fp32 [1, 1024]: bf16
            within the flash backward's two gates against the plain
-           backward passes (ref.ssd_passes_bwd, with the bf16 kernel's
-           rounding, and in fp32 as the exact gradient); fp32 to 1e-4 of
-           the plain version's autograd; two launches bitwise equal; each
-           of the four kernels' device ms, the bound and its share.  No
-           PyTorch call computes the SSD gradient: no library yardstick.
+           backward passes (ref.ssd_passes_bwd, with the rounding of the
+           path bwd_path picks, and in fp32 as the exact gradient); fp32
+           to 1e-4 of the plain version's autograd; two launches bitwise
+           equal, both on the row's path (bf16 at these widths: the
+           wgmma backward, six kernels; fp32: the simple one, four); each
+           kernel's device ms, the bound and its share, and each bf16
+           tensor's RMS error against the exact gradient over that of the
+           simple path's plain rounding (simple_rms_err_ratio: what the
+           wgmma path's own roundings cost).  No PyTorch call computes
+           the SSD gradient: no library yardstick.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -194,9 +199,10 @@ exits non-zero:
            parameters and fp32 AdamW moments, 9.4 GB; bf16 compute, remat)
            trained as train trains gemma-2b, tokens [1, 4096]: 4 timed
            steps (ssd_scan launches a step: 96 forward with the
-           recompute, 48 backward), one traced step (device time by
-           kernel class), peak memory; finite losses and norms, parameters
-           that move.  No save (train saves once).
+           recompute, 48 backward, every backward on the wgmma path:
+           bwd_path_launches), one traced step (device time by kernel
+           class), peak memory; finite losses and norms, parameters that
+           move.  No save (train saves once).
   ssm_train_parity  mamba2-780m cut to 2 layers at full width, fp32,
            remat, tokens [1, 1024]: the loss and every gradient leaf
            through the ssd_scan kernels against the same through the plain
@@ -1094,8 +1100,10 @@ def ssd_bwd_ops(B: int, S: int) -> int:
     chunk) C B^T, and dCB B and dCB^T C taken once on the heads' sum of dCB
     (B and C are shared by the heads; N deep); per (batch, chunk, head)
     dy x^T and scores^T dy (P deep), and dy h, x dS, B dS and pass (a)'s
-    exp(acs) dy^T C (c P N each).  The kernel itself takes all five tile
-    products per head."""
+    exp(acs) dy^T C (c P N each).  The simple path's kernel takes all five
+    tile products per head; the wgmma path takes C B^T once per pair but
+    forms dy x^T twice and C h^T once more per head
+    (csrc/ssd_scan_bwd_wgmma.cu's note)."""
     c, P, N = SSD_CHUNK, SSD_HEAD_DIM, SSD_STATE
     n = c // 64
     tiles = n * (n + 1) // 2 * 64 * 64
@@ -1120,6 +1128,7 @@ def ssd_bwd_rows(seed: int):
     K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
 
     names = ("dxh", "ddt", "dA", "dBc", "dCc", "dD")
+    paths = {"wgmma": "ssd_scan_bwd_wgmma.cu", "simple": "ssd_scan_bwd.cu"}
 
     def autograd_plain(args, dy):
         leaves = [a.detach().float().requires_grad_() for a in args]
@@ -1135,6 +1144,7 @@ def ssd_bwd_rows(seed: int):
         dy = torch.randn(args[0].shape, generator=g,
                          device="cuda").to(args[0].dtype)
         _, _, h_before = K.scan(*args, chunk=SSD_CHUNK, stats=True)
+        path = K.bwd_path(args[0], args[3], args[4], dy, SSD_CHUNK)
         call = partial(K.scan_bwd, *args, dy, None, h_before,
                        chunk=SSD_CHUNK)
         K.reset_launches()
@@ -1142,29 +1152,34 @@ def ssd_bwd_rows(seed: int):
         again = call()
         torch.cuda.synchronize()
         launched = K.bwd_launches["ssd_scan_bwd"]
+        on_path = K.bwd_path_launches[path]
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         if bf16:
             plain_call = partial(ssd_passes_bwd, *args, dy, None, SSD_CHUNK,
-                                 operand_dtype=torch.bfloat16)
+                                 operand_dtype=torch.bfloat16, path=path)
             want = plain_call()
             exact = ssd_passes_bwd(*(a.float() for a in args), dy.float(),
                                    None, SSD_CHUNK)
+            simple = ssd_passes_bwd(*args, dy, None, SSD_CHUNK,
+                                    operand_dtype=torch.bfloat16)
             row_err = {n: grad_row_err(a, w)
                        for n, a, w in zip(names, got, want)}
             rms = {n: grad_rms_err(a, e) for n, a, e in zip(names, got, exact)}
             plain_rms = {n: grad_rms_err(w, e)
                          for n, w, e in zip(names, want, exact)}
             ratio = {n: rms[n] / max(plain_rms[n], 1e-30) for n in names}
+            simple_ratio = {n: rms[n] / max(grad_rms_err(w, e), 1e-30)
+                            for n, w, e in zip(names, simple, exact)}
             faults = [f"{n}: row {row_err[n]:.3g}" for n in names
                       if not row_err[n] <= BF16_GRAD_ROW_TOL] + \
                      [f"{n}: rms ratio {ratio[n]:.3g}" for n in names
                       if not ratio[n] <= BF16_GRAD_RMS_RATIO]
-            del exact
+            del exact, simple
         else:
             plain_call = partial(autograd_plain, args, dy)
             want = plain_call()
-            row_err = rms = plain_rms = ratio = None
+            row_err = rms = plain_rms = ratio = simple_ratio = None
             faults = []
         err = {n: float((a.float() - w.float()).abs().max())
                for n, a, w in zip(names, got, want)}
@@ -1174,10 +1189,12 @@ def ssd_bwd_rows(seed: int):
             faults = [f"{n}: rel {rel[n]:.3g}" for n in names
                       if not rel[n] <= BWD_FP32_TOL]
         finite = all(bool(torch.isfinite(a).all()) for a in got)
-        if faults or not bitwise or not finite or launched != 2:
+        if faults or not bitwise or not finite or launched != 2 or \
+                on_path != 2:
             raise AssertionError(
                 f"ssd_scan backward {variant}: {'; '.join(faults)}; bitwise "
-                f"{bitwise}, finite {finite}, launches {launched}")
+                f"{bitwise}, finite {finite}, launches {launched} "
+                f"({on_path} on the {path} path)")
         del got, want
         torch.cuda.empty_cache()
         elem = args[0].element_size()
@@ -1189,10 +1206,13 @@ def ssd_bwd_rows(seed: int):
         b_ms, b_by = bound(nbytes, nops, FLOPS_PER_S[dtype])
         row = {"name": "ssd_scan_bwd", "variant": variant,
                "shape": [B, S, H, P, N], "chunk": SSD_CHUNK, "dtype": dtype,
+               "path": path, "source": "src/repro_torch/kernels/ssd_scan/"
+               f"csrc/{paths[path]}",
                "launches": launched, "max_abs_err": max(err.values()),
                "abs_err": err, "rel_err": rel, "row_scaled_err": row_err,
                "rms_err": rms, "plain_rms_err": plain_rms,
-               "rms_err_ratio": ratio, "bitwise_repeatable": bitwise,
+               "rms_err_ratio": ratio, "simple_rms_err_ratio": simple_ratio,
+               "bitwise_repeatable": bitwise,
                "ms": cuda_ms(call, 5), "plain_ms": cuda_ms(plain_call, 2),
                **kernel_device_ms(call, 5, SSD_BWD_KERNELS),
                "bound_ms": b_ms, "bound_by": b_by, "flops": nops,
@@ -2248,6 +2268,8 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
                       bwd_name: kernel.bwd_launches[bwd_name] - bwd})
     launches = {**kernel.launches, **kernel.bwd_launches,
                 **dvv_ops.launches}
+    if hasattr(kernel, "bwd_path_launches"):
+        out["bwd_path_launches"] = dict(kernel.bwd_path_launches)
     out.update(steps=steps, launches=launches,
                peak_bytes=torch.cuda.max_memory_allocated(),
                s_per_step_after_first=sum(r["s"] for r in steps[1:])
@@ -2270,6 +2292,12 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
         raise AssertionError(f"{fwd_name} launches per step {per_step}, "
                              f"expected {want} (forward with its "
                              f"recompute, backward)")
+    by_path = out.get("bwd_path_launches")
+    if device == "cuda" and by_path is not None and \
+            by_path != {"wgmma": cfg.n_layers * TRAIN_STEPS, "simple": 0}:
+        raise AssertionError(f"{bwd_name} calls by path {by_path}: every "
+                             f"bf16 backward of the {TRAIN_STEPS} steps "
+                             f"should take the wgmma kernels")
     if not save:
         del trainer
         shutil.rmtree(blob, ignore_errors=True)
@@ -2818,10 +2846,13 @@ def main() -> int:
             if r["variant"] != "train_bf16":
                 continue
             launches = ssm_train["launches"]["ssd_scan_bwd"]
-            source = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu"
+            source = r["source"]
             extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "library": None, "row_scaled_err": r["row_scaled_err"],
+                     "path": r["path"], "library": None,
+                     "row_scaled_err": r["row_scaled_err"],
                      "rms_err_ratio": r["rms_err_ratio"],
+                     "simple_rms_err_ratio": r["simple_rms_err_ratio"],
+                     "bwd_path_launches": ssm_train["bwd_path_launches"],
                      "device_kernels_ms": r["device_kernels_ms"]}
         elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
             launches = store["launches"][r["name"]]

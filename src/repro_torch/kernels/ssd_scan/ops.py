@@ -10,7 +10,8 @@ second derivative through the backward kernel raises
 (``once_differentiable``) instead of reading as zero.  A tensor on the
 card always goes to the kernels: if they cannot be built or launched, the
 call raises; there is no fallback.  ``launches`` and ``bwd_launches`` count
-the kernel launches; ``reset_launches`` zeroes both.
+the kernel launches (``bwd_path_launches`` the backward's by path);
+``reset_launches`` zeroes them all.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from torch.autograd.function import once_differentiable
 from . import ssd_scan as _cuda
 from .ref import ssd_chunked
 from .ssd_scan import (  # noqa: F401
-    bwd_launches, check_chunk, launches, reset_launches,
+    bwd_launches, bwd_path_launches, check_chunk, launches, reset_launches,
 )
 
 
@@ -44,7 +45,7 @@ class SSDScan(torch.autograd.Function):
         xh, dt, A, Bc, Cc, D, h_before = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(xh.shape, dtype=xh.dtype, device=xh.device)
-        elif dy.stride(-1) != 1:             # e.g. an expanded gradient
+        elif not _cuda._tma_ok(dy):          # e.g. an expanded gradient
             dy = dy.contiguous()
         if dh_final is not None:
             dh_final = dh_final.float().contiguous()

@@ -26,11 +26,24 @@ the gradient of the scan: ``state_grad_from_y`` (what y asks of the state
 before each chunk), ``state_pass_bwd`` (the state's gradient carried from
 the last chunk to the first), ``chunk_bwd`` (every local gradient of a
 chunk) and ``reduce_bwd`` (the sums over heads and over (batch,
-sequence)).  The backward kernel computes in fp32 from the upcast inputs
-and rounds no operand of its own; what it reads that was rounded is the
+sequence)).  That kernel computes in fp32 from the upcast inputs and
+rounds no operand of its own; what it reads that was rounded is the
 forward's fp32 state before each chunk, whose chunk states the bf16
 forward formed from bf16 operands.  ``operand_dtype`` rounds that (through
 ``chunk_state``) and nothing else.
+
+The bf16 backward on ``wgmma`` (``csrc/ssd_scan_bwd_wgmma.cu``) takes the
+same state passes and, in place of ``chunk_bwd`` and ``reduce_bwd``,
+``chunk_bwd_summed``: dB and dC come from dCB summed over the heads, and
+the heads' state terms are summed as they are formed.  Its products round
+their fp32 operands to bf16, and ``ssd_passes_bwd(..., path="wgmma")``
+with an ``operand_dtype`` rounds exactly those, besides the forward's
+chunk-state operands: exp(acs_t) dy_t (``state_grad_from_y``'s dh_y, dC's
+head term and the acs gradient's inter term), h_before (dC's head term,
+the inter term), dS (dx's and dB's state terms and <x B^T, dS>),
+tail_s x_s (dB's state term) and the scores C B^T L dt_s (dx); the
+head-summed dCB (dB, dC) as two terms, hi = the rounded dCB and lo = the
+rounded rest.
 """
 from __future__ import annotations
 
@@ -197,16 +210,19 @@ def ssd_passes(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def state_grad_from_y(dy: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                      Cc: torch.Tensor, chunk: int
+                      Cc: torch.Tensor, chunk: int,
+                      operand_dtype: Optional[torch.dtype] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward pass (a).  dh_y [B,nc,H,P,N] = sum_t exp(acs_t) dy_t^T C_t
     within each chunk (what y asks of the state before the chunk), and
-    chunk_sum [B,H,nc] = acs_end; fp32."""
+    chunk_sum [B,H,nc] = acs_end; fp32.  ``operand_dtype`` rounds
+    exp(acs_t) dy_t, as the wgmma backward does."""
     B_, S, H, P = dy.shape
     N, nc = Cc.shape[-1], S // chunk
     acs = chunk_cumsum(dt, A, chunk)                           # [B,H,nc,c]
-    dyw = dy.float().reshape(B_, nc, chunk, H, P) * \
-        torch.exp(acs).permute(0, 2, 3, 1)[..., None]
+    dyw = _rounded(dy.float().reshape(B_, nc, chunk, H, P) *
+                   torch.exp(acs).permute(0, 2, 3, 1)[..., None],
+                   operand_dtype)
     Cr = Cc.float().reshape(B_, nc, chunk, N)
     return torch.einsum("bnthp,bntk->bnhpk", dyw, Cr), \
         acs[..., -1].contiguous()
@@ -301,6 +317,88 @@ def chunk_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "dD_part": torch.einsum("bnthp,bnthp->bhn", g, x)}
 
 
+def chunk_bwd_summed(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+                     h_before: torch.Tensor, dstates: torch.Tensor,
+                     dy: torch.Tensor, chunk: int,
+                     operand_dtype: Optional[torch.dtype] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The wgmma backward's chunk passes: ``chunk_bwd``'s function with dB
+    and dC summed over the heads as the kernels form them, dB_s = sum_t
+    dCB[t,s] C_t + sum_h tail_s x_s dS and dC_t = sum_s dCB[t,s] B_s +
+    sum_h exp(acs_t) dy_t h with dCB = sum_h G L dt_s.  ``operand_dtype``
+    rounds each product's fp32 operand (the module note lists them; dCB
+    as the sum of two rounded terms).
+    Returns dxh [B,S,H,P], ddt [B,S,H], dBc and dCc [B,S,N], dA_part and
+    dD_part [B,H,nc] (fp32), and dcb [B,nc,c,c], the head-summed dCB; in
+    fp32 it is ``reduce_bwd`` of ``chunk_bwd`` up to fp32 rounding."""
+    B_, S, H, P = xh.shape
+    N, nc = Bc.shape[-1], S // chunk
+    acs = chunk_cumsum(dt, A, chunk)                           # [B,H,nc,c]
+    acs_end = acs[..., -1:]
+    dtr = dt.float().reshape(B_, nc, chunk, H).permute(0, 3, 1, 2)
+    x = xh.float().reshape(B_, nc, chunk, H, P)
+    g = dy.float().reshape(B_, nc, chunk, H, P)
+    Br = Bc.float().reshape(B_, nc, chunk, N)
+    Cr = Cc.float().reshape(B_, nc, chunk, N)
+    hb, dS = h_before.float(), dstates.float()                # [B,nc,H,P,N]
+
+    def rnd(t):
+        return _rounded(t, operand_dtype)
+
+    def rows(t):                                    # [B,H,nc,c] -> rows
+        return t.permute(0, 2, 3, 1)[..., None]     # [B,nc,c,H,1]
+
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    diff = acs[..., :, None] - acs[..., None, :]               # [B,H,nc,t,s]
+    Lm = torch.where(mask, torch.exp(torch.where(mask, diff, 0.)), 0.)
+    del diff
+    cb = torch.einsum("bntk,bnsk->bnts", Cr, Br)[:, None]      # [B,1,nc,t,s]
+    G = torch.einsum("bnthp,bnshp->bhnts", g, x)
+    Ldt = Lm * dtr[..., None, :]
+    E = cb * Lm * G                                            # CB L G
+    del Lm
+    dcb = (G * Ldt).sum(1)                                     # [B,nc,t,s]
+    del G
+    scores = rnd(cb * Ldt)
+    del Ldt
+    tail = torch.exp(acs_end - acs) * dtr
+    dSr, hbr = rnd(dS), rnd(hb)
+    dye = rnd(g * rows(torch.exp(acs)))                        # e_t dy_t
+    bds = torch.einsum("bnsk,bnhpk->bnshp", Br, dSr)           # B_s dS^T
+    dx = torch.einsum("bhnts,bnthp->bnshp", scores, g) + bds * rows(tail) + \
+        g * D.float()[None, None, None, :, None]
+    del scores
+    Q = (x * bds).sum(-1).permute(0, 3, 1, 2)                 # <x B^T, dS>
+    del bds
+    dcbr = rnd(dcb)
+    dcbr = dcbr + rnd(dcb - dcbr)                   # hi + lo
+    dC = torch.einsum("bnts,bnsk->bntk", dcbr, Br) + \
+        torch.einsum("bnthp,bnhpk->bntk", dye, hbr)
+    dB = torch.einsum("bnts,bntk->bnsk", dcbr, Cr) + \
+        torch.einsum("bnshp,bnhpk->bnsk", rnd(x * rows(tail)), dSr)
+    inter = (dye * torch.einsum("bntk,bnhpk->bnthp", Cr, hbr)).sum(-1) \
+        .permute(0, 3, 1, 2)                                   # C.(e dy h)
+    M = E * dtr[..., None, :]
+    colE = E.sum(-2)                                           # over t
+    del E
+    dacs = M.sum(-1) - M.sum(-2) - tail * Q + inter
+    del M
+    end = (tail * Q).sum(-1) + torch.exp(acs_end[..., 0]) * \
+        torch.einsum("bnhpk,bnhpk->bhn", hb, dS)
+    dacs = torch.cat([dacs[..., :-1], dacs[..., -1:] + end[..., None]], -1)
+    da = dacs.flip(-1).cumsum(-1).flip(-1)
+    ddt = colE + torch.exp(acs_end - acs) * Q + \
+        A.float()[None, :, None, None] * da
+    return {"dxh": dx.reshape(B_, S, H, P),
+            "ddt": ddt.permute(0, 2, 3, 1).reshape(B_, S, H),
+            "dBc": dB.reshape(B_, S, N), "dCc": dC.reshape(B_, S, N),
+            "dA_part": (dtr * da).sum(-1),
+            "dD_part": torch.einsum("bnthp,bnthp->bhn", g, x),
+            "dcb": dcb}
+
+
 def reduce_bwd(parts: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """Backward pass (d): dB and dC [B,S,N] summed over heads, dA and dD
     [H] over (batch, chunk); with pass (c)'s dxh and ddt, the six
@@ -313,21 +411,34 @@ def reduce_bwd(parts: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 def ssd_passes_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
                    dy: torch.Tensor, dh_final: Optional[torch.Tensor],
-                   chunk: int, operand_dtype: Optional[torch.dtype] = None
-                   ) -> Tuple[torch.Tensor, ...]:
-    """The backward's four passes composed: the gradient of ``ssd_chunked``
-    (y, h_final) for the cotangents dy [B,S,H,P] and dh_final [B,H,P,N]
-    (None: zero), as (dxh, ddt, dA, dBc, dCc, dD), each in its input's
-    dtype.  The state before each chunk [B,nc,H,P,N] is recomputed by
+                   chunk: int, operand_dtype: Optional[torch.dtype] = None,
+                   path: str = "simple") -> Tuple[torch.Tensor, ...]:
+    """The backward's passes composed: the gradient of ``ssd_chunked`` (y,
+    h_final) for the cotangents dy [B,S,H,P] and dh_final [B,H,P,N] (None:
+    zero), as (dxh, ddt, dA, dBc, dCc, dD), each in its input's dtype.
+    The state before each chunk [B,nc,H,P,N] is recomputed by
     ``chunk_state`` (rounding as ``operand_dtype`` says) and ``state_pass``
-    in fp32, as the kernel's forward writes it."""
+    in fp32, as the kernel's forward writes it.  ``path`` names the kernel
+    mirrored: ``"simple"`` (``chunk_bwd``, ``reduce_bwd``; the
+    operand_dtype rounds only the forward's chunk-state operands) or
+    ``"wgmma"`` (``chunk_bwd_summed``; it also rounds the operands the
+    wgmma backward rounds)."""
+    if path not in ("simple", "wgmma"):
+        raise ValueError(f"unknown ssd_scan_bwd path {path!r}")
     states, chunk_sum = chunk_state(xh, dt, A, Bc, chunk, operand_dtype)
     h_before, _ = state_pass(states, chunk_sum)
     del states
-    dh_y, chunk_sum = state_grad_from_y(dy, dt, A, Cc, chunk)
+    bwd_dtype = operand_dtype if path == "wgmma" else None
+    dh_y, chunk_sum = state_grad_from_y(dy, dt, A, Cc, chunk, bwd_dtype)
     dstates = state_pass_bwd(dh_y, chunk_sum, dh_final)
     del dh_y
-    grads = reduce_bwd(chunk_bwd(xh, dt, A, Bc, Cc, D, h_before, dstates,
-                                 dy, chunk))
+    if path == "wgmma":
+        p = chunk_bwd_summed(xh, dt, A, Bc, Cc, D, h_before, dstates, dy,
+                             chunk, bwd_dtype)
+        grads = (p["dxh"], p["ddt"], p["dA_part"].sum((0, 2)), p["dBc"],
+                 p["dCc"], p["dD_part"].sum((0, 2)))
+    else:
+        grads = reduce_bwd(chunk_bwd(xh, dt, A, Bc, Cc, D, h_before,
+                                     dstates, dy, chunk))
     return tuple(g.to(t.dtype) for g, t in zip(grads,
                                                 (xh, dt, A, Bc, Cc, D)))

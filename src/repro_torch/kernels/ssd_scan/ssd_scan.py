@@ -15,9 +15,16 @@ from dtype, shape and layout alone:
 
 ``scan(..., stats=True)`` also returns the fp32 state before each chunk,
 the backward's statistics (either path; ``stats=False`` writes nothing
-more and computes the same bits).  ``scan_bwd`` is the gradient
-(``csrc/ssd_scan_bwd.cu``: four passes, every call the forward takes),
-which the JAX package takes by autodiff of its jnp ``ssd_chunked``.
+more and computes the same bits).  ``scan_bwd`` is the gradient, which the
+JAX package takes by autodiff of its jnp ``ssd_chunked``, on two paths
+chosen by ``bwd_path`` as the forward's are:
+
+- ``"wgmma"`` (``csrc/ssd_scan_bwd_wgmma.cu``): bf16 at P 64, N 128, a
+  chunk that is a multiple of 64 up to 256, x, B, C and dy as TMA maps
+  them (mamba2-780m's training); six kernels on Hopper's ``wgmma``, the
+  products the heads share taken once.
+- ``"simple"`` (``csrc/ssd_scan_bwd.cu``): every other call, fp32 among
+  them; four kernels on fp32 FMAs.
 
 The source notes at the top of the ``.cu`` files say what bounds each on an
 H100 and what its design does about that.
@@ -33,11 +40,13 @@ current stream without synchronising, raises if a C entry point reports a
 CUDA error, and, where it launches, adds one to ``launches["ssd_scan"]``
 (one per call, whatever the number of CUDA kernels) and to
 ``path_launches[path]``; ``scan_bwd`` the same, to
-``bwd_launches["ssd_scan_bwd"]``.
+``bwd_launches["ssd_scan_bwd"]`` and ``bwd_path_launches[path]``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -58,12 +67,19 @@ launches: Dict[str, int] = {"ssd_scan": 0}
 path_launches: Dict[str, int] = {"wgmma": 0, "simple": 0}
 #: Launches of the backward since the last ``reset_launches``: one per call.
 bwd_launches: Dict[str, int] = {"ssd_scan_bwd": 0}
+#: The same calls by path (``bwd_path``).
+bwd_path_launches: Dict[str, int] = {"wgmma": 0, "simple": 0}
 #: The device buffers of ``ssd_scan_bwd_launch``, in its order: inputs,
 #: outputs, scratch (``bwd_scratch_shapes``).
 BWD_BUFFERS = ("xh", "dt", "A", "Bc", "Cc", "D", "dy", "h_before",
                "dh_final", "dxh", "ddt", "dA", "dBc", "dCc", "dD",
                "dstates", "chunk_sum", "dB_heads", "dC_heads", "dA_part",
                "dD_part")
+#: The device buffers of ``ssd_scan_bwd_wgmma_launch``, in its order:
+#: inputs, outputs, scratch (``bwd_scratch_shapes(..., path="wgmma")``).
+BWD_WGMMA_BUFFERS = BWD_BUFFERS[:15] + (
+    "dstates", "chunk_sum", "ds_bf", "h_bf", "hds", "acs", "dts", "tail",
+    "inter", "cb", "dcb", "dA_part", "dD_part")
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -72,8 +88,9 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     launches["ssd_scan"] = 0
     bwd_launches["ssd_scan_bwd"] = 0
-    for k in path_launches:
-        path_launches[k] = 0
+    for counts in (path_launches, bwd_path_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def build() -> Path:
@@ -109,6 +126,10 @@ def load(path) -> ctypes.CDLL:
         for fn in (lib.ssd_scan_stats_launch, lib.ssd_state_pass_stats_launch,
                    lib.ssd_scan_bwd_launch):
             fn.restype = ctypes.c_int
+    if hasattr(lib, "ssd_scan_bwd_wgmma_launch"):
+        lib.ssd_scan_bwd_wgmma_launch.argtypes = [
+            p, i, i, i, i, i, i, p, i, i, p]
+        lib.ssd_scan_bwd_wgmma_launch.restype = ctypes.c_int
     return lib
 
 
@@ -150,6 +171,17 @@ def wgmma_path(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
             and N == WGMMA_N and chunk % WGMMA_TILE == 0
             and chunk <= WGMMA_MAX_CHUNK
             and all(_tma_ok(t) for t in (xh, Bc, Cc))):
+        return "wgmma"
+    return "simple"
+
+
+def bwd_path(xh: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
+             dy: torch.Tensor, chunk: int) -> str:
+    """``"wgmma"`` where the Hopper backward of ``csrc/ssd_scan_bwd_wgmma.cu``
+    tiles the call (the forward's rule, ``wgmma_path``, with dy as TMA maps
+    it too), else ``"simple"`` (``csrc/ssd_scan_bwd.cu``).  Pure Python on
+    the arguments' dtype, shapes and strides."""
+    if wgmma_path(xh, Bc, Cc, chunk) == "wgmma" and _tma_ok(dy):
         return "wgmma"
     return "simple"
 
@@ -336,16 +368,51 @@ def scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y, h_final, h_before) if stats else (y, h_final)
 
 
-def bwd_scratch_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int
+def bwd_scratch_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                       path: str = "simple"
                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """The backward's fp32 scratch, allocated by the wrapper: dh_y and then
-    dS of each chunk (passes a, b), each chunk's total log decay, the
-    per-head parts of dB and dC, and the per-chunk parts of dA and dD
-    (pass c, summed by pass d)."""
+    """The backward's scratch, allocated by the wrapper.  ``"simple"``
+    (fp32): dh_y and then dS of each chunk (passes a, b), each chunk's
+    total log decay, the per-head parts of dB and dC, and the per-chunk
+    parts of dA and dD (pass c, summed by pass d).  ``"wgmma"``: dh_y
+    (fp32), the chunk totals, dS and h_before in bf16 (operands), the
+    warps' parts of <h, dS>, each (b, chunk, head)'s acs, dt, tail and
+    inter rows, C B^T (fp32) and the head-summed dCB (two bf16 terms, hi
+    and lo) of each 64-row tile pair at or below the diagonal, and the
+    parts of dA and dD; no per-head [B, S, H, N] buffer."""
     nc, f = S // chunk, torch.float32
+    if path == "wgmma":
+        nt = chunk // WGMMA_TILE
+        pairs = (B, nc, nt * (nt + 1) // 2, WGMMA_TILE, WGMMA_TILE)
+        halves = pairs[:3] + (2,) + pairs[3:]         # dCB's hi and lo
+        return {"dstates": ((B, nc, H, P, N), f),
+                "chunk_sum": ((B, H, nc), f),
+                "ds_bf": ((B, nc, H, P, N), torch.bfloat16),
+                "h_bf": ((B, nc, H, P, N), torch.bfloat16),
+                "hds": ((B, nc, H, P * N // 128), f),
+                "acs": ((B, nc, H, chunk), f), "dts": ((B, nc, H, chunk), f),
+                "tail": ((B, nc, H, chunk), f),
+                "inter": ((B, nc, H, chunk), f),
+                "cb": (pairs, f), "dcb": (halves, torch.bfloat16),
+                "dA_part": ((B, H, nc), f), "dD_part": ((B, H, nc), f)}
+    if path != "simple":
+        raise ValueError(f"unknown ssd_scan_bwd path {path!r}")
     return {"dstates": ((B, nc, H, P, N), f), "chunk_sum": ((B, H, nc), f),
             "dB_heads": ((B, S, H, N), f), "dC_heads": ((B, S, H, N), f),
             "dA_part": ((B, H, nc), f), "dD_part": ((B, H, nc), f)}
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_layout(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                    path: str):
+    """Where each scratch buffer of ``bwd_scratch_shapes`` starts in one
+    allocation (offsets in bytes, 256-byte aligned), and its size."""
+    layout, total = {}, 0
+    for name, (shape, dtype) in bwd_scratch_shapes(B, S, H, P, N, chunk,
+                                                   path).items():
+        layout[name] = (total, shape, dtype)
+        total += -(-math.prod(shape) * dtype.itemsize // 256) * 256
+    return layout, total
 
 
 def _check_bwd(dims, xh, dy, dh_final, h_before, chunk) -> None:
@@ -374,18 +441,28 @@ def scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
              dy: torch.Tensor, dh_final: Optional[torch.Tensor],
              h_before: torch.Tensor, *, chunk: int,
-             lib: Optional[ctypes.CDLL] = None, keep: bool = False):
+             lib: Optional[ctypes.CDLL] = None, keep: bool = False,
+             path: Optional[str] = None):
     """The gradient of ``scan`` on the card: given the forward's inputs (as
     ``scan`` takes them), dy [B,S,H,P] (xh's dtype, last axis contiguous),
     dh_final [B,H,P,N] (fp32 contiguous, or None for zero) and the
     forward's statistics h_before (``scan(..., stats=True)``), returns
     (dxh, ddt, dA, dBc, dCc, dD), each contiguous in its input's dtype.
-    ``keep`` returns a dict of every buffer of the launch instead
-    (``BWD_BUFFERS``: the scratch of each pass too, to hold against
-    ``ref.py``'s passes)."""
+    ``keep`` returns a dict of every buffer of the launch instead (the
+    path's buffer list, ``BWD_BUFFERS`` or ``BWD_WGMMA_BUFFERS``: the
+    scratch of each pass too, to hold against ``ref.py``'s passes).
+    ``path`` (default ``bwd_path``'s choice) and ``lib`` (another build)
+    are for comparing designs: ``path="simple"`` runs
+    ``csrc/ssd_scan_bwd.cu``'s kernels at any shape."""
     dims = _check(xh, dt, A, Bc, Cc, D, chunk)
     B, S, H, P, N = dims
     _check_bwd(dims, xh, dy, dh_final, h_before, chunk)
+    tiled = bwd_path(xh, Bc, Cc, dy, chunk)
+    path = path or tiled
+    if path not in bwd_path_launches:
+        raise ValueError(f"unknown ssd_scan_bwd path {path!r}")
+    if path == "wgmma" and tiled != "wgmma":
+        raise ValueError("the wgmma backward does not tile this call")
     lib = lib or _load()
     dev = xh.device
 
@@ -397,22 +474,37 @@ def scan_bwd(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
            "dCc": like(Cc, (B, S, N)), "dD": like(D)}
     if B * H and S:
         A, D = A.contiguous(), D.contiguous()
-        out.update({name: torch.empty(shape, dtype=dtype, device=dev)
-                    for name, (shape, dtype) in
-                    bwd_scratch_shapes(B, S, H, P, N, chunk).items()})
-        bufs = dict(xh=xh, dt=dt, A=A, Bc=Bc, Cc=Cc, D=D, dy=dy,
-                    h_before=h_before, dh_final=dh_final, **out)
-        ptrs = (ctypes.c_void_p * len(BWD_BUFFERS))(
-            *(bufs[n].data_ptr() if bufs[n] is not None else None
-              for n in BWD_BUFFERS))
+        layout, total = _scratch_layout(B, S, H, P, N, chunk, path)
+        scratch = torch.empty(total, dtype=torch.uint8, device=dev)
+        base = scratch.data_ptr()
+        ptr = {name: t.data_ptr() for name, t in dict(
+            xh=xh, dt=dt, A=A, Bc=Bc, Cc=Cc, D=D, dy=dy, h_before=h_before,
+            **out).items()}
+        ptr.update({name: base + at for name, (at, _, _) in layout.items()},
+                   dh_final=None if dh_final is None else dh_final.data_ptr())
+        names = BWD_WGMMA_BUFFERS if path == "wgmma" else BWD_BUFFERS
+        ptrs = (ctypes.c_void_p * len(names))(*(ptr[n] for n in names))
         held = _strides(xh, dt, Bc, Cc, dy)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            _raise_on(lib.ssd_scan_bwd_launch(
-                ctypes.cast(ptrs, ctypes.c_void_p), B, S, H, P, N, chunk,
-                ctypes.cast(held, ctypes.c_void_p), DTYPES[xh.dtype],
-                DTYPES[A.dtype], DTYPES[D.dtype],
-                torch.cuda.current_stream(dev).cuda_stream), "ssd_scan_bwd")
+            if path == "wgmma":
+                err = lib.ssd_scan_bwd_wgmma_launch(
+                    ctypes.cast(ptrs, ctypes.c_void_p), B, S, H, P, N, chunk,
+                    ctypes.cast(held, ctypes.c_void_p), DTYPES[A.dtype],
+                    DTYPES[D.dtype], stream)
+            else:
+                err = lib.ssd_scan_bwd_launch(
+                    ctypes.cast(ptrs, ctypes.c_void_p), B, S, H, P, N, chunk,
+                    ctypes.cast(held, ctypes.c_void_p), DTYPES[xh.dtype],
+                    DTYPES[A.dtype], DTYPES[D.dtype], stream)
+            _raise_on(err, "ssd_scan_bwd")
         bwd_launches["ssd_scan_bwd"] += 1
+        bwd_path_launches[path] += 1
+        if keep:
+            out.update({name: scratch[at:at + math.prod(shape)
+                                      * dtype.itemsize].view(dtype)
+                        .view(shape)
+                        for name, (at, shape, dtype) in layout.items()})
     else:
         for name in ("dxh", "ddt", "dA", "dBc", "dCc", "dD"):
             out[name].zero_()

@@ -576,14 +576,17 @@ def _plain_ssd_grads(args, dy, dh, chunk):
 def _assert_ssd_grads(got, args, dy, dh, chunk):
     """fp32: each gradient within SSD_BWD_FP32_TOL of the plain version's.
     bf16: the flash backward's two gates, each gradient against the plain
-    backward passes with the bf16 kernel's rounding (ref.ssd_passes_bwd,
-    operand_dtype bf16) by grad_row_err, and against the exact gradient
-    (the same in fp32 without rounding) by grad_rms_err within
-    BF16_GRAD_RMS_RATIO of the plain version's own."""
+    backward passes with the rounding of the kernel that bwd_path picks
+    (ref.ssd_passes_bwd, operand_dtype bf16, that path) by grad_row_err,
+    and against the exact gradient (the same in fp32 without rounding) by
+    grad_rms_err within BF16_GRAD_RMS_RATIO of the plain version's own."""
+    import importlib
+
     from repro_torch.kernels.flash_attention.ref import (
         BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
     )
     from repro_torch.kernels.ssd_scan.ref import ssd_passes_bwd
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
 
     for g, a in zip(got, args):
         assert g.shape == a.shape and g.dtype == a.dtype
@@ -595,7 +598,9 @@ def _assert_ssd_grads(got, args, dy, dh, chunk):
         return
     up = [a.float() for a in args]
     plain = ssd_passes_bwd(*args, dy, dh, chunk,
-                           operand_dtype=torch.bfloat16)
+                           operand_dtype=torch.bfloat16,
+                           path=K.bwd_path(args[0], args[3], args[4], dy,
+                                           chunk))
     exact = ssd_passes_bwd(*up, dy.float(), dh, chunk)
     for name, g, p, e in zip(SSD_GRAD_NAMES, got, plain, exact):
         assert grad_row_err(g, p) <= BF16_GRAD_ROW_TOL, name
@@ -631,11 +636,12 @@ def test_ssd_backward_equals_plain_version(cuda, ieee_fp32, dtype, chunk, P,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_passes_equal_plain_versions(cuda, ieee_fp32, dtype):
-    """Each pass of the backward against its plain version (ref.py) on the
-    kernel's own inputs to it: the chunk totals and dS of passes (a) and
-    (b) from the scan's inputs; pass (c)'s per-head parts of dB and dC and
-    per-chunk parts of dA and dD from the kernel's dS; 1e-4 of the largest
-    magnitude."""
+    """Each pass of the simple backward (path="simple", which bf16 at these
+    widths would not take by the rule) against its plain version (ref.py)
+    on the kernel's own inputs to it: the chunk totals and dS of passes (a)
+    and (b) from the scan's inputs; pass (c)'s per-head parts of dB and dC
+    and per-chunk parts of dA and dD from the kernel's dS; 1e-4 of the
+    largest magnitude."""
     import importlib
 
     from repro_torch.kernels.ssd_scan import ref
@@ -645,7 +651,8 @@ def test_ssd_backward_passes_equal_plain_versions(cuda, ieee_fp32, dtype):
     args = _ssd_inputs(B, S, H, P, N, dtype, cuda, seed=8)
     dy, dh = _ssd_cotangents(B, S, H, P, N, dtype, cuda, seed=8)
     _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
-    out = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk, keep=True)
+    out = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk, keep=True,
+                     path="simple")
     torch.cuda.synchronize()
     up = [a.float() for a in args]
     dh_y, chunk_sum = ref.state_grad_from_y(dy, up[1], up[2], up[4], chunk)
@@ -660,16 +667,20 @@ def test_ssd_backward_passes_equal_plain_versions(cuda, ieee_fp32, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_backward_is_deterministic(cuda, dtype):
     """Two launches on the same inputs give the same bits (no atomics;
-    the sums over heads and over chunks in a fixed order)."""
+    the sums over heads and over chunks in a fixed order), on either path
+    (bf16 here takes the wgmma backward, fp32 the simple one)."""
     import importlib
     K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
 
     args = _ssd_inputs(2, 1024, 48, 64, 128, dtype, cuda, seed=9)
     dy, dh = _ssd_cotangents(2, 1024, 48, 64, 128, dtype, cuda, seed=9)
     _, _, h_before = K.scan(*args, chunk=256, stats=True)
+    K.reset_launches()
     a = K.scan_bwd(*args, dy, dh, h_before, chunk=256)
     b = K.scan_bwd(*args, dy, dh, h_before, chunk=256)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    path = "wgmma" if dtype == torch.bfloat16 else "simple"
+    assert K.bwd_path_launches[path] == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -748,6 +759,185 @@ def test_ssd_backward_of_an_empty_call_launches_nothing(cuda, B, S, H):
     assert K.bwd_launches == {"ssd_scan_bwd": 0}
     for g, a in zip(got, args):
         assert g.shape == a.shape and not g.any()
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("H", [48, 2, 7])
+@pytest.mark.parametrize("dh_final", ["none", "random"])
+def test_ssd_wgmma_backward_equals_plain_version(cuda, ieee_fp32, chunk, H,
+                                                 dh_final):
+    """The wgmma backward at mamba2-780m's widths (P 64, N 128) with 48
+    heads, 2 and 7 (a count no power of two divides), chunks 64, 128 and
+    256, dh_final None or random: one launch on the wgmma path, and the
+    six gradients within the bf16 gates of its mirrored plain version
+    (_assert_ssd_grads)."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, S = (1, 4 * chunk) if H == 48 else (2, 3 * chunk)
+    args = _ssd_inputs(B, S, H, 64, 128, torch.bfloat16, cuda, seed=13)
+    dy, dh = _ssd_cotangents(B, S, H, 64, 128, torch.bfloat16, cuda,
+                             seed=13)
+    dh = None if dh_final == "none" else dh
+    _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
+    assert K.bwd_path(args[0], args[3], args[4], dy, chunk) == "wgmma"
+    K.reset_launches()
+    got = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K.bwd_launches == {"ssd_scan_bwd": 1}
+    assert K.bwd_path_launches == {"wgmma": 1, "simple": 0}
+    _assert_ssd_grads(got, args, dy, dh, chunk)
+
+
+def test_ssd_wgmma_backward_passes_equal_plain_versions(cuda, ieee_fp32):
+    """The wgmma backward's scratch (keep=True) against the plain versions
+    on the kernels' own inputs: the chunk totals, acs, dt and tail rows;
+    dh_y from the rounded exp(acs) dy (ref.state_grad_from_y with bf16) and
+    dS (the reverse state pass) in bf16, within one bf16 step of the
+    largest magnitude (4e-3); h_before's bf16 copy; the
+    head-summed dCB of each tile pair (ref.chunk_bwd_summed's dcb, as the
+    kernel's hi and lo bf16 terms, whose sum keeps 16 bits: 1e-4); the
+    per-chunk parts of dA and dD; 1e-3 of the largest magnitude (fp32
+    sums in other orders, and a bf16 operand rounding the other side can
+    take one step away)."""
+    import importlib
+
+    from repro_torch.kernels.ssd_scan import ref
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, S, H, chunk = 2, 512, 3, 256
+    args = _ssd_inputs(B, S, H, 64, 128, torch.bfloat16, cuda, seed=14)
+    dy, dh = _ssd_cotangents(B, S, H, 64, 128, torch.bfloat16, cuda,
+                             seed=14)
+    _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
+    out = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk, keep=True)
+    torch.cuda.synchronize()
+    assert set(out) == set(K.BWD_WGMMA_BUFFERS[9:])
+    up = [a.float() for a in args]
+    dh_y, chunk_sum = ref.state_grad_from_y(dy, up[1], up[2], up[4], chunk,
+                                            torch.bfloat16)
+    assert _rel(out["chunk_sum"], chunk_sum) < 1e-5
+    acs = ref.chunk_cumsum(up[1], up[2], chunk).permute(0, 2, 1, 3)
+    assert _rel(out["acs"], acs) < 1e-5
+    assert torch.equal(out["dts"],
+                       up[1].reshape(B, S // chunk, chunk, H).transpose(2, 3))
+    tail = torch.exp(acs[..., -1:] - acs) * out["dts"]
+    assert _rel(out["tail"], tail) < 1e-5
+    assert _rel(out["dstates"], dh_y) < 1e-3
+    dstates = ref.state_pass_bwd(dh_y, chunk_sum, dh)
+    assert _rel(out["ds_bf"].float(), dstates) < 4e-3
+    assert torch.equal(out["h_bf"], h_before.bfloat16())
+    parts = ref.chunk_bwd_summed(*up, h_before, dstates, dy, chunk,
+                                 torch.bfloat16)
+    nt = chunk // 64
+    for t in range(nt):
+        for s in range(t + 1):
+            want = parts["dcb"][:, :, 64 * t:64 * t + 64, 64 * s:64 * s + 64]
+            hi, lo = out["dcb"][:, :, t * (t + 1) // 2 + s].unbind(2)
+            assert _rel(hi.float(), want) < 1e-2, (t, s)
+            assert _rel(hi.float() + lo.float(), want) < 1e-4, (t, s)
+    for name in ("dA_part", "dD_part"):
+        assert _rel(out[name], parts[name]) < 1e-3, name
+
+
+def test_ssd_backward_paths_by_the_rule(cuda, ieee_fp32):
+    """At mamba2-780m's widths an fp32 call, a bf16 call on an unaligned x
+    view and a bf16 call whose dy is expanded over the sequence take the
+    simple kernels by bwd_path's rule (counted there, none on wgmma), and
+    their gradients pass the gates of that path's plain version; an
+    aligned bf16 call takes wgmma.  Forcing wgmma where the rule says
+    simple raises."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    B, S, H, chunk = 1, 512, 4, 256
+    for case in ("fp32", "unaligned x", "expanded dy", "aligned"):
+        dtype = torch.float32 if case == "fp32" else torch.bfloat16
+        args = _ssd_inputs(B, S, H, 64, 128, dtype, cuda, seed=15)
+        dy, dh = _ssd_cotangents(B, S, H, 64, 128, dtype, cuda, seed=15)
+        if case == "unaligned x":
+            wide = torch.zeros((B, S, H * 64 + 2), dtype=dtype, device=cuda)
+            wide[..., 2:] = args[0].reshape(B, S, H * 64)
+            args[0] = wide[..., 2:].view(B, S, H, 64)
+        elif case == "expanded dy":
+            dy = dy[:, :1].expand(B, S, H, 64)
+        want = "wgmma" if case == "aligned" else "simple"
+        assert K.bwd_path(args[0], args[3], args[4], dy, chunk) == want
+        _, _, h_before = K.scan(*args, chunk=chunk, stats=True)
+        K.reset_launches()
+        got = K.scan_bwd(*args, dy, dh, h_before, chunk=chunk)
+        torch.cuda.synchronize()
+        assert K.bwd_path_launches == {"wgmma": int(want == "wgmma"),
+                                       "simple": int(want == "simple")}
+        _assert_ssd_grads(got, args, dy, dh, chunk)
+        if want == "simple":
+            with pytest.raises(ValueError, match="does not tile"):
+                K.scan_bwd(*args, dy, dh, h_before, chunk=chunk,
+                           path="wgmma")
+
+
+@pytest.mark.parametrize("B, S, H", [(0, 256, 4), (1, 0, 4), (1, 256, 0)])
+def test_ssd_wgmma_backward_of_an_empty_call_launches_nothing(cuda, B, S, H):
+    """bf16 at mamba2-780m's widths with an empty batch, sequence or head
+    axis: zero gradients of the inputs' shapes, no launch on either
+    path."""
+    import importlib
+    K = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+
+    bf = torch.bfloat16
+    args = [torch.ones(shape, device=cuda, dtype=bf) for shape in (
+        (B, S, H, 64), (B, S, H), (H,), (B, S, 128), (B, S, 128), (H,))]
+    dy = torch.zeros((B, S, H, 64), device=cuda, dtype=bf)
+    h_before = torch.zeros((B, S // 256, H, 64, 128), device=cuda)
+    K.reset_launches()
+    got = K.scan_bwd(*args, dy, None, h_before, chunk=256)
+    assert K.bwd_launches == {"ssd_scan_bwd": 0}
+    assert K.bwd_path_launches == {"wgmma": 0, "simple": 0}
+    for g, a in zip(got, args):
+        assert g.shape == a.shape and g.dtype == a.dtype and not g.any()
+
+
+def test_ssd_wgmma_backward_of_an_expanded_gradient_through_autograd(
+        cuda, ieee_fp32):
+    """y.sum() hands SSDScan an expanded dy (every stride 0); the backward
+    copies it to a layout TMA maps and takes the wgmma path, with the
+    gradients of the mirrored plain version."""
+    from repro_torch.kernels import ssd_scan as SS
+
+    args = _ssd_inputs(1, 512, 4, 64, 128, torch.bfloat16, cuda, seed=16)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y, _ = SS.ssd_scan(*leaves, chunk=256)
+    SS.reset_launches()
+    y.sum().backward()
+    assert SS.bwd_path_launches == {"wgmma": 1, "simple": 0}
+    _assert_ssd_grads([t.grad for t in leaves], args, torch.ones_like(y),
+                      None, 256)
+
+
+def test_mamba2_train_step_takes_the_wgmma_backward(cuda):
+    """mamba2-780m at full width and depth (48 layers, bf16 compute),
+    tokens [1, 256]: the loss and its gradient through the port's loss_fn
+    launch SSDScan's backward once per layer, every call on the wgmma
+    path; the loss and every gradient leaf are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    cfg = get_config("mamba2-780m")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 257)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    SS.reset_launches()
+    loss, _ = loss_fn(tree_unflatten(params, leaves), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert SS.bwd_launches == {"ssd_scan_bwd": cfg.n_layers}
+    assert SS.bwd_path_launches == {"wgmma": cfg.n_layers, "simple": 0}
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

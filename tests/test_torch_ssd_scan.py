@@ -12,7 +12,10 @@ autograd through its plain version and the plain versions of the backward
 kernel's four passes (``ref.ssd_passes_bwd``) against ``jax.vjp`` of the
 JAX package's ``ssd_chunked`` with numpy cotangents for y and h_final;
 each pass against autograd through the forward's passes; their bf16
-operand rounding against fp32.
+operand rounding against fp32.  The bf16 backward on wgmma: its path
+choice and scratch (pure Python), its plain passes (``ssd_passes_bwd(...,
+path="wgmma")``, through ``chunk_bwd_summed``) against ``jax.vjp`` in fp32
+and with its roundings, and the head-summed pass against the per-head one.
 """
 import jax
 import jax.numpy as jnp
@@ -27,11 +30,13 @@ from repro_torch.kernels.ssd_scan import (
     bwd_launches, launches, reset_launches, ssd_scan,
 )
 from repro_torch.kernels.ssd_scan.ref import (
-    chunk_out, chunk_state, ssd_passes, ssd_passes_bwd, state_grad_from_y,
-    state_pass, state_pass_bwd,
+    chunk_bwd, chunk_bwd_summed, chunk_out, chunk_state, reduce_bwd,
+    ssd_passes, ssd_passes_bwd, state_grad_from_y, state_pass,
+    state_pass_bwd,
 )
 from repro_torch.kernels.ssd_scan.ssd_scan import (
-    BWD_BUFFERS, bwd_scratch_shapes, scan_bwd, scratch_shapes, wgmma_path,
+    BWD_BUFFERS, BWD_WGMMA_BUFFERS, bwd_path, bwd_scratch_shapes, scan_bwd,
+    scratch_shapes, wgmma_path,
 )
 from repro_torch.models import ssd_chunked
 
@@ -504,3 +509,184 @@ def test_backward_scratch_shapes():
     nbytes = sum(np.prod(shape) * 4 for shape, _ in got.values())
     assert nbytes == 4 * (16 * 48 * 64 * 128 + 2 * 4096 * 48 * 128
                           + 3 * 48 * 16)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward on wgmma: its path, scratch and plain passes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case,want", [
+    ("main path", "wgmma"), ("chunk 64", "wgmma"), ("chunk 128", "wgmma"),
+    ("fp32", "simple"), ("P 16", "simple"), ("N 16", "simple"),
+    ("chunk 8", "simple"), ("chunk 512", "simple"),
+    ("unaligned x", "simple"), ("unaligned dy", "simple"),
+    ("dy expanded over the sequence", "simple"),
+    ("dy strided view", "wgmma"), ("strided x view", "wgmma"),
+    ("empty sequence", "simple"),
+])
+def test_backward_path_choice(case, want):
+    """bwd_path: the wgmma backward takes what the forward's wgmma passes
+    take (bf16 at P 64, N 128, a chunk that is a multiple of 64 up to 256,
+    TMA-aligned x, B and C, a sequence that is not empty) with dy as TMA
+    maps it too; all else goes to the simple kernels.  Pure Python, on CPU
+    tensors."""
+    xh, Bc, Cc = _main_widths()
+    dy = torch.zeros((1, 256, 48, 64), dtype=torch.bfloat16)
+    chunk = 256
+    if case.startswith("chunk"):
+        chunk = int(case.split()[1])
+        if chunk == 512:
+            xh, Bc, Cc = _main_widths(S=512)
+            dy = torch.zeros((1, 512, 48, 64), dtype=torch.bfloat16)
+    elif case == "fp32":
+        xh, Bc, Cc = _main_widths(dtype=torch.float32)
+        dy = dy.float()
+    elif case == "P 16":
+        xh, Bc, Cc = _main_widths(P=16)
+        dy = dy[..., :16]
+    elif case == "N 16":
+        xh, Bc, Cc = _main_widths(N=16)
+    elif case == "unaligned x":
+        wide = torch.zeros((1, 256, 48 * 64 + 2), dtype=torch.bfloat16)
+        xh = wide[..., 2:].view(1, 256, 48, 64)
+        assert xh.data_ptr() % 16
+    elif case == "unaligned dy":
+        wide = torch.zeros((1, 256, 48 * 64 + 2), dtype=torch.bfloat16)
+        dy = wide[..., 2:].view(1, 256, 48, 64)
+        assert dy.data_ptr() % 16
+    elif case == "dy expanded over the sequence":
+        dy = torch.zeros((1, 1, 48, 64), dtype=torch.bfloat16).expand(
+            1, 256, 48, 64)
+    elif case == "dy strided view":   # heads transposed in memory
+        dy = torch.zeros((1, 48, 256, 64), dtype=torch.bfloat16).transpose(
+            1, 2)
+        assert not dy.is_contiguous()
+    elif case == "strided x view":
+        flat = torch.zeros((1, 256, 48 * 64 + 256), dtype=torch.bfloat16)
+        xh = flat[..., :48 * 64].view(1, 256, 48, 64)
+        Bc, Cc = flat[..., 48 * 64:48 * 64 + 128], flat[..., 48 * 64 + 128:]
+    elif case == "empty sequence":
+        xh, Bc, Cc = _main_widths(S=0)
+        dy = dy[:, :0]
+    assert bwd_path(xh, Bc, Cc, dy, chunk) == want
+
+
+def test_backward_wgmma_scratch_shapes():
+    """The wgmma backward's scratch at mamba2-780m's training shape [1,
+    4096]: fp32 dh_y / dS and the bf16 dS and h_before [B, nc, H, P, N],
+    the chunk totals, the warps' parts of <h, dS>, the acs, dt, tail and
+    inter rows [B, nc, H, c], C B^T (fp32) and the head-summed dCB (two
+    bf16 terms) of the 10 tile pairs of each chunk, the parts of dA and dD:
+    58.9 MB,
+    with no [B, S, H, N] buffer (the simple path's per-head dB and dC
+    parts, 201 MB of its 227 MB)."""
+    got = bwd_scratch_shapes(1, 4096, 48, 64, 128, 256, path="wgmma")
+    f, b = torch.float32, torch.bfloat16
+    assert got == {
+        "dstates": ((1, 16, 48, 64, 128), f), "chunk_sum": ((1, 48, 16), f),
+        "ds_bf": ((1, 16, 48, 64, 128), b), "h_bf": ((1, 16, 48, 64, 128), b),
+        "hds": ((1, 16, 48, 64), f), "acs": ((1, 16, 48, 256), f),
+        "dts": ((1, 16, 48, 256), f), "tail": ((1, 16, 48, 256), f),
+        "inter": ((1, 16, 48, 256), f), "cb": ((1, 16, 10, 64, 64), f),
+        "dcb": ((1, 16, 10, 2, 64, 64), b), "dA_part": ((1, 48, 16), f),
+        "dD_part": ((1, 48, 16), f)}
+    assert (1, 4096, 48, 128) not in {shape for shape, _ in got.values()}
+    nbytes = sum(np.prod(shape) * dtype.itemsize
+                 for shape, dtype in got.values())
+    state = 16 * 48 * 64 * 128
+    assert nbytes == state * (4 + 2 + 2) + 16 * 48 * (64 + 4 * 256) * 4 + \
+        16 * 10 * 4096 * (4 + 2 * 2) + 3 * 48 * 16 * 4
+    assert nbytes == 58_926_080
+    assert set(got) < set(BWD_WGMMA_BUFFERS)
+    assert BWD_WGMMA_BUFFERS[:15] == BWD_BUFFERS[:15]
+    assert len(BWD_WGMMA_BUFFERS) == len(set(BWD_WGMMA_BUFFERS)) == 28
+    nt = bwd_scratch_shapes(2, 512, 3, 64, 128, 128, path="wgmma")
+    assert nt["cb"] == ((2, 4, 3, 64, 64), f)   # 2 tiles: 3 pairs
+    with pytest.raises(ValueError, match="unknown"):
+        bwd_scratch_shapes(1, 256, 2, 64, 128, 256, path="tiled")
+
+
+@pytest.mark.parametrize("dh_final", ["zero", "random"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wgmma_backward_passes_match_jax_vjp(shape, dh_final):
+    """The plain versions of the wgmma backward's passes, composed
+    (ssd_passes_bwd(path="wgmma"): dh_y, the reverse state pass and
+    chunk_bwd_summed, which sums dCB and the state terms over the heads
+    before its products), against jax.vjp of the JAX package's
+    ssd_chunked: every gradient to a relative 1e-4 in fp32."""
+    arrs = _draw(shape, seed=14)
+    dy, dh = _cotangents(shape, seed=14)
+    dh = None if dh_final == "zero" else dh
+    got = ssd_passes_bwd(*map(torch.from_numpy, arrs), torch.from_numpy(dy),
+                         None if dh is None else torch.from_numpy(dh),
+                         shape[-1], path="wgmma")
+    _assert_grads(got, _jax_vjp(arrs, dy, dh, shape[-1]))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_head_summed_pass_equals_the_per_head_passes(shape):
+    """chunk_bwd_summed in fp32 (dB and dC from dCB summed over the heads,
+    the state terms summed as formed) equals chunk_bwd followed by
+    reduce_bwd (per-head parts, then their sums) to fp32 rounding (1e-5
+    relative), and its dcb is the heads' sum of G L dt_s."""
+    xh, dt, A, Bc, Cc, D = map(torch.from_numpy, _draw(shape, seed=15))
+    dy, dh = map(torch.from_numpy, _cotangents(shape, seed=15))
+    chunk = shape[-1]
+    states, chunk_sum = chunk_state(xh, dt, A, Bc, chunk)
+    h_before, _ = state_pass(states, chunk_sum)
+    dh_y, chunk_sum = state_grad_from_y(dy, dt, A, Cc, chunk)
+    dstates = state_pass_bwd(dh_y, chunk_sum, dh)
+    args = (xh, dt, A, Bc, Cc, D, h_before, dstates, dy, chunk)
+    got = chunk_bwd_summed(*args)
+    want = reduce_bwd(chunk_bwd(*args))
+    for name, w in zip(("dxh", "ddt", "dA", "dBc", "dCc", "dD"), want):
+        g = got[name] if name not in ("dA", "dD") else \
+            got[f"{name}_part"].sum((0, 2))
+        assert g.shape == w.shape, name
+        assert _rel(g.numpy(), w.numpy()) < 1e-5, name
+    B_, S, H, P = xh.shape
+    nc = S // chunk
+    acs = (dt * A).reshape(B_, nc, chunk, H).cumsum(2)
+    L = torch.exp(acs[:, :, :, None] - acs[:, :, None, :]) \
+        * torch.tril(torch.ones(chunk, chunk))[None, None, :, :, None]
+    G = torch.einsum("bnthp,bnshp->bntsh", dy.reshape(B_, nc, chunk, H, P),
+                     xh.reshape(B_, nc, chunk, H, P))
+    dcb = (G * L * dt.reshape(B_, nc, 1, chunk, H)).sum(-1)
+    assert _rel(got["dcb"].numpy(), dcb.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 4, 16, 32, 64),
+                                   (2, 512, 3, 64, 128, 256)])
+def test_wgmma_backward_operand_rounding_within_tolerance(shape):
+    """The wgmma backward's passes on bf16 inputs with its roundings (the
+    forward's chunk-state operands; exp(acs) dy, h_before, dS, tail x, the
+    scores and the head-summed dCB to bf16 as product operands; each
+    gradient rounded to bf16 as the kernel writes it) against jax.vjp of
+    the fp32 oracle on the same upcast inputs: within test_kernels.py's
+    5e-2 on every gradient, and further from it than the same passes in
+    fp32 (the rounding is what differs)."""
+    arrs = [torch.from_numpy(a).bfloat16() for a in _draw(shape, seed=16)]
+    dy, dh = _cotangents(shape, seed=16)
+    dy16 = torch.from_numpy(dy).bfloat16()
+    up = [a.float() for a in arrs]
+    want = _jax_vjp([a.numpy() for a in up], dy16.float().numpy(), dh,
+                    shape[-1])
+    got = ssd_passes_bwd(*arrs, dy16, torch.from_numpy(dh), shape[-1],
+                         operand_dtype=torch.bfloat16, path="wgmma")
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _assert_grads(got, want, tol=5e-2)
+    got32 = ssd_passes_bwd(*up, dy16.float(), torch.from_numpy(dh),
+                           shape[-1], path="wgmma")
+    _assert_grads(got32, want)
+    assert max(_rel(_np(g), _np(w)) for g, w in zip(got, want)) > \
+        max(_rel(_np(g), _np(w)) for g, w in zip(got32, want))
+    simple = ssd_passes_bwd(*arrs, dy16, torch.from_numpy(dh), shape[-1],
+                            operand_dtype=torch.bfloat16)
+    assert not all(torch.equal(g, s) for g, s in zip(got, simple))
+
+
+def test_backward_passes_reject_an_unknown_path():
+    arrs = [torch.from_numpy(a) for a in _draw((1, 32, 2, 8, 16, 16))]
+    with pytest.raises(ValueError, match="unknown"):
+        ssd_passes_bwd(*arrs, torch.zeros(1, 32, 2, 8), None, 16,
+                       path="tiled")

@@ -17,11 +17,12 @@ on the wgmma path also each pass's CUDA-event milliseconds (events
 recorded between the passes' launches, mean over --reps calls).
 Then one JSON line per row of chip_smoke.py's ssd_scan_bwd rows (the
 backward at mamba2-780m's training shape, bf16 [1, 4096], and fp32
-[1, 1024], dh_final None, from the forward's statistics): the error of
-each gradient against the plain version (bf16: ref.ssd_passes_bwd with the
-bf16 kernel's rounding; fp32: autograd through ref.ssd_chunked), the
-bound, CUDA-event milliseconds of the kernel and of the plain version, and
-each backward kernel's device milliseconds (profiler).
+[1, 1024], dh_final None, from the forward's statistics): the path
+(bwd_path), the error of each gradient against the plain version (bf16:
+ref.ssd_passes_bwd with the rounding of the path taken; fp32: autograd
+through ref.ssd_chunked), the bound, CUDA-event milliseconds of the kernel
+and of the plain version, and each backward kernel's device milliseconds
+(profiler), for each build.
 --rows keeps only the named rows (prefill_bf16, fp32, main_path,
 bwd_train_bf16, bwd_fp32).
 
@@ -34,7 +35,10 @@ the passes' entry points takes the same path as the package; one built
 from ssd_scan.cu alone (whose entry point ssd_scan_launch keeps its
 signature) runs its one kernel.  A baseline with the backward's entry
 point (ssd_scan_bwd.cu built with ssd_scan.cu and ssd_passes.cu) is timed
-in turns on the backward rows too; one without it sits those rows out.
+in turns on the backward rows too, on the wgmma backward where it has
+ssd_scan_bwd_wgmma.cu's entry point and the row takes that path, else on
+the simple one (an earlier build: the fp32 FMA kernels); one without a
+backward sits those rows out.
 A quick check of a kernel change; chip_smoke.py is the full run.
 """
 import argparse
@@ -109,9 +113,10 @@ def bwd_rows(libs, order, args) -> None:
         dy = torch.randn(inputs[0].shape, generator=g,
                          device="cuda").to(inputs[0].dtype)
         _, _, h_before = SS.scan(*inputs, chunk=CS.SSD_CHUNK, stats=True)
+        path = SS.bwd_path(inputs[0], inputs[3], inputs[4], dy, CS.SSD_CHUNK)
         if dtype == "bfloat16":
             plain = partial(ssd_passes_bwd, *inputs, dy, None, CS.SSD_CHUNK,
-                            operand_dtype=torch.bfloat16)
+                            operand_dtype=torch.bfloat16, path=path)
         else:
             def plain():
                 leaves = [a.detach().requires_grad_() for a in inputs]
@@ -120,11 +125,14 @@ def bwd_rows(libs, order, args) -> None:
         want = plain()
         row = {"variant": variant, "dtype": dtype,
                "shape": [B, S, CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE],
-               "chunk": CS.SSD_CHUNK}
+               "chunk": CS.SSD_CHUNK, "path": path}
         calls, outs = {}, {}
         for name, lib in libs.items():
+            run = path if hasattr(lib, "ssd_scan_bwd_wgmma_launch") \
+                else "simple"
+            row[f"{name}_path"] = run
             calls[name] = partial(SS.scan_bwd, *inputs, dy, None, h_before,
-                                  chunk=CS.SSD_CHUNK, lib=lib)
+                                  chunk=CS.SSD_CHUNK, lib=lib, path=run)
             outs[name] = calls[name]()
             row[f"{name}_rel_err"] = {
                 n: float((a.float() - w.float()).abs().max()
@@ -140,8 +148,11 @@ def bwd_rows(libs, order, args) -> None:
             row.setdefault(f"{name}_ms", []).append(
                 CS.cuda_ms(calls[name], args.reps))
         row["plain_ms"] = CS.cuda_ms(plain, 2)
-        row.update(CS.kernel_device_ms(calls["kernel"], args.reps,
-                                       CS.SSD_BWD_KERNELS))
+        for name in libs:
+            dev = CS.kernel_device_ms(calls[name], args.reps,
+                                      CS.SSD_BWD_KERNELS)
+            row.update({(k if name == "kernel" else f"{name}_{k}"): v
+                        for k, v in dev.items()})
         elem = inputs[0].element_size()
         H, P, N = CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE
         nbytes = (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * N
