@@ -211,6 +211,19 @@ exits non-zero:
            and dy of the kernels' run, reduced into its A_log and dt_bias
            by the kernels and by the plain version in fp32, each held to
            the plain version in float64 (the kernels' within 1e-4).
+  dryrun   the multi-device dry run (python -m repro_torch.launch.dryrun)
+           in a subprocess of its own (its fake 256-rank process group
+           never shares a process with CUDA; DRYRUN_TIMEOUT): gemma-2b's
+           train_4k cell at full width and depth on the 16x16 mesh,
+           priced per device on meta tensors (compute, memory and
+           collective seconds, the bound, roofline_fraction, per-device
+           argument bytes, collective bytes by kind); then the one-chip
+           pricing (a 1x1 mesh) of the two steps train and ssm_train time,
+           gemma-2b and mamba2-780m at tokens [1, 4096], each beside the
+           card's measured seconds a step as estimate_s / measured_s.  The
+           estimates are priced with the H100 SXM data sheet's constants
+           (launch/roofline.py), the measured side is this card's.  Every
+           term must be positive and finite.
 
 Kernel "ms"/"plain_ms" are CUDA-event times per call, so they include the
 host's cost of issuing each call; "device_ms" is the profiler's device
@@ -246,6 +259,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.launch import roofline  # noqa: E402
+
 # torch.compile (the FlexAttention yardstick) caches under build/, compiling
 # in this process
 for _var, _sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
@@ -277,13 +293,15 @@ DVV_KERNELS = ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): 3.35 TB/s of
 # HBM3; int32 outside the tensor cores is 64 lanes per SM on 132 SMs at the
-# 1.98 GHz boost clock.
-HBM_BYTES_PER_S = 3.35e12
+# 1.98 GHz boost clock.  The HBM rate and the bf16 peak are the dry run's
+# (src/repro_torch/launch/roofline.py), so the kernels' bounds and the
+# cells' pricing read one set of constants.
+HBM_BYTES_PER_S = roofline.HBM_BW
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_COLUMN = 2            # one compare and one fold per column
 # Dense peaks of the H100 SXM data sheet: bf16 on the tensor cores, fp32
 # outside them.
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+FLOPS_PER_S = {"bfloat16": roofline.PEAK_FLOPS, "float32": 67e12}
 
 # gemma2-9b serving (src/repro_torch/configs/gemma2_9b.py)
 ARCH = "gemma2-9b"
@@ -388,6 +406,30 @@ BWD_FP32_TOL = 1e-4
 BWD_LSE_TOL = 1e-4
 
 # gemma-2b training (src/repro_torch/configs/gemma_2b.py)
+# the dry run (src/repro_torch/launch/dryrun.py): gemma-2b's train_4k cell
+# on the single-pod 16x16 mesh, and the one-chip pricing of the train and
+# ssm_train phases' steps at their tokens
+DRYRUN_CELL = ("gemma-2b", "train_4k", "single")
+DRYRUN_TIMEOUT = 300          # seconds; the phase takes about 30 on a CPU
+DRYRUN_SCRIPT = """
+import json, sys, time
+from dataclasses import replace
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch import dryrun
+arch, shape, mesh, tokens = sys.argv[1:5]
+B, S = json.loads(tokens)
+t = time.perf_counter()
+cell = dryrun.run_cell(arch, shape, mesh, verbose=False)
+cell["seconds"] = time.perf_counter() - t
+one = {}
+for name in sys.argv[5:]:
+    t = time.perf_counter()
+    one[name] = dryrun.price_cell(get_config(name), replace(
+        SHAPES["train_4k"], global_batch=B, seq_len=S))
+    one[name]["seconds"] = time.perf_counter() - t
+print(json.dumps({"cell": cell, "one_chip": one}))
+"""
+
 TRAIN_ARCH = "gemma-2b"
 TRAIN_TOKENS = (1, 4096)      # cut from train_4k's [256, 4096]: the global
                               # batch does not fit one card
@@ -2679,6 +2721,65 @@ def ssm_train_parity_phase(seed: int, device="cuda"):
 
 # ---------------------------------------------------------------------------
 
+def terms(report) -> dict:
+    """A roofline report's three terms, its bound and the bound's time."""
+    t = {k: report[k] for k in ("compute_s", "memory_s", "collective_s")}
+    return {**t, "bound": report["bound"], "bound_s": max(t.values())}
+
+
+def dryrun_phase(smi: str, measured: dict):
+    """The dry run's gemma-2b cell and one-chip estimates (see the module's
+    docstring); ``measured`` maps each arch to the card's seconds a step.
+    The subprocess's failure or timeout raises."""
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_SCRIPT, *DRYRUN_CELL,
+         json.dumps(list(TRAIN_TOKENS)), *measured],
+        capture_output=True, text=True, timeout=DRYRUN_TIMEOUT, env=env,
+        cwd=ROOT, check=True)
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    cell = got["cell"]
+    out = {"phase": "dryrun", "card": smi,
+           "estimate": "priced per device with the H100 SXM data sheet's "
+                       "constants (src/repro_torch/launch/roofline.py), no "
+                       "card involved",
+           "measured": f"this card's seconds a step ({smi})",
+           "production": {
+               "arch": cell["arch"], "shape": cell["shape"],
+               "mesh": cell["mesh"], "chips": cell["roofline"]["chips"],
+               **terms(cell["roofline"]),
+               "roofline_fraction": cell["roofline"]["roofline_fraction"],
+               "useful_flops_ratio":
+                   cell["roofline"]["useful_flops_ratio"],
+               "flops_per_device": cell["cost"]["flops"],
+               "bytes_per_device": cell["cost"]["bytes accessed"],
+               "argument_bytes": cell["memory"]["argument_bytes"],
+               "temp_bytes": cell["memory"]["temp_bytes"],
+               "collectives": cell["collectives"],
+               "counted_run_s": cell["seconds"]},
+           "one_chip": []}
+    bad = [k for k in ("compute_s", "memory_s", "collective_s")
+           if not (math.isfinite(out["production"][k])
+                   and out["production"][k] > 0)]
+    for arch, s_step in measured.items():
+        est = got["one_chip"][arch]
+        row = {"arch": arch, "tokens": list(TRAIN_TOKENS),
+               **terms(est["roofline"]),
+               "flops": est["cost"]["flops"],
+               "bytes": est["cost"]["bytes accessed"],
+               "argument_bytes": est["memory"]["argument_bytes"],
+               "measured_s": s_step}
+        row["estimate_over_measured"] = row["bound_s"] / s_step
+        out["one_chip"].append(row)
+        bad += [f"{arch} {k}" for k in ("compute_s", "memory_s", "bound_s")
+                if not (math.isfinite(row[k]) and row[k] > 0)]
+    if bad or out["production"]["argument_bytes"] <= 0:
+        raise AssertionError(f"dry run terms not positive and finite: {bad}")
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
 def ptxas_lines(log: str):
     """ptxas's registers, spills and shared memory for each kernel, and
     its warnings and performance notes (an ignored setmaxnreg, wgmma
@@ -2793,6 +2894,9 @@ def main() -> int:
                             kernel=SS, save=False)
     emit(ssm_train)
     emit(ssm_train_parity_phase(args.seed))
+    emit(dryrun_phase(smi, {
+        TRAIN_ARCH: train["s_per_step_after_first"],
+        SSM_ARCH: ssm_train["s_per_step_after_first"]}))
 
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",

@@ -59,12 +59,15 @@ class FlashAttention(torch.autograd.Function):
 
 
 def _on_card(t: torch.Tensor) -> bool:
+    """True for a tensor on the card; False for one on the CPU, or on the
+    meta device (the dry run, where nothing executes: the plain version
+    gives the shapes and the operations to count)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
-    raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                     f"not {t.device}")
+    raise ValueError(f"flash_attention runs on cuda or cpu tensors (meta ones "
+                     f"through the plain version), not {t.device}")
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -1,5 +1,6 @@
 """Public SSD-scan function: the CUDA kernels for tensors on the card, the
-plain torch version (``ref.ssd_chunked``) for tensors on the CPU.
+plain torch version (``ref.ssd_chunked``) for tensors on the CPU, and for
+meta tensors (the dry run's pricing, where nothing executes).
 
 Where autograd records the card's call (grad mode on and an input that
 requires a gradient), it goes through ``SSDScan``: its forward also keeps
@@ -55,12 +56,15 @@ class SSDScan(torch.autograd.Function):
 
 
 def _on_card(t: torch.Tensor) -> bool:
+    """True for a tensor on the card; False for one on the CPU, or on the
+    meta device (the dry run, where nothing executes: the plain version
+    gives the shapes and the operations to count)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
-    raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not "
-                     f"{t.device}")
+    raise ValueError(f"ssd_scan runs on cuda or cpu tensors (meta ones "
+                     f"through the plain version), not {t.device}")
 
 
 def ssd_scan(xh, dt, A, Bc, Cc, D, *, chunk: int = 128

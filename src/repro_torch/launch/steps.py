@@ -1,16 +1,80 @@
-"""Step functions (train / prefill / decode).
+"""Step functions (train / prefill / decode) + meta-tensor input specs.
 
-The JAX package's ShapeDtypeStruct input specs belong to its dry run
-(ROADMAP Queue 1 item 8).
+``input_specs(cfg, shape)`` builds a stand-in on the meta device for every
+model input (the JAX package's ShapeDtypeStructs): the right shapes and
+dtypes, no storage.  The dry run distributes these over a mesh and runs
+the steps on them without allocating a byte.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple
+
 import torch
 
-from ..models import ModelConfig, decode_step, loss_fn
-from ..models.lm import forward
-from ..optim import AdamWConfig, adamw_update
+from ..configs import ShapeSpec
+from ..models import ModelConfig, decode_step, init_cache, loss_fn
+from ..models.lm import forward, param_specs
+from ..optim import AdamWConfig, adamw_update, init_opt_state
 from ..optim.adamw import tree_leaves, tree_unflatten
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors — no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": _meta((B, S), torch.int32),
+                 "labels": _meta((B, S), torch.int32)}
+    else:
+        batch = {"embeddings": _meta((B, S, cfg.d_model), torch.bfloat16),
+                 "labels": _meta((B, S), torch.int32)}
+        if cfg.mrope:
+            batch["positions"] = _meta((3, B, S), torch.int32)
+    return batch
+
+
+def param_state_specs(cfg: ModelConfig, opt_cfg: AdamWConfig
+                      ) -> Tuple[Any, Any]:
+    p_specs = param_specs(cfg)
+    return p_specs, init_opt_state(p_specs, opt_cfg)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Any:
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """The decode step's inputs.  ``pos`` is a Python int, as the port's
+    ``decode_step`` takes it: the last slot of the cache (the step attends
+    over the whole cache under a mask, so its cost does not depend on it)."""
+    B = shape.global_batch
+    if cfg.input_mode == "tokens":
+        tok = _meta((B,), torch.int32)
+    else:
+        tok = _meta((B, cfg.d_model), torch.bfloat16)
+    return {
+        "cache": cache_specs(cfg, B, shape.seq_len),
+        "tokens": tok,
+        "pos": shape.seq_len - 1,
+    }
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """All inputs for the shape's step kind, keyed by argument name."""
+    if shape.kind in ("train", "prefill"):
+        return {"batch": batch_specs(cfg, shape)}
+    return decode_input_specs(cfg, shape)
+
+
+# ---------------------------------------------------------------------------
+# Step functions
+# ---------------------------------------------------------------------------
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig):

@@ -7,7 +7,7 @@ from .config import LayerSpec, ModelConfig
 from .layers import cross_entropy, rms_norm, softcap
 from .lm import (
     count_params, decode_step, forward, init_cache, init_params, loss_fn,
-    params_from_numpy,
+    param_specs, params_from_numpy,
 )
 from .moe import MoESpec, moe_ffn
 from .ssm import SSMSpec, ssd_chunked, ssm_forward
@@ -15,7 +15,7 @@ from .ssm import SSMSpec, ssd_chunked, ssm_forward
 __all__ = [
     "ModelConfig", "LayerSpec", "AttnSpec", "MoESpec", "SSMSpec",
     "forward", "loss_fn", "decode_step", "init_params", "init_cache",
-    "params_from_numpy", "count_params",
+    "param_specs", "params_from_numpy", "count_params",
     "attention", "decode_attention", "init_kv_cache",
     "moe_ffn", "ssm_forward", "ssd_chunked",
     "rms_norm", "softcap", "cross_entropy",

@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.flash_attention import gqa_flash_attention
 from .layers import apply_mrope, apply_rope, rms_norm, softcap
+from .sharding_ctx import constrain
 
 NEG_INF = -2.0e38
 
@@ -214,5 +215,8 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bkgqs,bskh->bqkgh", probs, cache["v"].to(x.dtype))
     ctx = ctx.reshape(B, 1, spec.n_heads, spec.head_dim)
+    # decode_tp: heads over "model", head_dim over the data axes — matches
+    # wo's stationary layout so the output contraction reduces activations
+    ctx = constrain(ctx, "batch", None, "model", "tpd")
     out = torch.einsum("bqhk,hkd->bqd", ctx, params["wo"].to(x.dtype))
     return out, cache

@@ -100,7 +100,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(D, theta, x.device)                      # [D/2]
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=positions.device),
-        torch.tensor(sections, device=positions.device))      # [D/2]
+        torch.tensor(sections, device=positions.device),
+        output_size=D // 2)                                   # [D/2]
     pos = torch.movedim(positions[sec_id], 0, -1)             # [..., S, D/2]
     return _rotate_pairs(x, pos.float() * inv)
 

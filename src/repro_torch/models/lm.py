@@ -13,9 +13,11 @@ Three entry points per config:
   * ``decode_step(params, cache, tok, pos, cfg)`` — one-token serve step
 
 Every mixer (attention, Mamba-2) and FFN (dense MLP, MoE) of the JAX
-package is ported.  The JAX package's activation-sharding constraints are
-no-ops off a mesh and are left out until the mesh slice (ROADMAP Queue 1
-item 8).
+package is ported, and so are its activation-sharding constraints
+(``sharding_ctx.constrain``, at the same places): they act only on
+``DTensor``s under ``activation_sharding`` (the dry run) and return their
+input itself everywhere else.  ``param_specs`` builds the parameter tree
+on the meta device, for the dry run's partition rules and pricing.
 
 ``cfg.remat`` checkpoints each group when a gradient is recorded, as the
 JAX package wraps its scan body in ``jax.checkpoint``: the group's
@@ -40,6 +42,7 @@ from .attention import (
 from .config import LayerSpec, ModelConfig
 from .layers import ACTIVATIONS, cross_entropy, rms_norm, softcap
 from .moe import MoESpec, init_moe_params, moe_ffn
+from .sharding_ctx import constrain
 from .ssm import (
     SSMSpec, decode_ssm, init_ssm_cache, init_ssm_params, ssm_forward,
 )
@@ -148,6 +151,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The parameter tree on the meta device: ``init_params``'s names,
+    shapes and dtypes, with no storage.  A draw on the meta device with no
+    generator advances no random stream."""
+    return init_params(None, cfg, device="meta")
+
+
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device="cuda") -> Dict:
     """The JAX package's parameters (a nested dict of numpy arrays, stacked
@@ -217,6 +227,9 @@ def _mlp(layer: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = ACTIVATIONS[cfg.act]
     h = act(torch.einsum("bsd,df->bsf", x, layer["w_gate"].to(x.dtype)),
             torch.einsum("bsd,df->bsf", x, layer["w_up"].to(x.dtype)))
+    # "tp" pins h to the stationary weight layout in decode_tp mode (no-op
+    # during training)
+    h = constrain(h, "batch", None, "tp")
     return torch.einsum("bsf,fd->bsd", h, layer["w_down"].to(x.dtype))
 
 
@@ -254,6 +267,9 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, layer: Dict, x: torch.Tensor):
 def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
                  positions) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the pattern once. Returns (x, aux_loss_sum) in fp32."""
+    # Re-assert the activation sharding at each group; with seq_shard the
+    # remat stash also shards its sequence dim over "model".
+    x = constrain(x, "batch", "model" if cfg.seq_shard else None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.pattern):
         layer = group_params[f"layer{i}"]
@@ -288,13 +304,18 @@ def _embed(params: Dict, inputs: torch.Tensor, cfg: ModelConfig,
     return x
 
 
-def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+          logical=None) -> torch.Tensor:
+    """Final norm, unembedding and softcap; ``logical`` constrains the
+    logits before their fp32 cast (training and prefill)."""
     x = rms_norm(x, params["final_norm"], zero_centered=cfg.zero_centered_norm)
     if cfg.tie_embeddings and cfg.input_mode == "tokens":
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
     else:
         logits = torch.einsum("bsd,dv->bsv", x,
                               params["unembed"].to(x.dtype))
+    if logical is not None:
+        logits = constrain(logits, *logical)
     logits = logits.float()          # rebinding frees the compute-dtype copy
     return softcap(logits, cfg.final_softcap)
 
@@ -316,6 +337,7 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig
     inputs = batch["tokens"] if cfg.input_mode == "tokens" \
         else batch["embeddings"]
     x = _embed(params, inputs, cfg, compute)
+    x = constrain(x, "batch", "model" if cfg.seq_shard else None, None)
     positions = batch.get("positions")
     body = partial(_apply_group, cfg)
     if cfg.remat and torch.is_grad_enabled():
@@ -328,7 +350,9 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig
     for group in _unbind(params["blocks"], cfg.n_groups):
         x, aux_g = body(group, x, positions)
         aux = aux + aux_g
-    return _head(params, x, cfg), aux
+    logical = (("batch", "model", None) if cfg.seq_shard
+               else ("batch", None, "model"))
+    return _head(params, x, cfg, logical), aux
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
@@ -388,7 +412,9 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos: int,
     x = _embed(params, inputs, cfg, compute)
     if cfg.input_mode == "tokens":
         x = x[:, None, :]
+    x = constrain(x, "batch", None, None)
     for g in range(cfg.n_groups):
+        x = constrain(x, "batch", None, None)
         x = _decode_group(cfg, _index(params["blocks"], g),
                           _index(cache, g), x, pos)
     return _head(params, x, cfg)[:, 0], cache

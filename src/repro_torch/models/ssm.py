@@ -15,8 +15,9 @@ Decode is the O(1) recurrence in plain torch, as in the JAX package, which
 has no decode kernel.
 
 Projections stay *separate* (z, x, B, C, dt), as in the JAX package (its
-tensor-parallel note, DESIGN.md §6); the JAX package's sharding
-constraints are no-ops off a mesh and are left out.
+tensor-parallel note, DESIGN.md §6).  Decode applies the JAX package's
+decode_tp constraints (``sharding_ctx.constrain``), which act only on
+``DTensor``s in the dry run.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from ..kernels.ssd_scan import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_chunked
 from .layers import rms_norm
+from .sharding_ctx import constrain
 
 __all__ = ["SSMSpec", "init_ssm_params", "ssm_forward", "ssd_chunked",
            "init_ssm_cache", "decode_ssm"]
@@ -165,6 +167,11 @@ def decode_ssm(params: Dict, x: torch.Tensor, cache: Dict, spec: SSMSpec
     stacked cache) and returns the same dict."""
     H, P = spec.n_heads, spec.headdim
     z, xs, Bc, Cc, dt = _project(params, x)
+    # decode_tp: pin the inner-dim activations to the stationary weight
+    # layout so the out_proj contraction reduces activations instead of
+    # gathering weights (no-op outside decode_tp mode)
+    z = constrain(z, "batch", None, "tp")
+    xs = constrain(xs, "batch", None, "tp")
     xs, conv_x = _causal_conv(xs, params["conv_x"], params["conv_bias_x"],
                               state=cache["conv_x"])
     Bc, conv_B = _causal_conv(Bc, params["conv_B"], params["conv_bias_B"],
@@ -182,6 +189,7 @@ def decode_ssm(params: Dict, x: torch.Tensor, cache: Dict, spec: SSMSpec
     y = y + xh.float() * params["D"][None, :, None]
     y = y.reshape(-1, 1, spec.d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"])
+    y = constrain(y, "batch", None, "tp")
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"].to(x.dtype))
     cache["conv_x"].copy_(conv_x)
     cache["conv_B"].copy_(conv_B)

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither ``jax`` nor any module of the JAX package, and initialises no CUDA;
+neither ``jax`` nor any module of the JAX package, initialises no CUDA
+and starts no process group;
 a cluster left on its default device needs a card."""
 import json
 import os
@@ -22,12 +23,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import torch
+import torch.distributed as dist
 print(json.dumps({
     "modules": names,
     "leaked": sorted(m for m in sys.modules
                      if m in ("jax", "repro") or m.startswith(("jax.",
                                                               "repro."))),
     "cuda_initialized": torch.cuda.is_initialized(),
+    "process_group": dist.is_available() and dist.is_initialized(),
 }))
 """
 
@@ -54,10 +57,15 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                  "repro_torch.cluster.elastic",
                  "repro_torch.cluster.failure_detector",
                  "repro_torch.cluster.membership",
-                 "repro_torch.cluster.stealer"):
+                 "repro_torch.cluster.stealer",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                 "repro_torch.launch.partition",
+                 "repro_torch.launch.roofline", "repro_torch.launch.sharding",
+                 "repro_torch.models.sharding_ctx"):
         assert name in got["modules"]
     assert got["leaked"] == []
     assert got["cuda_initialized"] is False
+    assert got["process_group"] is False
 
 
 _WORKLOAD_PROBE = """

@@ -167,11 +167,29 @@ def test_sequence_not_a_multiple_of_the_chunk_raises():
         ssd_chunked(*arrs, 32)
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that says it lies on a device that is neither the card,
+    the CPU nor meta (the dry run's), and holds no data."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError("no data")
+
+
 def test_other_devices_raise():
-    arrs = [torch.from_numpy(a).to("meta")
-            for a in _draw((1, 32, 2, 8, 16, 16))]
+    """A device other than cuda and cpu raises; meta tensors (the dry
+    run's pricing) go to the plain version instead."""
+    shapes = [a.shape for a in _draw((1, 32, 2, 8, 16, 16))]
     with pytest.raises(ValueError, match="cuda or cpu"):
-        ssd_scan(*arrs, chunk=16)
+        ssd_scan(*[_OtherDevice(s) for s in shapes], chunk=16)
+    y, h = ssd_scan(*[torch.empty(s, device="meta") for s in shapes],
+                    chunk=16)
+    assert y.device.type == "meta" and y.shape == shapes[0]
 
 
 # ---------------------------------------------------------------------------
