@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
-qwen3-moe-30b-a3b serving, gemma-2b and mamba2-780m training) on one CUDA
-card.
+qwen3-moe-30b-a3b serving, gemma-2b and mamba2-780m training, hubert-xlarge
+prefill and training) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -30,14 +30,18 @@ exits non-zero:
            fp32 at [1, 1024, 16, 256], causal with softcap, to 1e-5; and
            masked by M-RoPE-style positions at qwen2-vl-7b's widths (q
            [1, 8192, 28, 128], 4 KV heads, bf16, causal; an image of 4,096
-           patches sharing one temporal id between text runs); and at
+           patches sharing one temporal id between text runs); at
            qwen3-moe-30b-a3b's prefill shape (q [1, 4096, 32, 128], 4 KV
-           heads, bf16, causal, no softcap).
+           heads, bf16, causal, no softcap); and at hubert-xlarge's
+           (bidirectional, 16 heads of 80 on 16 KV heads: bf16 [1, 32768],
+           the audio_model prefill's, and fp32 [1, 1024]; where one call's
+           fp32 scores would pass PLAIN_SCORE_BYTES, the plain version runs
+           one KV head at a time).
            Beside each, one PyTorch call of the same function, timed as a
            yardstick the port never calls: FlexAttention (compiled, with
            the softcap as score_mod and a causal or sliding-window block
            mask) for the softcap rows and with the positions' mask for the
-           M-RoPE row, scaled_dot_product_attention for the causal rows.
+           M-RoPE row, scaled_dot_product_attention for the others.
            ssd_scan: at mamba2-780m's widths (48 heads of 64, state 128,
            chunk 256) on inputs drawn as
            tests/test_kernels.py draws them, bf16 [1, 32768] and fp32
@@ -52,8 +56,10 @@ exits non-zero:
            gemma-2b's training shape (q [1, 4096, 8, 256], 1 KV head,
            bf16, causal), gemma2-9b's global and local layers, the global
            layer at S 4096 with q drawn 30 times larger (scores where the
-           softcap bends), qwen2-vl-7b's M-RoPE row and fp32
-           [1, 1024, 16, 256]: bf16 against the exact gradient (the plain
+           softcap bends), qwen2-vl-7b's M-RoPE row, fp32
+           [1, 1024, 16, 256], and hubert-xlarge's training shape (q
+           [4, 4096, 16, 80], 16 KV heads, bf16, bidirectional) and fp32
+           [1, 1024, 16, 80]: bf16 against the exact gradient (the plain
            version in fp32 on the upcast inputs) within
            ref.BF16_GRAD_RMS_RATIO times the plain bf16 version's own
            error by ref.grad_rms_err, and each row within
@@ -63,8 +69,9 @@ exits non-zero:
            the largest magnitude (FMAs); two launches bitwise equal.  Each
            row has each kernel's device ms (delta, dq, dkdv, reduce) and
            the share of the bound reached.  The yardstick is the
-           backward of scaled_dot_product_attention (causal rows) or of
-           compiled FlexAttention (softcap, window, positions).
+           backward of scaled_dot_product_attention (causal and
+           bidirectional rows) or of compiled FlexAttention (softcap,
+           window, positions).
            ssd_scan_bwd: the SSD scan's gradient (dy given, dh_final none,
            from the forward's fp32 statistics as autograd's SSDScan hands
            them over) at mamba2-780m's training shape (bf16 [1, 4096], 48
@@ -211,6 +218,38 @@ exits non-zero:
            and dy of the kernels' run, reduced into its A_log and dt_bias
            by the kernels and by the plain version in fp32, each held to
            the plain version in float64 (the kernels' within 1e-4).
+  audio_model  hubert-xlarge, the audio encoder, at full width and depth
+           (48 layers, d_model 1280, 16 heads of 80, bidirectional, 1.26 B
+           fp32 parameters from --seed, bf16 compute), after mamba2-780m's
+           training: one warm-up and AUDIO_PREFILL_REPS timed prefills of
+           frame embeddings [1, 32768] through make_prefill_step, each
+           launching flash_attention exactly 48 times; the median seconds,
+           frames/s, peak device memory.  No serving: an encoder has no
+           decode step.
+  audio_trace  one such prefill traced on the card: device time by kernel
+           class (flash forward, cuBLAS GEMMs, the rest), the flash
+           kernel's share, the idle share, the top device events.
+  audio_parity  hubert-xlarge cut to 2 layers at full width, fp32 compute:
+           prefill logits of [1, 2048] frames through the kernels against
+           the same parameters and frames through the plain versions on
+           the card, to PREFILL_DECODE_TOL.
+  audio_train  hubert-xlarge at full width and depth (fp32 parameters and
+           AdamW moments, 20.1 GB; bf16 compute, remat) through
+           make_train_step on one seeded batch of frame embeddings and
+           labels in [0, 504), [4, 4096]: 4 timed steps (seconds, frames/s,
+           loss, gradient norm and flash launches a step: 96 forward with
+           the recompute, 48 backward), one traced step (device time by
+           kernel class), peak memory; finite losses and norms, parameters
+           that move.  Not the Trainer: the token pipeline yields no frame
+           embeddings (tests/test_arch_smoke.py trains it the same way).
+  audio_train_parity  the 2-layer cut, remat, frames [1, 2048]: the loss
+           and every gradient leaf through the kernels against the plain
+           versions on the card, fp32 compute within TRAIN_PARITY_TOL, and
+           bf16 compute under the flash backward's two gates (each leaf
+           within ref.BF16_GRAD_ROW_TOL of the plain bf16 version's by
+           grad_row_err; its RMS distance from the exact gradient, the
+           fp32 plain one, within ref.BF16_GRAD_RMS_RATIO of the plain bf16
+           version's); the worst leaves named.
   dryrun   the multi-device dry run (python -m repro_torch.launch.dryrun)
            in a subprocess of its own (its fake 256-rank process group
            never shares a process with CUDA; DRYRUN_TIMEOUT): gemma-2b's
@@ -314,17 +353,24 @@ PARITY_GROUPS, PARITY_TOKENS = 2, 4608   # past the 4,096 window, 9 x 512
 #: The CPU twin (tests/test_torch_models.py::PREFILL_DECODE_TOL) holds the
 #: same bound; logits are softcapped to +-30.
 PREFILL_DECODE_TOL = 2e-3
-# flash_attention rows: (variant, dtype, S, causal, window, softcap, tol,
-# (heads, KV heads, head_dim)); gemma2-9b's widths but for the last row
+# flash_attention rows: (variant, dtype, B, S, causal, window, softcap,
+# tol, (heads, KV heads, head_dim)); gemma2-9b's widths but for the
+# qwen3-moe-30b-a3b and hubert-xlarge rows
 FLASH_HEADS = (16, 8, 256)
 MOE_FLASH_HEADS = (32, 4, 128)          # qwen3-moe-30b-a3b's attention
+AUDIO_HEADS = (16, 16, 80)              # hubert-xlarge's: bidirectional
 FLASH_ROWS = (
-    ("local", "bfloat16", 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
-    ("global", "bfloat16", 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
-    ("causal", "bfloat16", 8192, True, 0, 0.0, 2e-2, FLASH_HEADS),
-    ("global_fp32", "float32", 1024, True, 0, 50.0, 1e-5, FLASH_HEADS),
-    ("qwen3_moe", "bfloat16", 4096, True, 0, 0.0, 2e-2, MOE_FLASH_HEADS),
+    ("local", "bfloat16", 1, 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
+    ("global", "bfloat16", 1, 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
+    ("causal", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, FLASH_HEADS),
+    ("global_fp32", "float32", 1, 1024, True, 0, 50.0, 1e-5, FLASH_HEADS),
+    ("qwen3_moe", "bfloat16", 1, 4096, True, 0, 0.0, 2e-2, MOE_FLASH_HEADS),
+    ("hubert", "bfloat16", 1, 32768, False, 0, 0.0, 2e-2, AUDIO_HEADS),
+    ("hubert_fp32", "float32", 1, 1024, False, 0, 0.0, 1e-5, AUDIO_HEADS),
 )
+#: the plain version's fp32 scores of one call at most this many bytes;
+#: past it (hubert's [1, 32768] row: 68.7 GB) it runs one KV head at a time
+PLAIN_SCORE_BYTES = 16 << 30
 # the M-RoPE row: qwen2-vl-7b's attention (src/repro_torch/configs/
 # qwen2_vl_7b.py: 28 heads, 4 KV heads, head_dim 128), bf16, causal, masked
 # by the temporal positions of text, an image of 4,096 patches, text
@@ -376,19 +422,26 @@ GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 
 # flash_attention backward rows: (variant, dtype, S, (heads, KV heads,
 # head_dim), causal, window, softcap, masked by M-RoPE positions, q's
-# scale).  N(0, 1) inputs give scores near N(0, 1), where a softcap of 50
+# scale, B).  N(0, 1) inputs give scores near N(0, 1), where a softcap of 50
 # leaves 1 - (s/cap)^2 above 0.99; "global_capped" draws q at 30 times
 # that, so a row's leading scores sit where tanh bends (the factor between
 # about 0.9 and 0.1).
 BWD_ROWS = (
-    ("gemma_2b", "bfloat16", 4096, (8, 1, 256), True, 0, 0.0, False, 1.0),
-    ("global", "bfloat16", 8192, FLASH_HEADS, True, 0, 50.0, False, 1.0),
-    ("local", "bfloat16", 8192, FLASH_HEADS, True, 4096, 50.0, False, 1.0),
+    ("gemma_2b", "bfloat16", 4096, (8, 1, 256), True, 0, 0.0, False, 1.0, 1),
+    ("global", "bfloat16", 8192, FLASH_HEADS, True, 0, 50.0, False, 1.0, 1),
+    ("local", "bfloat16", 8192, FLASH_HEADS, True, 4096, 50.0, False, 1.0,
+     1),
     ("global_capped", "bfloat16", 4096, FLASH_HEADS, True, 0, 50.0, False,
-     30.0),
+     30.0, 1),
     ("mrope_positions", "bfloat16", MROPE_S,
-     (MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM), True, 0, 0.0, True, 1.0),
-    ("global_fp32", "float32", 1024, FLASH_HEADS, True, 0, 50.0, False, 1.0),
+     (MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM), True, 0, 0.0, True, 1.0,
+     1),
+    ("global_fp32", "float32", 1024, FLASH_HEADS, True, 0, 50.0, False, 1.0,
+     1),
+    # hubert-xlarge's training shape (audio_train's [4, 4096])
+    ("hubert", "bfloat16", 4096, AUDIO_HEADS, False, 0, 0.0, False, 1.0, 4),
+    ("hubert_fp32", "float32", 1024, AUDIO_HEADS, False, 0, 0.0, False, 1.0,
+     1),
 )
 #: fp32 dq, dk, dv: max abs error over the plain version's largest
 #: magnitude (sums in another order).  bf16 dq, dk, dv: each by
@@ -441,6 +494,16 @@ TRAIN_PARITY_LAYERS, TRAIN_PARITY_TOKENS = 2, 1024
 #: magnitude (the kernels' fp32 sums run in another order; the CPU twins
 #: hold the plain versions to the JAX package within the same bound)
 TRAIN_PARITY_TOL = 1e-4
+
+# hubert-xlarge, the audio encoder (src/repro_torch/configs/hubert_xlarge.py):
+# bidirectional attention over frame embeddings, 16 heads of 80, no decode
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_PREFILL = (1, 32768)    # cut from prefill_32k's [32, 32768] for time:
+                              # the batch of 32 would take ~35 s a prefill
+AUDIO_PREFILL_REPS = 3        # timed prefills after the warm-up (median)
+AUDIO_TRAIN = (4, 4096)       # cut from train_4k's [256, 4096]: the global
+                              # batch does not fit one card
+AUDIO_PARITY_LAYERS, AUDIO_PARITY_TOKENS = 2, 2048
 # mamba2-780m training: TRAIN_TOKENS as gemma-2b's, no save (train saves
 # once); its parity cut, 2 layers at full width, fp32, tokens [1, 1024]
 SSM_TRAIN_PARITY_LAYERS, SSM_TRAIN_PARITY_TOKENS = 2, 1024
@@ -690,31 +753,47 @@ def flex_attention_call(S: int, window: int, cap: float):
                               block_mask=block_mask, enable_gqa=True)
 
 
+def plain_flash(q, k, v, **kw):
+    """flash_attention_ref, one KV head (and its query heads) at a time
+    where one call's fp32 scores would pass PLAIN_SCORE_BYTES."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, Sq, H, _ = q.shape
+    KV = k.shape[2]
+    if B * H * Sq * k.shape[1] * 4 <= PLAIN_SCORE_BYTES:
+        return flash_attention_ref(q, k, v, **kw)
+    G = H // KV
+    return torch.cat([flash_attention_ref(
+        q[:, :, j * G:(j + 1) * G], k[:, :, j:j + 1], v[:, :, j:j + 1], **kw)
+        for j in range(KV)], dim=2)
+
+
 def flash_rows(seed: int):
-    """flash_attention against its plain version at gemma2-9b's and
-    qwen3-moe-30b-a3b's prefill shapes, each row beside one PyTorch call of
-    the same function on the same tensors (a yardstick the port never
-    calls)."""
+    """flash_attention against its plain version at gemma2-9b's,
+    qwen3-moe-30b-a3b's and hubert-xlarge's prefill shapes, each row beside
+    one PyTorch call of the same function on the same tensors (a yardstick
+    the port never calls)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.flash_attention.ref import (
-        BF16_ROW_TOL, flash_attention_ref, row_scaled_err,
+        BF16_ROW_TOL, row_scaled_err,
     )
 
     dev = torch.device("cuda")
     rows = []
-    for variant, dtype, S, causal, window, cap, tol, (H, KV, D) in \
+    for variant, dtype, B, S, causal, window, cap, tol, (H, KV, D) in \
             FLASH_ROWS:
-        assert causal, "the library calls below are built for causal rows"
+        assert causal or not cap, "FlexAttention below is built causal"
         rng = np.random.default_rng([seed, S, window, int(cap)])
         q, k, v = (torch.from_numpy(rng.standard_normal(
-            (1, S, h, D), dtype=np.float32)).to(dev, getattr(torch, dtype))
+            (B, S, h, D), dtype=np.float32)).to(dev, getattr(torch, dtype))
             for h in (H, KV, KV))
         kw = dict(causal=causal, window=window, softcap=cap)
         got = FA.gqa_flash_attention(q, k, v, **kw)
-        want = flash_attention_ref(q, k, v, **kw)
+        want = plain_flash(q, k, v, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         row_err = row_scaled_err(got, want)
@@ -725,17 +804,16 @@ def flash_rows(seed: int):
                 f"version: max abs err {err} (tolerance {tol}), row-scaled "
                 f"err {row_err} (tolerance {row_tol})")
         del want
-        pairs = live_pairs(S, causal, window)
-        nbytes = (2 * H + 2 * KV) * S * D * q.element_size()
+        pairs = B * live_pairs(S, causal, window)
+        nbytes = B * (2 * H + 2 * KV) * S * D * q.element_size()
         b_ms, b_by = bound(nbytes, 4 * H * D * pairs, FLOPS_PER_S[dtype])
         row = {"name": "flash_attention", "variant": variant,
-               "shape": [1, S, H, KV, D], "dtype": dtype, **kw,
+               "shape": [B, S, H, KV, D], "dtype": dtype, **kw,
                "max_abs_err": err, "tol": tol,
                "row_scaled_err": row_err, "row_tol": row_tol,
                "ms": cuda_ms(lambda: FA.gqa_flash_attention(q, k, v, **kw),
                              10),
-               "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
-                                                               **kw), 3),
+               "plain_ms": cuda_ms(lambda: plain_flash(q, k, v, **kw), 3),
                **kernel_device_ms(
                    lambda: FA.gqa_flash_attention(q, k, v, **kw), 10,
                    "flash_fwd_"),
@@ -749,7 +827,7 @@ def flash_rows(seed: int):
         else:
             row["library"] = "scaled_dot_product_attention"
             library = partial(F.scaled_dot_product_attention, qt, kt, vt,
-                              is_causal=True, enable_gqa=True)
+                              is_causal=causal, enable_gqa=True)
         lib = library().transpose(1, 2)
         row["library_max_abs_diff"] = float(
             (lib.float() - got.float()).abs().max())
@@ -921,11 +999,11 @@ def bwd_inputs(seed: int, row):
     from repro_torch.kernels.flash_attention import flash_attention as K
 
     variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
-        q_scale = row
+        q_scale, B = row
     dev = torch.device("cuda")
     rng = np.random.default_rng([seed, S, H, window, int(cap)])
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(
-        (1, S, h, D), dtype=np.float32) * x).to(dev, getattr(torch, dtype))
+        (B, S, h, D), dtype=np.float32) * x).to(dev, getattr(torch, dtype))
         for h, x in ((H, q_scale), (KV, 1.0), (KV, 1.0), (H, 1.0)))
     pos = torch.from_numpy(mrope_positions(S)).to(dev) if by_pos else None
     kw = dict(causal=causal, window=window, softcap=cap, positions=pos)
@@ -937,8 +1015,9 @@ def bwd_inputs(seed: int, row):
 
 def flash_bwd_rows(seed: int):
     """The flash_attention backward kernel against its plain version
-    (autograd through ref.flash_attention_ref) at gemma-2b's training shape
-    and at gemma2-9b's, qwen2-vl-7b's and an fp32 shape: dq, dk and dv
+    (autograd through ref.flash_attention_ref) at gemma-2b's and
+    hubert-xlarge's training shapes and at gemma2-9b's, qwen2-vl-7b's and
+    fp32 shapes: dq, dk and dv
     errors (bf16 also against the exact gradient beside the plain
     version's own), two launches bitwise equal, times (each kernel's
     device ms too), bound and the share of it reached, beside the
@@ -956,7 +1035,7 @@ def flash_bwd_rows(seed: int):
     rows = []
     for bwd_row in BWD_ROWS:
         variant, dtype, S, (H, KV, D), causal, window, cap, by_pos, \
-            q_scale = bwd_row
+            q_scale, B = bwd_row
         q, k, v, dout, out, kw_stats = bwd_inputs(seed, bwd_row)
         pos = kw_stats["positions"]
         kw = dict(causal=causal, window=window, softcap=cap, positions=pos)
@@ -996,7 +1075,7 @@ def flash_bwd_rows(seed: int):
             del exact
         del want
         if pos is None:
-            pairs = live_pairs(S, causal, window)
+            pairs = B * live_pairs(S, causal, window)
         else:
             srt = np.sort(mrope_positions(S))
             pairs = int(np.searchsorted(srt, mrope_positions(S),
@@ -1004,17 +1083,18 @@ def flash_bwd_rows(seed: int):
         flops = 10 * H * D * pairs           # five products of 2 pairs D
         # q, dout, dq and k, v, dk, dv in the inputs' dtype; the output
         # (bf16: its fp32 copy and the rows' fp32 logsumexp) and positions
-        nbytes = (3 * H + 4 * KV) * S * D * q.element_size() + \
-            4 * H * S * D + (4 * H * S if dtype == "bfloat16" else 0) + \
+        nbytes = B * ((3 * H + 4 * KV) * S * D * q.element_size() +
+                      4 * H * S * D +
+                      (4 * H * S if dtype == "bfloat16" else 0)) + \
             (S * 4 if pos is not None else 0)
         b_ms, b_by = bound(nbytes, flops, FLOPS_PER_S[dtype])
         call = partial(K.attend_bwd, q, k, v, out, dout, **kw_stats)
-        slow = S * H >= 8192 * 16
+        slow = B * S * H >= 8192 * 16
         row = {"name": "flash_attention_bwd", "variant": variant,
-               "shape": [1, S, H, KV, D], "dtype": dtype,
+               "shape": [B, S, H, KV, D], "dtype": dtype,
                "causal": causal, "window": window, "softcap": cap,
                "positions": by_pos, "q_scale": q_scale,
-               "kv_splits": K.kv_splits(1, KV, S, H // KV, sms,
+               "kv_splits": K.kv_splits(B, KV, S, H // KV, sms,
                                         K.bwd_key_tile(q.dtype)),
                "launches": launched,
                "max_abs_err": max(err.values()), "abs_err": err,
@@ -2375,11 +2455,17 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
 
 
 def traced_train_step(trainer):
-    """One more step under torch.profiler on the card: device-busy against
-    wall seconds and device time by kernel class (the flash forward and
+    """One more step of ``trainer`` under torch.profiler on the card
+    (``traced_by_class``)."""
+    return traced_by_class(lambda: trainer.run(steps=1))
+
+
+def traced_by_class(fn):
+    """``fn`` under torch.profiler on the card: device-busy against wall
+    seconds and device time by kernel class (the flash forward and
     backward kernels, the SSD scan's forward and backward kernels,
     cuBLAS's GEMMs, the rest)."""
-    busy_us, per, wall_s = device_profile(lambda: trainer.run(steps=1))
+    busy_us, per, wall_s = device_profile(fn)
     classes = {"flash_fwd": 0.0, "flash_bwd": 0.0, "ssd_fwd": 0.0,
                "ssd_bwd": 0.0, "gemm": 0.0, "other": 0.0}
     for key, (_, us) in per.items():
@@ -2394,6 +2480,9 @@ def traced_train_step(trainer):
             "device_idle_share": 1 - busy_us / 1e6 / wall_s
             if busy_us else None,
             "device_s_by_class": classes,
+            "device_share_by_class": {
+                c: t / (busy_us / 1e6) if busy_us else None
+                for c, t in classes.items()},
             "device_events": sum(c for c, _ in per.values()),
             "top_device_events": sorted(
                 ({"name": k[:80], "count": c, "us": us}
@@ -2720,6 +2809,334 @@ def ssm_train_parity_phase(seed: int, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# hubert-xlarge, the audio encoder
+# ---------------------------------------------------------------------------
+
+def audio_batch(cfg, tokens, seed: int, labels: bool = False,
+                device="cuda"):
+    """Frame embeddings [B, S, d_model] ~ N(0, 1), rounded to bf16 (so a
+    bf16 and an fp32 run read the same values) and held in the config's
+    compute dtype, and with ``labels`` classes in [0, vocab_size), drawn on
+    ``device`` from ``seed``."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn((*tokens, cfg.d_model), generator=gen, device=device)
+    batch = {"embeddings": emb.to(torch.bfloat16).to(
+        getattr(torch, cfg.compute_dtype))}
+    if labels:
+        batch["labels"] = torch.randint(0, cfg.vocab_size, tokens,
+                                        generator=gen, device=device,
+                                        dtype=torch.int32)
+    return batch
+
+
+def audio_model_phase(cfg, params, seed: int, device="cuda"):
+    """hubert-xlarge's prefill through make_prefill_step on frame
+    embeddings [AUDIO_PREFILL]: one warm-up and AUDIO_PREFILL_REPS timed
+    prefills, each launching flash_attention once a layer (the count is
+    zeroed just before each and read just after); seconds (the median),
+    frames/s and the peak device memory of a prefill."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    batch = audio_batch(cfg, AUDIO_PREFILL, seed + 1, device=device)
+    secs, launches, peaks = [], [], []
+    for _ in range(1 + AUDIO_PREFILL_REPS):
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        t = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        launches.append(FA.launches["flash_attention"])
+        peaks.append(torch.cuda.max_memory_allocated())
+        if tuple(logits.shape) != (*AUDIO_PREFILL, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"are not finite or of the wrong shape")
+        del logits
+    if device == "cuda" and launches != [cfg.n_layers] * len(launches):
+        raise AssertionError(f"flash_attention launches per prefill "
+                             f"{launches}, expected {cfg.n_layers}")
+    timed = sorted(secs[1:])
+    median = timed[len(timed) // 2]
+    torch.cuda.empty_cache()
+    return {"phase": "audio_model", "arch": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "causal": cfg.causal, "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype,
+            "param_bytes": tree_bytes(params),
+            "prefill_tokens": list(AUDIO_PREFILL),
+            "prefill_s": {"warm_up": secs[0], "timed": secs[1:],
+                          "median": median},
+            "prefill_tokens_per_s":
+                AUDIO_PREFILL[0] * AUDIO_PREFILL[1] / median,
+            "flash_attention_launches": launches[-1],
+            "prefill_peak_bytes": max(peaks[1:])}
+
+
+def audio_trace_phase(cfg, params, seed: int):
+    """One hubert-xlarge prefill at AUDIO_PREFILL traced on the card:
+    device time by kernel class, the flash kernel's share, the idle share
+    and the top device events."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    batch = audio_batch(cfg, AUDIO_PREFILL, seed + 1)
+    out = {"phase": "audio_trace", "prefill_tokens": list(AUDIO_PREFILL),
+           **traced_by_class(lambda: prefill(params, batch))}
+    out["flash_share"] = out["device_share_by_class"]["flash_fwd"]
+    return out
+
+
+def audio_parity_phase(seed: int, device="cuda"):
+    """hubert-xlarge cut to AUDIO_PARITY_LAYERS layers at full width, fp32
+    compute: prefill logits of [1, AUDIO_PARITY_TOKENS] frames through the
+    kernels against the same parameters and frames through the plain
+    versions on the card, to PREFILL_DECODE_TOL."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = replace(replace_layers(get_config(AUDIO_ARCH),
+                                 AUDIO_PARITY_LAYERS),
+                  compute_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    params = init_params(gen, cfg, device=device)
+    batch = audio_batch(cfg, (1, AUDIO_PARITY_TOKENS), seed + 5,
+                        device=device)
+    prefill = make_prefill_step(cfg)
+    FA.reset_launches()
+    got = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = FA.launches["flash_attention"]
+    with plain_attention():
+        FA.reset_launches()
+        want = prefill(params, batch)
+        plain_launches = FA.launches["flash_attention"]
+    err = float((got - want).abs().max())
+    out = {"phase": "audio_parity", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "compute_dtype": cfg.compute_dtype,
+           "tokens": AUDIO_PARITY_TOKENS,
+           "flash_attention_launches": launches,
+           "plain_launches": plain_launches, "max_abs_logit_diff": err,
+           "max_abs_logit": float(want.abs().max()),
+           "tol": PREFILL_DECODE_TOL}
+    if device == "cuda" and launches != cfg.n_layers or plain_launches:
+        raise AssertionError(f"parity prefill launched flash_attention "
+                             f"{launches} times (plain {plain_launches}), "
+                             f"expected {cfg.n_layers} (0)")
+    if not err <= PREFILL_DECODE_TOL:
+        raise AssertionError(f"logits through the kernels differ from the "
+                             f"plain versions' by {err} > "
+                             f"{PREFILL_DECODE_TOL}")
+    return out
+
+
+def audio_train_phase(seed: int, device="cuda"):
+    """hubert-xlarge at full width and depth (fp32 parameters and AdamW
+    moments, bf16 compute, remat) through make_train_step, as
+    tests/test_arch_smoke.py trains it (the token pipeline has no frame
+    embeddings): TRAIN_STEPS timed steps on one seeded batch of frame
+    embeddings and labels [AUDIO_TRAIN], each launching the flash forward
+    twice a layer (remat's recompute) and its backward once (counts zeroed
+    just before the steps and read after each), then one more step traced
+    on the card (device time by kernel class); finite losses and norms,
+    parameters that move."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = get_config(AUDIO_ARCH)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg, device=device)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS + 1)
+    opt_state = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    out = {"phase": "audio_train", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "param_count": count_params(cfg), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "tokens": list(AUDIO_TRAIN), "init_s": time.perf_counter() - t,
+           "state_bytes": tree_bytes(params) + tree_bytes(opt_state)}
+    batch = audio_batch(cfg, AUDIO_TRAIN, seed + 6, labels=True,
+                        device=device)
+    step = make_train_step(cfg, opt_cfg)
+    wq = params["blocks"]["layer0"]["attn"]["wq"]
+    probe = {"wq": wq[0].clone(), "unembed": params["unembed"].clone()}
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        fwd = FA.launches["flash_attention"]
+        bwd = FA.bwd_launches["flash_attention_bwd"]
+        t = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        steps.append({"s": sec, "tokens_per_s":
+                      AUDIO_TRAIN[0] * AUDIO_TRAIN[1] / sec,
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "flash_attention": FA.launches["flash_attention"] - fwd,
+                      "flash_attention_bwd":
+                          FA.bwd_launches["flash_attention_bwd"] - bwd})
+    out.update(steps=steps, launches={**FA.launches, **FA.bwd_launches},
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               s_per_step_after_first=sum(r["s"] for r in steps[1:])
+               / max(len(steps) - 1, 1))
+    state = [params, opt_state]
+
+    def traced():
+        state[:] = step(*state, batch)[:2]
+    out["trace"] = traced_by_class(traced)
+    moved = {n: not torch.equal(a, b) for n, a, b in (
+        ("wq", wq[0], probe["wq"]),
+        ("unembed", params["unembed"], probe["unembed"]))}
+    out["params_moved"] = moved
+    bad = [r for r in steps if not (math.isfinite(r["loss"])
+                                    and math.isfinite(r["grad_norm"]))]
+    if bad or not all(moved.values()):
+        raise AssertionError(f"training gave non-finite losses or norms "
+                             f"{bad}, or left parameters in place {moved}")
+    want = ((2 if cfg.remat else 1) * cfg.n_layers, cfg.n_layers)
+    per_step = [(r["flash_attention"], r["flash_attention_bwd"])
+                for r in steps]
+    if device == "cuda" and per_step != [want] * TRAIN_STEPS:
+        raise AssertionError(f"flash launches per step {per_step}, expected "
+                             f"{want} (forward with its recompute, "
+                             f"backward)")
+    del state, params, opt_state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def audio_train_parity_phase(seed: int, device="cuda"):
+    """hubert-xlarge cut to AUDIO_PARITY_LAYERS layers at full width, remat,
+    frames [1, AUDIO_PARITY_TOKENS]: the loss and every gradient leaf
+    through the flash kernels against the same through the plain versions
+    on the card, (a) in fp32 compute within TRAIN_PARITY_TOL (the FMA
+    kernels), (b) in bf16 compute (the wgmma kernels) under the flash
+    backward's two gates: each leaf within ref.BF16_GRAD_ROW_TOL of the
+    plain bf16 version's by grad_row_err, and its RMS distance from the
+    exact gradient (the plain versions in fp32, (a)'s reference) within
+    ref.BF16_GRAD_RMS_RATIO of the plain bf16 version's by grad_rms_err.
+    The worst leaves are named."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
+    )
+    from repro_torch.models import init_params
+
+    base = replace_layers(get_config(AUDIO_ARCH), AUDIO_PARITY_LAYERS)
+    tokens = (1, AUDIO_PARITY_TOKENS)
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    params = init_params(gen, base, device=device)
+    names = leaf_paths(params)
+    out = {"phase": "audio_train_parity", "arch": base.name,
+           "n_layers": base.n_layers, "d_model": base.d_model,
+           "heads": [base.n_heads, base.n_kv_heads, base.head_dim],
+           "remat": base.remat, "tokens": list(tokens),
+           "grad_leaves": len(names)}
+    want_launches = {"flash_attention":
+                     (2 if base.remat else 1) * base.n_layers,
+                     "flash_attention_bwd": base.n_layers}
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = replace(base, compute_dtype=dtype)
+        batch = audio_batch(cfg, tokens, seed + 8, labels=True,
+                            device=device)
+        FA.reset_launches()
+        loss, got = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        launches = {**FA.launches, **FA.bwd_launches}
+        with plain_attention():
+            FA.reset_launches()
+            want_loss, want = loss_and_grads(params, batch, cfg)
+            plain = {**FA.launches, **FA.bwd_launches}
+        if device == "cuda" and launches != want_launches or \
+                set(plain.values()) != {0}:
+            raise AssertionError(f"{dtype} parity launches {launches}, "
+                                 f"plain {plain}")
+        grads[dtype] = got, want
+        out[dtype] = {"loss": float(loss),
+                      "loss_abs_diff": abs(float(loss) - float(want_loss)),
+                      "kernel_launches": launches}
+    got, exact = grads["float32"]
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(got, exact)]
+    f32 = out["float32"]
+    f32.update(grad_max_rel_diff=max(rel), tol=TRAIN_PARITY_TOL,
+               worst_leaves=sorted(zip(rel, names), reverse=True)[:3])
+    got, plain = grads["bfloat16"]
+    row = [grad_row_err(g, w) for g, w in zip(got, plain)]
+    ratio = [grad_rms_err(g, e) / max(grad_rms_err(w, e), 1e-30)
+             for g, w, e in zip(got, plain, exact)]
+    out["bfloat16"].update(
+        grad_max_row_err=max(row), row_tol=BF16_GRAD_ROW_TOL,
+        worst_row_leaves=sorted(zip(row, names), reverse=True)[:3],
+        grad_max_rms_err_ratio=max(ratio), rms_ratio_tol=BF16_GRAD_RMS_RATIO,
+        worst_ratio_leaves=sorted(zip(ratio, names), reverse=True)[:3])
+    del params, grads, got, plain, exact
+    torch.cuda.empty_cache()
+    if not (f32["loss_abs_diff"] <= TRAIN_PARITY_TOL
+            and max(rel) <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"fp32 loss or gradients through the kernels "
+                             f"differ from the plain versions': {out}")
+    if not (max(row) <= BF16_GRAD_ROW_TOL
+            and max(ratio) <= BF16_GRAD_RMS_RATIO):
+        raise AssertionError(f"bf16 gradients through the kernels fail the "
+                             f"flash backward's gates: {out}")
+    return out
+
+
+def audio_phases(seed: int):
+    """Run and emit the five audio phases in order; returns the
+    audio_model and audio_train lines (the kernels line reads their
+    launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, init_params
+
+    cfg = get_config(AUDIO_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    audio = audio_model_phase(cfg, params, seed)
+    audio.update(param_count=count_params(cfg), init_s=init_s)
+    emit(audio)
+    emit(audio_trace_phase(cfg, params, seed))
+    del params
+    torch.cuda.empty_cache()
+    emit(audio_parity_phase(seed))
+    audio_train = audio_train_phase(seed)
+    emit(audio_train)
+    emit(audio_train_parity_phase(seed))
+    return audio, audio_train
+
+
+# ---------------------------------------------------------------------------
 
 def terms(report) -> dict:
     """A roofline report's three terms, its bound and the bound's time."""
@@ -2894,6 +3311,7 @@ def main() -> int:
                             kernel=SS, save=False)
     emit(ssm_train)
     emit(ssm_train_parity_phase(args.seed))
+    audio, audio_train = audio_phases(args.seed)
     emit(dryrun_phase(smi, {
         TRAIN_ARCH: train["s_per_step_after_first"],
         SSM_ARCH: ssm_train["s_per_step_after_first"]}))
@@ -2916,19 +3334,20 @@ def main() -> int:
     summary = []
     for r in rows:
         if r["name"] == "flash_attention":
-            if r["variant"] not in ("global", "qwen3_moe"):
+            by = {"global": model, "qwen3_moe": moe, "hubert": audio}
+            if r["variant"] not in by:
                 continue
-            launches = (moe if r["variant"] == "qwen3_moe" else model)[
-                "flash_attention_launches"]
+            launches = by[r["variant"]]["flash_attention_launches"]
             source = "src/repro_torch/kernels/flash_attention/csrc/" \
                      "flash_attention.cu"
             extra = {"variant": r["variant"], "dtype": r["dtype"],
                      "library": r["library"],
                      "row_scaled_err": r["row_scaled_err"]}
         elif r["name"] == "flash_attention_bwd":
-            if r["variant"] != "gemma_2b":
+            by = {"gemma_2b": train, "hubert": audio_train}
+            if r["variant"] not in by:
                 continue
-            launches = train["launches"]["flash_attention_bwd"]
+            launches = by[r["variant"]]["launches"]["flash_attention_bwd"]
             source = "src/repro_torch/kernels/flash_attention/csrc/" \
                      "flash_attention_bwd.cu"
             extra = {"variant": r["variant"], "dtype": r["dtype"],

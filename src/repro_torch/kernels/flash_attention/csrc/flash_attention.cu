@@ -33,7 +33,7 @@
 // and loops over the KV tiles itself, skipping tiles that are causally or
 // window-dead, so nothing crosses blocks.  Blocks run heaviest causal q
 // tiles first, over all heads, before any lighter one.
-//   bf16 (D = 64, 128, 256; one kernel): 128 q rows a block, three
+//   bf16 (D = 64, 80, 128, 256; one kernel): 128 q rows a block, three
 //     warpgroups.  A producer warpgroup (40 registers a thread after
 //     setmaxnreg) has one thread start every copy by TMA
 //     (cp.async.bulk.tensor, 128-byte swizzle, zero fill past the ends of
@@ -46,9 +46,17 @@
 //     and K from shared memory (both K-major), the softmax in registers,
 //     then O += P V by wgmma m64nDk16 with P from registers (bf16) and V
 //     from shared memory through the transpose bit; the D / 2 fp32
-//     accumulators of O stay in registers.  Masks are applied only on edge
-//     tiles (the causal diagonal, the window's lower edge, the ragged end
-//     of the keys); interior tiles skip the compares.  The softmax works
+//     accumulators of O stay in registers.  D = 80 (hubert-xlarge's
+//     heads) keeps the D = 128 shared-memory layout, padded: the tensor
+//     maps keep the real 80 columns, so TMA zero-fills columns 80..127 of
+//     the second box.  The products run at the real width: Q K^T over
+//     five k16 steps, P V as m64n80k16 (V's first 64-column swizzle atom
+//     and 16 columns of the next), and every access by address (the
+//     epilogue, o32) stops at column 80.  P V over all 128 columns was
+//     7-15% slower at hubert's prefill shape (PERF.md, section 6).
+//     Masks are applied only on edge tiles (the causal diagonal, the
+//     window's lower edge, the ragged end of the keys); interior tiles
+//     skip the compares.  The softmax works
 //     in log2 units: scale * log2(e) is one multiply, the exponentials are
 //     ex2.approx, and the softcap cap * tanh(s / cap) is formed as in
 //     softcap_log2 (two ex2 a score, the reciprocal on the FMA pipe, tanh
@@ -67,7 +75,7 @@
 //     fence .. wait window straight-line.
 //   fp32: 8 warps, plain IEEE fp32 FMAs (no TF32), 32-key tiles loaded by
 //     cp.async; four threads share a q row, each holding 8 scores and D / 4
-//     accumulators.
+//     accumulators (D = 80: 20, no padding).
 //
 // Statistics for the backward (flash_attention_stats_launch, bf16): when
 // autograd records the call, the epilogue also writes each row's logsumexp
@@ -241,18 +249,26 @@ constexpr int kBox = 64;              // columns per TMA box: 128 bytes
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The width a head of D columns takes in shared memory: whole 64-column
+// boxes (80 -> 128; the rest are D itself).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + kBox - 1) / kBox * kBox;
+}
+
 // Stages of the K/V ring: what fits in 227 KB beside the 128-row Q tile
 // (D = 256: 64 KB of Q and 2 x 80 KB of K and V, 230,456 bytes in all).
 template <int D>
 __host__ __device__ constexpr int ring_stages() {
-  return D == 256 ? 2 : D == 128 ? 4 : 8;
+  return padded<D>() == 256 ? 2 : padded<D>() == 128 ? 4 : 8;
 }
 
 // Q, the K and V rings, 3 mbarriers a stage plus Q's, and slack to align
 // the tiles to 1024 bytes (the 128-byte swizzle's period).
 template <int D>
 constexpr size_t bf16_smem_bytes() {
-  return 1024 + 2 * (size_t)D * (kBQ16 + 2 * ring_stages<D>() * kBK16) +
+  return 1024 +
+         2 * (size_t)padded<D>() * (kBQ16 + 2 * ring_stages<D>() * kBK16) +
          8 * (1 + 3 * ring_stages<D>());
 }
 
@@ -290,8 +306,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const Bf16Params p) {
-  constexpr int NST = ring_stages<D>();
-  constexpr uint32_t QBYTES = 2 * kBQ16 * D, TBYTES = 2 * kBK16 * D;
+  constexpr int NST = ring_stages<D>(), DP = padded<D>();
+  constexpr uint32_t QBYTES = 2 * kBQ16 * DP, TBYTES = 2 * kBK16 * DP;
   constexpr uint32_t QBOX = 2 * kBQ16 * kBox, TBOX = 2 * kBK16 * kBox;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023) &
@@ -336,7 +352,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, QBYTES);
-      for (int c = 0; c < D / kBox; ++c)
+      for (int c = 0; c < DP / kBox; ++c)
         tma_load(sQ + c * QBOX, &tm_q, bar_q, c * kBox, q0, h, b);
       for (int j = lo, it = 0; j <= hi; ++j) {
         if constexpr (kPos) {
@@ -345,11 +361,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % NST, round = it / NST;
         if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full_k + 8 * s, TBYTES);
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < DP / kBox; ++c)
           tma_load(sK + s * TBYTES + c * TBOX, &tm_k, full_k + 8 * s,
                    c * kBox, j * kBK16, hk, b);
         mbar_expect_tx(full_v + 8 * s, TBYTES);
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < DP / kBox; ++c)
           tma_load(sV + s * TBYTES + c * TBOX, &tm_v, full_v + 8 * s,
                    c * kBox, j * kBK16, hk, b);
         ++it;
@@ -396,7 +412,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
       mbar_wait(full_k + 8 * s, par);
       if (live) {
-        // S = Q K^T: 64 x kBK16, D / 16 steps of k16
+        // S = Q K^T: 64 x kBK16, D / 16 steps of k16 (the real depth)
         float sc[kBK16 / 2];
         wgmma_fence();
 #pragma unroll
@@ -488,7 +504,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           o[i + 3] *= c1;
         }
 
-        // O += P V: 4 steps of 16 keys, V MN-major (D contiguous)
+        // O += P V: 5 steps of 16 keys, V MN-major (D contiguous)
         mbar_wait(full_v + 8 * s, par);
         fence_regs(o);
         wgmma_fence();
@@ -737,6 +753,7 @@ template <bool kPos>
 int launch_any(const Params& p, int B, int D, int bf16, cudaStream_t s) {
   switch (D) {
     case 64: return launch_d<64, kPos>(p, B, bf16, s);
+    case 80: return launch_d<80, kPos>(p, B, bf16, s);
     case 128: return launch_d<128, kPos>(p, B, bf16, s);
     case 256: return launch_d<256, kPos>(p, B, bf16, s);
     default: return (int)cudaErrorInvalidValue;

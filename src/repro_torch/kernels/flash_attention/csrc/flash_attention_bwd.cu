@@ -8,7 +8,7 @@
 // reference comes from here: the gradient of the plain version
 // (ref.flash_attention_ref), for everything the forward takes (causal or
 // not, a sliding window, a tanh softcap, any scale, masks by position, any
-// H % KV == 0, head_dim 64, 128 or 256, bf16 and fp32).
+// H % KV == 0, head_dim 64, 80, 128 or 256, bf16 and fp32).
 //
 // What it computes, for each (b, query head h, query row i, key j) that the
 // masks let through, with s_ij the forward's score (q_i . k_j * scale, then
@@ -54,6 +54,13 @@
 //     key tiles would leave most SMs idle: gemma-2b has 64 key tiles for
 //     132 SMs) write fp32 partials that
 //   flash_bwd_reduce_kernel  sums in split order.
+//   D = 80 (hubert-xlarge's heads) keeps the D = 128 shared-memory
+//   layout, padded, as the forward does: the tensor maps keep the real 80
+//   columns, so TMA zero-fills columns 80..127 of each tile's second box.
+//   The products run at the real width (S and dP over five k16 steps; dQ,
+//   dK and dV as m64n80k16 across a 64-column swizzle atom and 16 columns
+//   of the next), and every access by address (delta, the epilogues, the
+//   partials) stops at column 80.
 //   Seven products in all: dq recomputes S and dP rather than take dQ by
 //   atomics, so two launches on the same inputs give the same bits.
 //   Blocks run every head and split of the heaviest causal tile first
@@ -77,7 +84,10 @@
 //     its query heads and live q tiles; fp32 partials for several splits.
 //   Tiles as fp32 rows padded by 4 floats (16-byte float4 reads), 256
 //   threads each owning a 2 x 4 patch of the score tile; at D = 256 a dkdv
-//   block takes 213.8 KB of shared memory, one per SM.
+//   block takes 213.8 KB of shared memory, one per SM.  The dQ, dK and dV
+//   sums give each of 16 threads four columns of every 64: at D = 80 the
+//   second 64 holds 16 real columns, which threads 0..3 of the 16 own
+//   (the others skip them; col_live).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -267,6 +277,13 @@ __device__ __forceinline__ float oct_sum(float x) {
   return x;
 }
 
+// Does the float4 column group t (of 64 columns) of thread dl (of 16)
+// start inside a row of D columns?  Always where D is a multiple of 64.
+template <int D>
+__device__ __forceinline__ bool col_live(int t, int dl) {
+  return D % 64 == 0 || 64 * t + 4 * dl < D;
+}
+
 // ---------------------------------------------------------------------------
 // Row statistics: m, l and delta for 64 query rows of one (b, h).
 // ---------------------------------------------------------------------------
@@ -390,7 +407,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int L = D + kPad;
-  constexpr int NT = D / 64;          // float4 columns a thread owns
+  constexpr int NT = (D + 63) / 64;   // float4 columns a thread owns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);   // [kBQ][L]
   float* dOs = Qs + kBQ * L;                        // [kBQ][L]
@@ -452,6 +469,7 @@ flash_bwd_dq_kernel(const BwdParams p) {
       const float gr[4] = {g.x, g.y, g.z, g.w};
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
+        if (!col_live<D>(t, dl)) continue;
         const float4 kv = *reinterpret_cast<const float4*>(
             Ks + c * L + 4 * dl + 64 * t);
 #pragma unroll
@@ -472,9 +490,10 @@ flash_bwd_dq_kernel(const BwdParams p) {
     float* out = (float*)p.dq + b * p.dq_b + h * p.dq_h + row * p.dq_s;
 #pragma unroll
     for (int t = 0; t < NT; ++t)
+      if (col_live<D>(t, dl))
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        out[4 * dl + 64 * t + e] = acc[i][t][e] * p.scale;
+        for (int e = 0; e < 4; ++e)
+          out[4 * dl + 64 * t + e] = acc[i][t][e] * p.scale;
   }
 }
 
@@ -487,7 +506,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(const BwdParams p) {
   constexpr int L = D + kPad;
-  constexpr int NT = D / 64;
+  constexpr int NT = (D + 63) / 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);   // [kBK][L]
   float* Vs = Ks + kBK * L;                         // [kBK][L]
@@ -555,6 +574,7 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
                                                            2 * kg);
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
+          if (!col_live<D>(t, dl)) continue;
           const float4 ov = *reinterpret_cast<const float4*>(
               dOs + r * L + 4 * dl + 64 * t);
           const float4 qv = *reinterpret_cast<const float4*>(
@@ -590,22 +610,24 @@ flash_bwd_dkdv_kernel(const BwdParams p) {
       float* ov = (float*)p.dv + b * p.dv_b + hk * p.dv_h + key * p.dv_s;
 #pragma unroll
       for (int t = 0; t < NT; ++t)
+        if (col_live<D>(t, dl))
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ok[4 * dl + 64 * t + e] = dk[i][t][e] * p.scale;
-          ov[4 * dl + 64 * t + e] = dv[i][t][e];
-        }
+          for (int e = 0; e < 4; ++e) {
+            ok[4 * dl + 64 * t + e] = dk[i][t][e] * p.scale;
+            ov[4 * dl + 64 * t + e] = dv[i][t][e];
+          }
     } else {
       const size_t row = (((size_t)b * p.Sk + key) * p.KV + hk) * D;
       float* pk = p.part + (2 * (size_t)split) * n + row;
       float* pv = p.part + (2 * (size_t)split + 1) * n + row;
 #pragma unroll
       for (int t = 0; t < NT; ++t)
+        if (col_live<D>(t, dl))
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          pk[4 * dl + 64 * t + e] = dk[i][t][e] * p.scale;
-          pv[4 * dl + 64 * t + e] = dv[i][t][e];
-        }
+          for (int e = 0; e < 4; ++e) {
+            pk[4 * dl + 64 * t + e] = dk[i][t][e] * p.scale;
+            pv[4 * dl + 64 * t + e] = dv[i][t][e];
+          }
     }
   }
 }
@@ -664,11 +686,18 @@ constexpr int kWThreads = 384;        // producer + two consumer warpgroups
 constexpr uint32_t kBoxBytes = kT * 128;   // one TMA box: 64 rows x 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The width a head of D columns takes in shared memory: whole 64-column
+// boxes (80 -> 128; the rest are D itself).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + 63) / 64 * 64;
+}
+
 // The dkdv ring's stages: what fits in 227 KB beside the resident K and V
 // (D = 256: 64 KB resident, 2 x 64 KB of Q and dO, 32 KB of P f).
 template <int D>
 __host__ __device__ constexpr int dkdv_stages() {
-  return D == 256 ? 2 : D == 128 ? 4 : 8;
+  return padded<D>() == 256 ? 2 : padded<D>() == 128 ? 4 : 8;
 }
 
 // dkdv's shared memory: resident K and V, the ring (Q and dO tiles), its
@@ -678,7 +707,7 @@ __host__ __device__ constexpr int dkdv_stages() {
 // period).
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return 1024 + 2 * 128 * (size_t)D * (1 + dkdv_stages<D>()) +
+  return 1024 + 2 * 128 * (size_t)padded<D>() * (1 + dkdv_stages<D>()) +
          512 * dkdv_stages<D>() + 2 * 16384 +
          8 * (1 + 2 * dkdv_stages<D>() + 4);
 }
@@ -687,16 +716,16 @@ constexpr size_t dkdv_smem_bytes() {
 // D = 256) leave room for two stages of 48-key K and V tiles (96 KB).
 template <int D>
 __host__ __device__ constexpr int dq_key_tile() {
-  return D == 256 ? 48 : 64;
+  return padded<D>() == 256 ? 48 : 64;
 }
 template <int D>
 __host__ __device__ constexpr int dq_stages() {
-  return D == 256 ? 2 : D == 128 ? 4 : 8;
+  return padded<D>() == 256 ? 2 : padded<D>() == 128 ? 4 : 8;
 }
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return 1024 + 2 * (size_t)D * (2 * 128 + 2 * dq_stages<D>() *
-                                 dq_key_tile<D>()) +
+  return 1024 + 2 * (size_t)padded<D>() * (2 * 128 + 2 * dq_stages<D>() *
+                                           dq_key_tile<D>()) +
          8 * (1 + 2 * dq_stages<D>());
 }
 
@@ -804,8 +833,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_do,
                      const BwdParams p) {
-  constexpr int NST = dkdv_stages<D>();
-  constexpr uint32_t TB = 128 * D;          // one 64-row tile of D columns
+  constexpr int NST = dkdv_stages<D>(), DP = padded<D>();
+  constexpr uint32_t TB = 128 * DP;         // one 64-row tile of DP columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t sK = (base + 1023) & ~1023u;
@@ -853,7 +882,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_r, 2 * TB);
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < DP / 64; ++c) {
         tma_load(sK + c * kBoxBytes, &tm_k, bar_r, 64 * c, kt * kT, hk, b);
         tma_load(sV + c * kBoxBytes, &tm_v, bar_r, 64 * c, kt * kT, hk, b);
       }
@@ -863,7 +892,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full + 8 * s, 2 * TB);
         const uint32_t dst = sT + 2 * s * TB;
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DP / 64; ++c) {
           tma_load(dst + c * kBoxBytes, &tm_q, full + 8 * s, 64 * c,
                    n % nq * kT, h0 + n / nq, b);
           tma_load(dst + TB + c * kBoxBytes, &tm_do, full + 8 * s, 64 * c,
@@ -1041,7 +1070,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   constexpr int BK = dq_key_tile<D>(), NST = dq_stages<D>();
   constexpr uint32_t QC = 128 * 128;        // 128 rows of one 64-column box
   constexpr uint32_t KC = BK * 128;         // BK rows of one box
-  constexpr uint32_t QB = QC * (D / 64), KB = KC * (D / 64);
+  constexpr int DP = padded<D>();
+  constexpr uint32_t QB = QC * (DP / 64), KB = KC * (DP / 64);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(smem_raw) +
                        1023) & ~1023u;
@@ -1072,7 +1102,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_r, 2 * QB);
-      for (int c = 0; c < D / 64; ++c)
+      for (int c = 0; c < DP / 64; ++c)
         for (int half = 0; half < 2; ++half) {
           tma_load(sQ + c * QC + half * kBoxBytes, &tm_q, bar_r, 64 * c,
                    q0 + 64 * half, h, b);
@@ -1085,7 +1115,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         const int s = it % NST, round = it / NST;
         if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full + 8 * s, 2 * KB);
-        for (int c = 0; c < D / 64; ++c) {
+        for (int c = 0; c < DP / 64; ++c) {
           tma_load(sK + 2 * s * KB + c * KC, &tm_k, full + 8 * s, 64 * c,
                    j * BK, hk, b);
           tma_load(sK + (2 * s + 1) * KB + c * KC, &tm_v, full + 8 * s,
@@ -1310,6 +1340,7 @@ int launch_wgmma_d(const BwdParams& p, int D, void* bounds,
                    cudaStream_t s) {
   switch (D) {
     case 64: return launch_wgmma<64>(p, bounds, s);
+    case 80: return launch_wgmma<80>(p, bounds, s);
     case 128: return launch_wgmma<128>(p, bounds, s);
     case 256: return launch_wgmma<256>(p, bounds, s);
     default: return (int)cudaErrorInvalidValue;
@@ -1361,6 +1392,7 @@ int launch_fma(const BwdParams& p, cudaStream_t s) {
 int launch_fma_d(const BwdParams& p, int D, cudaStream_t s) {
   switch (D) {
     case 64: return launch_fma<64>(p, s);
+    case 80: return launch_fma<80>(p, s);
     case 128: return launch_fma<128>(p, s);
     case 256: return launch_fma<256>(p, s);
     default: return (int)cudaErrorInvalidValue;

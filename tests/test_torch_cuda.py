@@ -149,7 +149,7 @@ def ieee_fp32():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("heads", [(16, 8), (4, 1)])
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
 def test_flash_kernel_equals_plain_version(cuda, ieee_fp32, dtype, D, heads,
@@ -214,7 +214,7 @@ FLASH_EDGE_CASES = {
 }
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("case", list(FLASH_EDGE_CASES))
 def test_flash_kernel_edge_shapes(cuda, D, case):
     S, (H, KV), window, cap = FLASH_EDGE_CASES[case]
@@ -266,25 +266,33 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
         FA.gqa_flash_attention(q, k, shifted[4:].view_as(v))
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-moe-30b-a3b",
+                                  "hubert-xlarge"])
 def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32,
                                                             arch):
-    """The smoke config with head_dim 64 (the kernel's smallest): fp32
+    """The smoke config with head_dim 64 (the kernel's smallest), or
+    hubert-xlarge's own 80 (bidirectional, frame embeddings in): fp32
     logits on the card equal the CPU run of the same parameters (the MoE's
     routing, capacity and einsums on the card included)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = replace(get_config(arch).smoke(), head_dim=64,
+    cfg = replace(get_config(arch).smoke(),
+                  head_dim=80 if arch == "hubert-xlarge" else 64,
                   compute_dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    rng = np.random.default_rng(0)
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 96)).astype(np.int32))}
+    else:
+        batch = {"embeddings": torch.from_numpy(rng.normal(
+            size=(2, 96, cfg.d_model)).astype(np.float32))}
     prefill = make_prefill_step(cfg)
-    want = prefill(params, {"tokens": toks})
+    want = prefill(params, batch)
     FA.reset_launches()
-    got = prefill(_to(params, cuda), {"tokens": toks.to(cuda)})
+    got = prefill(_to(params, cuda), _to(batch, cuda))
     torch.cuda.synchronize()
     assert FA.launches["flash_attention"] == cfg.n_layers
     assert float((got.cpu() - want).abs().max()) < 1e-4
@@ -1237,7 +1245,7 @@ def test_flash_kernel_position_masks_bitwise_equal_to_parent_build(cuda):
                              **FLASH_MODES[mode])), (dtype, mode, p is None)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir",
                                   "positions"])
 def test_flash_forward_statistics_equal_plain_version(cuda, ieee_fp32, D,
@@ -1377,7 +1385,7 @@ def _assert_grads_close(got, want, q, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("heads", [(16, 8), (8, 1), (4, 4)])
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
 def test_flash_backward_equals_plain_version(cuda, ieee_fp32, dtype, D,
@@ -1387,6 +1395,88 @@ def test_flash_backward_equals_plain_version(cuda, ieee_fp32, dtype, D,
     q, k, v = _qkv(2, 200, *heads, D, dtype, cuda)
     got, want = _bwd_case(q, k, v, **FLASH_MODES[mode])
     _assert_grads_close(got, want, q, k)
+
+
+def _c_strides(*views):
+    """The C entry points' strides argument: (b, s, head) of each view."""
+    import ctypes
+    vals = [st for t in views for st in t.stride()[:3]]
+    return ctypes.cast((ctypes.c_int64 * len(vals))(*vals), ctypes.c_void_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 1)])
+@pytest.mark.parametrize("mode", ["causal", "bidir"])
+def test_flash_kernels_never_write_past_head_dim_80(cuda, ieee_fp32, dtype,
+                                                    heads, mode):
+    """head_dim 80 through the C entry points with every output a view of
+    the first 80 of 128 columns (the bf16 kernels' padded width), the rest
+    a canary: the forward's output, the bf16 forward's fp32 output (a
+    canary after its end), and dq, dk, dv (MQA (8, 1): the fp32 partials
+    and their reduce) keep the canary, and agree with the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_stats_ref,
+    )
+
+    B, S, (H, KV), D, W, canary = 2, 200, heads, 80, 128, 7.0
+    kw = FLASH_MODES[mode]
+    q, k, v = _qkv(B, S, H, KV, D, dtype, cuda, seed=21)
+    dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=22)[0]
+    bf16 = dtype == torch.bfloat16
+    lib, stream = K._load(), torch.cuda.current_stream().cuda_stream
+    scale = D ** -0.5
+
+    def padded(heads_, dt=dtype):
+        buf = torch.full((B, S, heads_, W), canary, dtype=dt, device=cuda)
+        return buf, buf[..., :D]
+
+    o_buf, o = padded(H)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H,
+            KV, S, S, D, _c_strides(q, k, v, o), scale, 0.0,
+            int(kw["causal"]), 0)
+    lse = out32 = None
+    if bf16:
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+        o32_buf = torch.full((B * S * H * D + W,), canary,
+                             dtype=torch.float32, device=cuda)
+        out32 = o32_buf[:-W].view(B, S, H, D)
+        err = lib.flash_attention_stats_launch(
+            *args, None, None, lse.data_ptr(), out32.data_ptr(), stream)
+    else:
+        err = lib.flash_attention_launch(*args, 0, stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((o_buf[..., D:] == canary).all())
+    _assert_flash_close(o, flash_attention_ref(q, k, v, **kw))
+    if bf16:
+        assert bool((o32_buf[-W:] == canary).all())
+        assert row_scaled_err(out32, flash_attention_stats_ref(
+            q, k, v, **kw)[0]) < BF16_ROW_TOL
+
+    (dq_buf, dq), (dk_buf, dk), (dv_buf, dv) = padded(H), padded(KV), \
+        padded(KV)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsplit = K.kv_splits(B, KV, S, H // KV, sms, K.bwd_key_tile(dtype))
+    assert (nsplit > 1) == (heads == (8, 1))
+    stats = torch.empty((1 if bf16 else 3) * B * H * S, dtype=torch.float32,
+                        device=cuda)
+    partials = torch.empty(max(2 * nsplit * B * S * KV * D, 1),
+                           dtype=torch.float32, device=cuda)
+    err = lib.flash_attention_grad_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bf16 else o.data_ptr(), out32.data_ptr() if bf16 else None,
+        lse.data_ptr() if bf16 else None, dout.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, KV, S, S, D,
+        _c_strides(q, k, v, o, dout, dq, dk, dv), scale, 0.0,
+        int(kw["causal"]), 0, int(bf16), None, None, stats.data_ptr(),
+        partials.data_ptr(), nsplit, stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for buf in (dq_buf, dk_buf, dv_buf):
+        assert bool((buf[..., D:] == canary).all())
+    want = flash_attention_bwd_ref(q, k, v, o, dout, **kw)
+    _assert_grads_close((dq, dk, dv), want, q, k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

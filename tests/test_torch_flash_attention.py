@@ -2,7 +2,8 @@
 what the front end runs for CPU tensors) against the JAX package's Pallas
 kernel in interpret mode and its ``mha_ref`` oracle, on the same numpy
 inputs: the sweep of ``tests/test_kernels.py`` (shapes, causal / window /
-bidir / softcap, fp32 at 1e-5 and bf16 at 2e-2, and bf16 also within
+bidir / softcap, head_dim 64, 80 (hubert-xlarge's) and 128, fp32 at 1e-5
+and bf16 at 2e-2, and bf16 also within
 ``BF16_ROW_TOL`` of each row's RMS), the GQA wrapper, and a sliding window
 whose first KV tile is dead for some rows of a live q tile.
 """
@@ -67,7 +68,7 @@ def _assert_close(got, want, tol):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", [(1, 2, 128, 64), (2, 4, 256, 64),
-                                   (1, 2, 256, 128)])
+                                   (1, 2, 256, 128), (2, 4, 128, 80)])
 @pytest.mark.parametrize("mode", ["causal", "window", "bidir", "softcap"])
 def test_plain_version_matches_pallas_kernel_and_oracle(dtype, shape, mode):
     jdt, tdt, tol = DTYPES[dtype]

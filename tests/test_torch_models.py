@@ -531,6 +531,21 @@ def test_serve_main_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 MORE_MODELS = ("qwen3-14b", "hubert-xlarge", "qwen2-vl-7b")
+#: hubert-xlarge's smoke config at the config's own head_dim, 80 (the
+#: smoke's is 16): the width the flash kernels take for it on the card
+HUBERT_D80 = "hubert-xlarge@head_dim80"
+#: the gradient twins' bounds, tests/test_torch_train.py's: the loss
+#: absolutely, each gradient leaf over its largest magnitude (fp32 sums in
+#: another order)
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
+
+
+def _case(name):
+    """(arch, config overrides) of a MORE_MODELS name or HUBERT_D80."""
+    return ("hubert-xlarge", {"head_dim": 80}) if name == HUBERT_D80 \
+        else (name, {})
+
+
 #: bf16 forward against JAX's Pallas path, max abs logit difference.  The
 #: bound of tests/test_kernels.py:224 (0.05) for every arch but
 #: qwen3-14b: its smoke logits reach 4.19, where a bf16 step is 0.03125,
@@ -578,12 +593,13 @@ def test_more_models_count_params_and_shapes_match_jax(arch):
                         got) == want
 
 
-@pytest.mark.parametrize("arch", MORE_MODELS)
+@pytest.mark.parametrize("arch", MORE_MODELS + (HUBERT_D80,))
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_more_models_forward_matches_jax(arch, compute):
     """fp32: within 1e-4 of both reference paths (Pallas and default);
     bf16: within BF16_LOGIT_TOL of the Pallas path."""
-    jc, tc = _cfgs(arch, compute)
+    arch, kw = _case(arch)
+    jc, tc = _cfgs(arch, compute, **kw)
     jp, tp = _params(jc, tc)
     jb, tb = _model_batch(jc, np.random.default_rng(0), 2, 32)
     got, _ = TM.forward(tp, tb, tc)
@@ -593,6 +609,36 @@ def test_more_models_forward_matches_jax(arch, compute):
         want, _ = JM.forward(jp, jb, replace(jc, use_pallas=use_pallas))
         err = np.abs(_np(got) - _np(want)).max()
         assert err <= tol, (use_pallas, err)
+
+
+@pytest.mark.parametrize("name", ["hubert-xlarge", HUBERT_D80])
+def test_more_models_loss_and_gradients_match_jax(name):
+    """fp32 loss_fn on frame embeddings and labels in [0, vocab_size), and
+    its gradient w.r.t. every parameter leaf (through the flash plain
+    version's autograd), against jax.value_and_grad of the JAX package's
+    loss_fn on the same parameters."""
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+
+    arch, kw = _case(name)
+    jc, tc = _cfgs(arch, **kw)
+    jp, tp = _params(jc, tc, seed=5)
+    rng = np.random.default_rng(6)
+    jb, tb = _model_batch(jc, rng, 2, 32)
+    labels = rng.integers(0, jc.vocab_size, (2, 32)).astype(np.int32)
+    jb["labels"], tb["labels"] = jnp.asarray(labels), _t(labels)
+    (want, _), jgrads = jax.value_and_grad(
+        lambda p: JM.loss_fn(p, jb, jc), has_aux=True)(jp)
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(tp)]
+    got, _ = TM.loss_fn(tree_unflatten(tp, leaves), tb, tc)
+    tgrads = torch.autograd.grad(got, leaves)
+    assert abs(float(got.detach()) - float(want)) <= LOSS_TOL
+    jleaves = jax.tree.leaves(jgrads)
+    assert len(tgrads) == len(jleaves)
+    for g, w in zip(tgrads, jleaves):
+        assert tuple(g.shape) == w.shape
+        err = np.abs(_np(g) - _np(w)).max() / max(np.abs(_np(w)).max(),
+                                                  1e-30)
+        assert err <= GRAD_TOL
 
 
 def test_qwen3_bf16_bound_is_the_reference_paths_own_gap():

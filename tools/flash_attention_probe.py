@@ -6,14 +6,15 @@ Prints the card (nvidia-smi: name, power limit, SM clock, power draw,
 temperature) before and after, the nvcc seconds and ptxas's registers and
 spills of each library, then one JSON line per row of chip_smoke.py's
 flash_attention rows (gemma2-9b's prefill: 16 q heads, 8 KV heads, D 256;
-bf16 [1, 8192] local, global and causal, fp32 [1, 1024] global; and
-qwen3-moe-30b-a3b's: 32 q heads, 4 KV heads, D 128, bf16 [1, 4096] causal)
-on inputs drawn from --seed: max abs and row-scaled error against the
-plain version, the bound, and CUDA-event milliseconds per call (mean of
---reps calls after one warm-up) of the kernel and of one PyTorch call of
-the same function (scaled_dot_product_attention for the causal rows,
-compiled FlexAttention for the softcap rows), a yardstick the port never
-calls.
+bf16 [1, 8192] local, global and causal, fp32 [1, 1024] global;
+qwen3-moe-30b-a3b's: 32 q heads, 4 KV heads, D 128, bf16 [1, 4096] causal;
+and hubert-xlarge's: 16 heads of 80, bidirectional, bf16 [1, 32768] and
+fp32 [1, 1024]) on inputs drawn from --seed: max abs and row-scaled error
+against the plain version, the bound, and CUDA-event milliseconds per
+call (mean of --reps calls after one warm-up) of the kernel and of one
+PyTorch call of the same function (scaled_dot_product_attention for the
+rows without a softcap, compiled FlexAttention for the softcap rows), a
+yardstick the port never calls.
 
 --baseline builds a second library from another flash_attention.cu (for
 example the parent commit's, saved under build/, which is gitignored and
@@ -43,7 +44,7 @@ import chip_smoke as CS  # noqa: E402
 from repro_torch.kernels import build as _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as FA  # noqa: E402,E501
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_ref, row_scaled_err,
+    row_scaled_err,
 )
 
 
@@ -93,15 +94,15 @@ def main() -> int:
     order = ["baseline", "kernel", "kernel", "baseline"] if args.baseline \
         else ["kernel", "kernel"]
 
-    for variant, dtype, S, causal, window, cap, tol, (H, KV, D) in \
+    for variant, dtype, B, S, causal, window, cap, tol, (H, KV, D) in \
             CS.FLASH_ROWS:
         rng = np.random.default_rng([args.seed, S, window, int(cap)])
         q, k, v = (torch.from_numpy(rng.standard_normal(
-            (1, S, h, D), dtype=np.float32)).to("cuda", getattr(torch, dtype))
+            (B, S, h, D), dtype=np.float32)).to("cuda", getattr(torch, dtype))
             for h in (H, KV, KV))
         kw = dict(causal=causal, window=window, softcap=cap)
-        want = flash_attention_ref(q, k, v, **kw)
-        row = {"variant": variant, "dtype": dtype, "shape": [1, S, H, KV, D],
+        want = CS.plain_flash(q, k, v, **kw)
+        row = {"variant": variant, "dtype": dtype, "shape": [B, S, H, KV, D],
                **kw, "tol": tol}
         calls, outs = {}, {}
         for name, lib in libs.items():
@@ -123,13 +124,13 @@ def main() -> int:
             row["library"] = "scaled_dot_product_attention"
             calls["library"] = partial(
                 torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
-                is_causal=True, enable_gqa=True)
+                is_causal=causal, enable_gqa=True)
         for name in order + ["library"]:
             row.setdefault(f"{name}_ms", []).append(
                 CS.cuda_ms(calls[name], args.reps))
-        pairs = CS.live_pairs(S, causal, window)
+        pairs = B * CS.live_pairs(S, causal, window)
         row["bound_ms"], row["bound_by"] = CS.bound(
-            (2 * H + 2 * KV) * S * D * q.element_size(), 4 * H * D * pairs,
+            B * (2 * H + 2 * KV) * S * D * q.element_size(), 4 * H * D * pairs,
             CS.FLOPS_PER_S[dtype])
         print(json.dumps(row), flush=True)
         del q, k, v, qt, kt, vt, calls

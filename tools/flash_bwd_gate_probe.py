@@ -167,6 +167,7 @@ def turns(args) -> None:
     base = K.load(paths["flash_bwd_baseline"])
     for row in CS.BWD_ROWS:
         variant, dtype, S, (H, KV, D) = row[:4]
+        B = row[9]
         if args.rows and variant not in args.rows:
             continue
         q, k, v, dout, out, kw = CS.bwd_inputs(args.seed, row)
@@ -183,7 +184,7 @@ def turns(args) -> None:
                 for n, a, b in zip(("dq", "dk", "dv"), got["kernel"],
                                    got["baseline"])}
         del got
-        line = {"variant": variant, "dtype": dtype, "shape": [1, S, H, KV, D],
+        line = {"variant": variant, "dtype": dtype, "shape": [B, S, H, KV, D],
                 "rel_diff_to_baseline": diff}
         for name in ("baseline", "kernel", "kernel", "baseline"):
             line.setdefault(f"{name}_ms", []).append(
