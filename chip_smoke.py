@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
 qwen3-moe-30b-a3b serving, gemma-2b and mamba2-780m training, hubert-xlarge
-prefill and training) on one CUDA card.
+prefill and training, every config's smoke size, the nine examples) on one
+CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -59,7 +60,13 @@ exits non-zero:
            softcap bends), qwen2-vl-7b's M-RoPE row, fp32
            [1, 1024, 16, 256], and hubert-xlarge's training shape (q
            [4, 4096, 16, 80], 16 KV heads, bf16, bidirectional) and fp32
-           [1, 1024, 16, 80]: bf16 against the exact gradient (the plain
+           [1, 1024, 16, 80]; and at head_dim 16 and 32 (the forward rows
+           too): the examples' own shapes (quickstart.py's Trainer [4, 16],
+           4 heads on 1, bf16; train_e2e.py's [8, 128], 8 heads of 32 on
+           2, bf16; the smoke_configs phase's fp32 [2, 64], 4 heads of 16
+           on 2), then [4, 4096] with 8 heads of 32 or 4 heads of 16 on 2
+           KV heads, causal and bidirectional, bf16 and fp32, beside SDPA:
+           bf16 against the exact gradient (the plain
            version in fp32 on the upcast inputs) within
            ref.BF16_GRAD_RMS_RATIO times the plain bf16 version's own
            error by ref.grad_rms_err, and each row within
@@ -130,6 +137,25 @@ exits non-zero:
            quorum-read every key from each DC: every acknowledged write
            comes back in both.  The numpy twins give the same roots,
            snapshots and reads.
+  smoke_configs  every registry config's .smoke() (head_dim 16; jamba-
+           1.5-large-398b and grok-1-314b run on the card only here), fp32
+           compute, parameters from --seed made on the host: a prefill of
+           SMOKE_TOKENS, 4 decode steps from an empty cache (decoders) and,
+           but for the three MoE configs, the loss, every gradient leaf
+           and one make_train_step through launch/steps.py, on the card
+           against the port's CPU run of the same parameters within 1e-4
+           (logits and loss absolutely, each gradient leaf over its largest
+           magnitude); each config's flash_attention and ssd_scan launches
+           (zeroed just before its card run, read just after) as many as
+           its attention and Mamba layers ask.
+  examples the nine examples_torch scripts, each a subprocess on the card
+           (5 at a time), the six store ones also with --device cpu:
+           every run exits 0, each store script's stdout on the card
+           equals its CPU stdout (PYTHONHASHSEED=0), train_e2e (granite-
+           mini at d_model 256, head_dim 32, --steps 60) ends in its
+           bitwise-resume PASS, the store scripts launch the DVV sweeps
+           and quickstart and train_e2e the flash forward and backward
+           (each run's counts, printed by the subprocess on its stderr).
   model    gemma2-9b at full width and depth (42 layers, 9.24 B fp32
            parameters from a torch.Generator seeded by --seed): one warm-up
            and one timed prefill of tokens [1, 8192] through
@@ -359,6 +385,11 @@ PREFILL_DECODE_TOL = 2e-3
 FLASH_HEADS = (16, 8, 256)
 MOE_FLASH_HEADS = (32, 4, 128)          # qwen3-moe-30b-a3b's attention
 AUDIO_HEADS = (16, 16, 80)              # hubert-xlarge's: bidirectional
+# head_dim 16 (every config's .smoke()) and 32 (examples/train_e2e.py's
+# granite-mini at its default d_model 256)
+SMOKE_HEADS = (4, 2, 16)                # a smoke config's attention
+QUICKSTART_HEADS = (4, 1, 16)           # gemma-2b's smoke config (MQA)
+E2E_HEADS = (8, 2, 32)                  # granite-mini, d_model 256
 FLASH_ROWS = (
     ("local", "bfloat16", 1, 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
     ("global", "bfloat16", 1, 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
@@ -367,6 +398,22 @@ FLASH_ROWS = (
     ("qwen3_moe", "bfloat16", 1, 4096, True, 0, 0.0, 2e-2, MOE_FLASH_HEADS),
     ("hubert", "bfloat16", 1, 32768, False, 0, 0.0, 2e-2, AUDIO_HEADS),
     ("hubert_fp32", "float32", 1, 1024, False, 0, 0.0, 1e-5, AUDIO_HEADS),
+    # head_dim 16 and 32: the examples' own shapes (quickstart.py's
+    # Trainer, train_e2e.py's, the smoke_configs phase's fp32 prefill), then
+    # [4, 4096] bidirectional and causal, bf16 and fp32
+    ("quickstart", "bfloat16", 4, 16, True, 0, 0.0, 2e-2, QUICKSTART_HEADS),
+    ("train_e2e", "bfloat16", 8, 128, True, 0, 0.0, 2e-2, E2E_HEADS),
+    ("smoke_fp32", "float32", 2, 64, True, 0, 0.0, 1e-5, SMOKE_HEADS),
+    ("d32_causal", "bfloat16", 4, 4096, True, 0, 0.0, 2e-2, E2E_HEADS),
+    ("d32_bidir", "bfloat16", 4, 4096, False, 0, 0.0, 2e-2, E2E_HEADS),
+    ("d16_causal", "bfloat16", 4, 4096, True, 0, 0.0, 2e-2, SMOKE_HEADS),
+    ("d16_bidir", "bfloat16", 4, 4096, False, 0, 0.0, 2e-2, SMOKE_HEADS),
+    ("d32_causal_fp32", "float32", 4, 4096, True, 0, 0.0, 1e-5, E2E_HEADS),
+    ("d32_bidir_fp32", "float32", 4, 4096, False, 0, 0.0, 1e-5, E2E_HEADS),
+    ("d16_causal_fp32", "float32", 4, 4096, True, 0, 0.0, 1e-5,
+     SMOKE_HEADS),
+    ("d16_bidir_fp32", "float32", 4, 4096, False, 0, 0.0, 1e-5,
+     SMOKE_HEADS),
 )
 #: the plain version's fp32 scores of one call at most this many bytes;
 #: past it (hubert's [1, 32768] row: 68.7 GB) it runs one KV head at a time
@@ -442,6 +489,27 @@ BWD_ROWS = (
     ("hubert", "bfloat16", 4096, AUDIO_HEADS, False, 0, 0.0, False, 1.0, 4),
     ("hubert_fp32", "float32", 1024, AUDIO_HEADS, False, 0, 0.0, False, 1.0,
      1),
+    # head_dim 16 and 32, as FLASH_ROWS takes them
+    ("quickstart", "bfloat16", 16, QUICKSTART_HEADS, True, 0, 0.0, False,
+     1.0, 4),
+    ("train_e2e", "bfloat16", 128, E2E_HEADS, True, 0, 0.0, False, 1.0, 8),
+    ("smoke_fp32", "float32", 64, SMOKE_HEADS, True, 0, 0.0, False, 1.0, 2),
+    ("d32_causal", "bfloat16", 4096, E2E_HEADS, True, 0, 0.0, False, 1.0,
+     4),
+    ("d32_bidir", "bfloat16", 4096, E2E_HEADS, False, 0, 0.0, False, 1.0,
+     4),
+    ("d16_causal", "bfloat16", 4096, SMOKE_HEADS, True, 0, 0.0, False, 1.0,
+     4),
+    ("d16_bidir", "bfloat16", 4096, SMOKE_HEADS, False, 0, 0.0, False, 1.0,
+     4),
+    ("d32_causal_fp32", "float32", 4096, E2E_HEADS, True, 0, 0.0, False,
+     1.0, 4),
+    ("d32_bidir_fp32", "float32", 4096, E2E_HEADS, False, 0, 0.0, False,
+     1.0, 4),
+    ("d16_causal_fp32", "float32", 4096, SMOKE_HEADS, True, 0, 0.0, False,
+     1.0, 4),
+    ("d16_bidir_fp32", "float32", 4096, SMOKE_HEADS, False, 0, 0.0, False,
+     1.0, 4),
 )
 #: fp32 dq, dk, dv: max abs error over the plain version's largest
 #: magnitude (sums in another order).  bf16 dq, dk, dv: each by
@@ -507,6 +575,35 @@ AUDIO_PARITY_LAYERS, AUDIO_PARITY_TOKENS = 2, 2048
 # mamba2-780m training: TRAIN_TOKENS as gemma-2b's, no save (train saves
 # once); its parity cut, 2 layers at full width, fp32, tokens [1, 1024]
 SSM_TRAIN_PARITY_LAYERS, SSM_TRAIN_PARITY_TOKENS = 2, 1024
+
+# smoke_configs: every registry config's .smoke() (head_dim 16), fp32, on
+# the card against the port's CPU run of the same parameters
+SMOKE_TOKENS = (2, 64)
+SMOKE_DECODE_STEPS = 4
+#: the CPU twins' tolerances (tests/test_torch_cuda.py): logits and the
+#: loss absolutely, each gradient leaf over its largest magnitude
+SMOKE_TOL = 1e-4
+# examples: the nine examples_torch/ scripts on the card, each in a
+# subprocess of its own; the store ones also with --device cpu, whose
+# stdout the card's must equal
+EXAMPLES = ("kvstore_demo", "shopping_cart", "sharded_cluster",
+            "gossip_churn", "geo_replication", "durable_restart",
+            "quickstart", "serve_replicated", "train_e2e")
+STORE_EXAMPLES = EXAMPLES[:6]
+EXAMPLE_ARGS = {"train_e2e": ("--steps", "60")}
+EXAMPLE_TIMEOUT = 300         # seconds a script
+EXAMPLE_WORKERS = 5           # scripts at a time
+#: runs an example as ``python <script>`` would, then prints the kernels'
+#: launch counts of the run as the last line of stderr
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels import dvv_ops, flash_attention, ssd_scan
+print(json.dumps({**dvv_ops.launches, **flash_attention.launches,
+                  **flash_attention.bwd_launches, **ssd_scan.launches,
+                  **ssd_scan.bwd_launches}), file=sys.stderr)
+"""
 
 
 def emit(obj) -> None:
@@ -3137,6 +3234,208 @@ def audio_phases(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# every smoke config, and the examples
+# ---------------------------------------------------------------------------
+
+def tree_to(tree, device):
+    """A copy of a parameter tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def smoke_run(cfg, params, batch, device):
+    """One prefill of ``batch``, SMOKE_DECODE_STEPS decode steps over its
+    first positions from an empty cache (decoders), and, but for the MoE
+    configs, the loss and every gradient leaf and one make_train_step,
+    through launch/steps.py on ``device``: the results on the host and
+    the kernels' launches (zeroed just before, read just after)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA, ssd_scan as SS
+    from repro_torch.launch.steps import (
+        make_decode_step, make_prefill_step, make_train_step,
+    )
+    from repro_torch.models import init_cache
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    p = tree_to(params, device)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    inputs = {k: b[k] for k in ("tokens", "embeddings") if k in b}
+    (name, x), = inputs.items()
+    FA.reset_launches()
+    SS.reset_launches()
+    t = time.perf_counter()
+    out = {"logits": make_prefill_step(cfg)(p, inputs).cpu(), "decode": []}
+    if cfg.is_decoder:
+        step = make_decode_step(cfg)
+        cache = init_cache(cfg, x.shape[0], SMOKE_DECODE_STEPS,
+                           device=device)
+        for pos in range(SMOKE_DECODE_STEPS):
+            logits, cache = step(p, cache, x[:, pos], pos)
+            out["decode"].append(logits.cpu())
+    if not cfg.moe_experts:
+        loss, grads = loss_and_grads(p, b, cfg)
+        out["loss"], out["grads"] = float(loss), [g.cpu() for g in grads]
+        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        _, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), b)
+        out["step"] = (float(m["loss"]), float(m["grad_norm"]))
+    out["seconds"] = time.perf_counter() - t
+    out["launches"] = {**FA.launches, **FA.bwd_launches, **SS.launches,
+                       **SS.bwd_launches}
+    return out
+
+
+def smoke_configs_phase(seed: int):
+    """Every registry config's .smoke() (head_dim 16), fp32 compute, random
+    parameters from --seed made on the host: its prefill of tokens (or
+    frame embeddings) SMOKE_TOKENS, SMOKE_DECODE_STEPS decode steps, and,
+    but for the MoE configs (whose train step no CPU twin holds yet), the
+    loss, every gradient leaf and one make_train_step, on the card against
+    the port's CPU run of the same parameters and inputs, within
+    SMOKE_TOL; each layer's kernels launched as often as the path asks
+    (flash_attention for attention, ssd_scan for Mamba layers)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    rows, faults = [], []
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = replace(get_config(arch).smoke(), compute_dtype="float32")
+        params = init_params(torch.Generator().manual_seed(seed), cfg,
+                             device="cpu")
+        rng = np.random.default_rng([seed, i])
+        B, S = SMOKE_TOKENS
+        batch = {"labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+            np.int32)}
+        if cfg.input_mode == "tokens":
+            batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                np.int32)
+        else:
+            batch["embeddings"] = rng.normal(
+                size=(B, S, cfg.d_model)).astype(np.float32)
+        want = smoke_run(cfg, params, batch, "cpu")
+        got = smoke_run(cfg, params, batch, "cuda")
+        row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "head_dim": cfg.head_dim, "tokens": list(SMOKE_TOKENS),
+               "cpu_s": want["seconds"], "card_s": got["seconds"],
+               "launches": got["launches"],
+               "prefill_max_abs_diff": float(
+                   (got["logits"] - want["logits"]).abs().max()),
+               "decode_max_abs_diff": max(
+                   (float((g - w).abs().max())
+                    for g, w in zip(got["decode"], want["decode"])),
+                   default=None)}
+        mixers = [spec.mixer for spec in cfg.pattern]
+        n_attn = cfg.n_groups * sum(m.startswith("attn") for m in mixers)
+        n_ssm = cfg.n_groups * mixers.count("mamba")
+        passes = 1
+        if "grads" in want:
+            passes = 3                      # prefill, gradients, the step
+            rel = [float((g - w).abs().max()
+                         / w.abs().max().clamp_min(1e-30))
+                   for g, w in zip(got["grads"], want["grads"])]
+            worst = max(range(len(rel)), key=rel.__getitem__)
+            row.update(
+                loss=want["loss"],
+                loss_abs_diff=abs(got["loss"] - want["loss"]),
+                grad_leaves=len(rel), grad_max_rel_diff=rel[worst],
+                worst_leaf=leaf_paths(params)[worst],
+                step_loss_abs_diff=abs(got["step"][0] - want["step"][0]),
+                step_grad_norm_rel_diff=abs(got["step"][1] - want["step"][1])
+                / max(1.0, want["step"][1]))
+        expect = {"flash_attention": passes * n_attn,
+                  "flash_attention_bwd": (passes - 1) * n_attn,
+                  "ssd_scan": passes * n_ssm,
+                  "ssd_scan_bwd": (passes - 1) * n_ssm}
+        row["launches_expected"] = expect
+        diffs = [row[k] for k in ("prefill_max_abs_diff",
+                                  "decode_max_abs_diff", "loss_abs_diff",
+                                  "grad_max_rel_diff", "step_loss_abs_diff",
+                                  "step_grad_norm_rel_diff")
+                 if row.get(k) is not None]
+        if not all(d <= SMOKE_TOL for d in diffs):
+            faults.append(f"{cfg.name}: card against CPU {diffs}")
+        if got["launches"] != expect:
+            faults.append(f"{cfg.name}: launches {got['launches']}, "
+                          f"expected {expect}")
+        rows.append(row)
+        del params, want, got
+    torch.cuda.empty_cache()
+    out = {"phase": "smoke_configs", "configs": rows, "tol": SMOKE_TOL,
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: sum(r["launches"][k] for r in rows)
+                        for k in rows[0]["launches"]}}
+    if faults:
+        raise AssertionError(f"smoke_configs: {'; '.join(faults)}: {out}")
+    return out
+
+
+def run_example(name: str, device: str):
+    """One examples_torch script in a subprocess on ``device``: (seconds,
+    stdout lines, the run's kernel launches)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED="0")
+    args = [str(ROOT / "examples_torch" / f"{name}.py"),
+            *EXAMPLE_ARGS.get(name, ()), "--device", device]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, *args],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=EXAMPLE_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"examples_torch/{name}.py --device {device} "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return (time.perf_counter() - t, proc.stdout.splitlines(),
+            json.loads(proc.stderr.strip().splitlines()[-1]))
+
+
+def examples_phase():
+    """The nine examples_torch scripts on the card, EXAMPLE_WORKERS
+    subprocesses at a time: each must exit 0; the store examples' stdout
+    must equal the same script's --device cpu stdout; train_e2e (granite-
+    mini, head_dim 32, --steps 60) must end in its bitwise-resume PASS.
+    Each run's kernel launches (from zero in a fresh process): the store
+    examples must launch the DVV sweeps, quickstart and train_e2e the flash
+    forward and backward."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    jobs = [(n, "cuda") for n in EXAMPLES] + \
+        [(n, "cpu") for n in STORE_EXAMPLES]
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        done = dict(zip(jobs, pool.map(lambda j: run_example(*j), jobs)))
+    out = {"phase": "examples", "workers": EXAMPLE_WORKERS, "runs": {
+        n: {"device": d, "seconds": s, "lines": len(lines),
+            "launches": launches}
+        for (n, d), (s, lines, launches) in done.items() if d == "cuda"}}
+    faults = []
+    for n in STORE_EXAMPLES:
+        same = done[(n, "cuda")][1] == done[(n, "cpu")][1]
+        out["runs"][n]["stdout_equals_cpu"] = same
+        if not same:
+            faults.append(f"{n}: the card's stdout differs from the CPU's")
+    dvv = sum(out["runs"][n]["launches"][k] for n in STORE_EXAMPLES
+              for k in ("dvv_sync_mask", "dvv_read_sweep", "dvv_leq"))
+    if not dvv:
+        faults.append("the store examples launched no DVV sweep")
+    for n in ("quickstart", "train_e2e"):
+        got = out["runs"][n]["launches"]
+        if not (got["flash_attention"] and got["flash_attention_bwd"]):
+            faults.append(f"{n}: flash launches {got}")
+    last = done[("train_e2e", "cuda")][1][-1]
+    out["runs"]["train_e2e"]["last_line"] = last
+    if not last.startswith("PASS: crash/resume is bitwise identical"):
+        faults.append(f"train_e2e ends with {last!r}")
+    out["seconds"] = time.perf_counter() - t0
+    if faults:
+        raise AssertionError(f"examples: {'; '.join(faults)}: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def terms(report) -> dict:
     """A roofline report's three terms, its bound and the bound's time."""
@@ -3206,6 +3505,121 @@ def ptxas_lines(log: str):
                                      "warning", "Performance"))]
 
 
+#: the phase lines kernels_summary reads launches from
+SUMMARY_LINES = ("store", "trace", "model", "moe", "ssm", "ssm_train",
+                 "train", "audio", "audio_train", "smoke", "examples")
+
+
+def kernels_summary(rows, lines):
+    """The last lines' per-kernel summary: one entry per main-path row of
+    ``rows`` (the kernels line), its launches read from the phase line of
+    ``lines`` (SUMMARY_LINES) that drives it."""
+    replaces = {
+        "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
+        "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
+        "dvv_leq": "src/repro/kernels/dvv_ops/dvv_ops.py:140",
+        "flash_attention":
+            "src/repro/kernels/flash_attention/flash_attention.py:93",
+        # the gradient of that kernel's function, which the JAX package
+        # takes by autodiff of its jnp attention (models/attention.py:105)
+        "flash_attention_bwd":
+            "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
+        # the gradient of that kernel's function, which the JAX package
+        # takes by autodiff of its jnp ssd_chunked (models/ssm.py:106)
+        "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
+    }
+    # the flash rows in the kernels line and the main-path run whose
+    # launches each reads: the models' own, and at head_dim 16 and 32 the
+    # launches of the run that drives that width in that dtype (quickstart
+    # bf16 at 16, train_e2e bf16 at 32, smoke_configs fp32 at 16)
+    store, trace, model, moe, ssm, ssm_train, train, audio, audio_train, \
+        smoke, examples = (lines[k] for k in SUMMARY_LINES)
+    runs = examples["runs"]
+    flash_paths = {
+        "global": ("model", model["flash_attention_launches"], None),
+        "qwen3_moe": ("moe_model", moe["flash_attention_launches"], None),
+        "hubert": ("audio_model, audio_train",
+                   audio["flash_attention_launches"],
+                   audio_train["launches"]["flash_attention_bwd"]),
+        "gemma_2b": ("train", None,
+                     train["launches"]["flash_attention_bwd"])}
+    for variants, phase, launched in (
+            (("quickstart", "d16_causal", "d16_bidir"),
+             "examples: quickstart", runs["quickstart"]["launches"]),
+            (("train_e2e", "d32_causal", "d32_bidir"),
+             "examples: train_e2e", runs["train_e2e"]["launches"]),
+            (("smoke_fp32", "d16_causal_fp32", "d16_bidir_fp32"),
+             "smoke_configs", smoke["launches"])):
+        for v in variants:
+            flash_paths[v] = (phase, launched["flash_attention"],
+                              launched["flash_attention_bwd"])
+    summary = []
+    for r in rows:
+        if r["name"] == "flash_attention":
+            if flash_paths.get(r["variant"], (0, None))[1] is None:
+                continue
+            phase, launches, _ = flash_paths[r["variant"]]
+            source = "src/repro_torch/kernels/flash_attention/csrc/" \
+                     "flash_attention.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": r["library"], "main_path": phase,
+                     "row_scaled_err": r["row_scaled_err"]}
+        elif r["name"] == "flash_attention_bwd":
+            if flash_paths.get(r["variant"], (0, 0, None))[2] is None:
+                continue
+            phase, _, launches = flash_paths[r["variant"]]
+            source = "src/repro_torch/kernels/flash_attention/csrc/" \
+                     "flash_attention_bwd.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": r["library"], "main_path": phase,
+                     "row_scaled_err": r["row_scaled_err"],
+                     "rms_err_ratio": r["rms_err_ratio"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
+        elif r["name"] == "ssd_scan":
+            if r["variant"] != "main_path":
+                continue
+            launches = ssm["ssd_scan_launches"]
+            source = "src/repro_torch/kernels/ssd_scan/csrc/" + (
+                "ssd_passes.cu" if r["path"] == "wgmma" else "ssd_scan.cu")
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "library": None, "rel_err": r["rel_err"],
+                     "path": r["path"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
+        elif r["name"] == "ssd_scan_bwd":
+            if r["variant"] != "train_bf16":
+                continue
+            launches = ssm_train["launches"]["ssd_scan_bwd"]
+            source = r["source"]
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "path": r["path"], "library": None,
+                     "row_scaled_err": r["row_scaled_err"],
+                     "rms_err_ratio": r["rms_err_ratio"],
+                     "simple_rms_err_ratio": r["simple_rms_err_ratio"],
+                     "bwd_path_launches": ssm_train["bwd_path_launches"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
+        elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
+            launches = store["launches"][r["name"]]
+            source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
+            front = [f["ms"] for f in rows if f.get("variant") == "front_end"
+                     and f["name"] == r["name"]
+                     and tuple(f["shape"]) == SUMMARY_SHAPE]
+            extra = {"path": r["path"],
+                     "front_end_ms": front[0] if front else None,
+                     "main_path_device_us_per_launch":
+                     trace["kernels"][r["name"]]["device_us_per_launch"]}
+        else:
+            continue
+        summary.append({
+            "name": r["name"], "route": "cuda", "source": source,
+            "replaces": replaces[r["name"]], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": r["shape"], "device_ms": r["device_ms"], **extra})
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3253,6 +3667,10 @@ def main() -> int:
     emit(trace)
     emit(store_workload_phase(args.seed))
     emit(geo_phase(GEO_KEYS, args.seed))
+    smoke = smoke_configs_phase(args.seed)
+    emit(smoke)
+    examples = examples_phase()
+    emit(examples)
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -3316,86 +3734,10 @@ def main() -> int:
         TRAIN_ARCH: train["s_per_step_after_first"],
         SSM_ARCH: ssm_train["s_per_step_after_first"]}))
 
-    replaces = {
-        "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
-        "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
-        "dvv_leq": "src/repro/kernels/dvv_ops/dvv_ops.py:140",
-        "flash_attention":
-            "src/repro/kernels/flash_attention/flash_attention.py:93",
-        # the gradient of that kernel's function, which the JAX package
-        # takes by autodiff of its jnp attention (models/attention.py:105)
-        "flash_attention_bwd":
-            "src/repro/kernels/flash_attention/flash_attention.py:93",
-        "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
-        # the gradient of that kernel's function, which the JAX package
-        # takes by autodiff of its jnp ssd_chunked (models/ssm.py:106)
-        "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
-    }
-    summary = []
-    for r in rows:
-        if r["name"] == "flash_attention":
-            by = {"global": model, "qwen3_moe": moe, "hubert": audio}
-            if r["variant"] not in by:
-                continue
-            launches = by[r["variant"]]["flash_attention_launches"]
-            source = "src/repro_torch/kernels/flash_attention/csrc/" \
-                     "flash_attention.cu"
-            extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "library": r["library"],
-                     "row_scaled_err": r["row_scaled_err"]}
-        elif r["name"] == "flash_attention_bwd":
-            by = {"gemma_2b": train, "hubert": audio_train}
-            if r["variant"] not in by:
-                continue
-            launches = by[r["variant"]]["launches"]["flash_attention_bwd"]
-            source = "src/repro_torch/kernels/flash_attention/csrc/" \
-                     "flash_attention_bwd.cu"
-            extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "library": r["library"],
-                     "row_scaled_err": r["row_scaled_err"],
-                     "rms_err_ratio": r["rms_err_ratio"],
-                     "device_kernels_ms": r["device_kernels_ms"]}
-        elif r["name"] == "ssd_scan":
-            if r["variant"] != "main_path":
-                continue
-            launches = ssm["ssd_scan_launches"]
-            source = "src/repro_torch/kernels/ssd_scan/csrc/" + (
-                "ssd_passes.cu" if r["path"] == "wgmma" else "ssd_scan.cu")
-            extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "library": None, "rel_err": r["rel_err"],
-                     "path": r["path"],
-                     "device_kernels_ms": r["device_kernels_ms"]}
-        elif r["name"] == "ssd_scan_bwd":
-            if r["variant"] != "train_bf16":
-                continue
-            launches = ssm_train["launches"]["ssd_scan_bwd"]
-            source = r["source"]
-            extra = {"variant": r["variant"], "dtype": r["dtype"],
-                     "path": r["path"], "library": None,
-                     "row_scaled_err": r["row_scaled_err"],
-                     "rms_err_ratio": r["rms_err_ratio"],
-                     "simple_rms_err_ratio": r["simple_rms_err_ratio"],
-                     "bwd_path_launches": ssm_train["bwd_path_launches"],
-                     "device_kernels_ms": r["device_kernels_ms"]}
-        elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
-            launches = store["launches"][r["name"]]
-            source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
-            front = [f["ms"] for f in rows if f.get("variant") == "front_end"
-                     and f["name"] == r["name"]
-                     and tuple(f["shape"]) == SUMMARY_SHAPE]
-            extra = {"path": r["path"],
-                     "front_end_ms": front[0] if front else None,
-                     "main_path_device_us_per_launch":
-                     trace["kernels"][r["name"]]["device_us_per_launch"]}
-        else:
-            continue
-        summary.append({
-            "name": r["name"], "route": "cuda", "source": source,
-            "replaces": replaces[r["name"]], "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "shape": r["shape"], "device_ms": r["device_ms"], **extra})
+    summary = kernels_summary(rows, dict(
+        store=store, trace=trace, model=model, moe=moe, ssm=ssm,
+        ssm_train=ssm_train, train=train, audio=audio,
+        audio_train=audio_train, smoke=smoke, examples=examples))
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -383,3 +383,18 @@ class BucketedSyncMask:
         serving path report cross-flush hit rates per measurement window."""
         self.hits = 0
         self.misses = 0
+
+
+_bucketed: Dict[torch.device, BucketedSyncMask] = {}
+
+
+def sync_mask_bucketed(device="cuda") -> BucketedSyncMask:
+    """The shared torch-reference ``BucketedSyncMask`` on ``device``, called
+    on numpy arrays as the JAX package's module-level instance is.  Product
+    delta rounds use the numpy twin (mask_fn=None) or the kernel front end
+    (``kernels.dvv_ops.dvv_sync_mask_bucketed``); this one serves
+    conformance tests.  Nothing touches ``device`` until the first call."""
+    key = torch.device(device)
+    if key not in _bucketed:
+        _bucketed[key] = BucketedSyncMask(device=key)
+    return _bucketed[key]

@@ -9,11 +9,21 @@ from typing import Tuple
 
 import torch
 
-from ...core.batched import leq, merge_context, sync_mask
+from ...core.batched import dominates, leq, merge_context, sync_mask
 
 
 def leq_ref(vx, ix, nx, vy, iy, ny) -> torch.Tensor:
     return leq(vx, ix, nx, vy, iy, ny)
+
+
+def dominates_ref(vx, ix, nx, vy, iy, ny) -> torch.Tensor:
+    return dominates(vx, ix, nx, vy, iy, ny)
+
+
+def concurrent_ref(vx, ix, nx, vy, iy, ny) -> torch.Tensor:
+    a = leq(vx, ix, nx, vy, iy, ny)
+    b = leq(vy, iy, ny, vx, ix, nx)
+    return ~a & ~b
 
 
 def sync_mask_ref(vvs, dot_ids, dot_ns, valid) -> torch.Tensor:

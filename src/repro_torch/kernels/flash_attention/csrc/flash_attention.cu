@@ -33,7 +33,7 @@
 // and loops over the KV tiles itself, skipping tiles that are causally or
 // window-dead, so nothing crosses blocks.  Blocks run heaviest causal q
 // tiles first, over all heads, before any lighter one.
-//   bf16 (D = 64, 80, 128, 256; one kernel): 128 q rows a block, three
+//   bf16 (D = 16, 32, 64, 80, 128, 256; one kernel): 128 q rows a block, three
 //     warpgroups.  A producer warpgroup (40 registers a thread after
 //     setmaxnreg) has one thread start every copy by TMA
 //     (cp.async.bulk.tensor, 128-byte swizzle, zero fill past the ends of
@@ -54,6 +54,12 @@
 //     and 16 columns of the next), and every access by address (the
 //     epilogue, o32) stops at column 80.  P V over all 128 columns was
 //     7-15% slower at hubert's prefill shape (PERF.md, section 6).
+//     D = 16 and 32 (every .smoke() config's heads are 16) keep the D = 64
+//     layout the same way: the tensor maps are per head with the real D
+//     columns, so a box of 64 columns reads zeros past D, never the next
+//     head's columns; Q K^T takes D / 16 k16 steps inside the first
+//     128-byte swizzle atom and P V runs as m64n16k16 or m64n32k16 over
+//     V's first 16 or 32 columns; the epilogue and o32 stop at D.
 //     Masks are applied only on edge tiles (the causal diagonal, the
 //     window's lower edge, the ragged end of the keys); interior tiles
 //     skip the compares.  The softmax works
@@ -75,7 +81,7 @@
 //     fence .. wait window straight-line.
 //   fp32: 8 warps, plain IEEE fp32 FMAs (no TF32), 32-key tiles loaded by
 //     cp.async; four threads share a q row, each holding 8 scores and D / 4
-//     accumulators (D = 80: 20, no padding).
+//     accumulators (D = 80: 20, D = 16: 4; no padding).
 //
 // Statistics for the backward (flash_attention_stats_launch, bf16): when
 // autograd records the call, the epilogue also writes each row's logsumexp
@@ -752,6 +758,8 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
 template <bool kPos>
 int launch_any(const Params& p, int B, int D, int bf16, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_d<16, kPos>(p, B, bf16, s);
+    case 32: return launch_d<32, kPos>(p, B, bf16, s);
     case 64: return launch_d<64, kPos>(p, B, bf16, s);
     case 80: return launch_d<80, kPos>(p, B, bf16, s);
     case 128: return launch_d<128, kPos>(p, B, bf16, s);

@@ -8,7 +8,7 @@
 // reference comes from here: the gradient of the plain version
 // (ref.flash_attention_ref), for everything the forward takes (causal or
 // not, a sliding window, a tanh softcap, any scale, masks by position, any
-// H % KV == 0, head_dim 64, 80, 128 or 256, bf16 and fp32).
+// H % KV == 0, head_dim 16, 32, 64, 80, 128 or 256, bf16 and fp32).
 //
 // What it computes, for each (b, query head h, query row i, key j) that the
 // masks let through, with s_ij the forward's score (q_i . k_j * scale, then
@@ -60,7 +60,10 @@
 //   The products run at the real width (S and dP over five k16 steps; dQ,
 //   dK and dV as m64n80k16 across a 64-column swizzle atom and 16 columns
 //   of the next), and every access by address (delta, the epilogues, the
-//   partials) stops at column 80.
+//   partials) stops at column 80.  D = 16 and 32 keep the D = 64 layout
+//   the same way (per-head tensor maps of D columns, zeros past D): S and
+//   dP take one or two k16 steps, dQ, dK and dV run as m64n16k16 or
+//   m64n32k16, and every store stops at D.
 //   Seven products in all: dq recomputes S and dP rather than take dQ by
 //   atomics, so two launches on the same inputs give the same bits.
 //   Blocks run every head and split of the heaviest causal tile first
@@ -87,7 +90,8 @@
 //   block takes 213.8 KB of shared memory, one per SM.  The dQ, dK and dV
 //   sums give each of 16 threads four columns of every 64: at D = 80 the
 //   second 64 holds 16 real columns, which threads 0..3 of the 16 own
-//   (the others skip them; col_live).
+//   (the others skip them; col_live), as at D = 16 (threads 0..3) and
+//   D = 32 (threads 0..7) in the first 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1339,6 +1343,8 @@ int launch_wgmma(BwdParams p, void* bounds, cudaStream_t s) {
 int launch_wgmma_d(const BwdParams& p, int D, void* bounds,
                    cudaStream_t s) {
   switch (D) {
+    case 16: return launch_wgmma<16>(p, bounds, s);
+    case 32: return launch_wgmma<32>(p, bounds, s);
     case 64: return launch_wgmma<64>(p, bounds, s);
     case 80: return launch_wgmma<80>(p, bounds, s);
     case 128: return launch_wgmma<128>(p, bounds, s);
@@ -1391,6 +1397,8 @@ int launch_fma(const BwdParams& p, cudaStream_t s) {
 
 int launch_fma_d(const BwdParams& p, int D, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_fma<16>(p, s);
+    case 32: return launch_fma<32>(p, s);
     case 64: return launch_fma<64>(p, s);
     case 80: return launch_fma<80>(p, s);
     case 128: return launch_fma<128>(p, s);

@@ -57,11 +57,13 @@ import torch
 from .. import build as _build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: The kernels' template instances.  At 80 (hubert-xlarge) the bf16
-#: kernels keep their 128-column shared-memory layout (TMA zero-fills the
-#: columns past 80, nothing writes them) and multiply at 80 columns; the
-#: fp32 kernels hold 80 columns as they are.
-HEAD_DIMS = (64, 80, 128, 256)
+#: The kernels' template instances.  Below 64 (16: every ``.smoke()``
+#: config; 32) and at 80 (hubert-xlarge) the bf16 kernels keep the
+#: shared-memory layout of the next multiple of 64 (TMA zero-fills the
+#: columns past D, nothing writes them) and multiply at D columns; the
+#: fp32 kernels hold D columns as they are.  Any other width raises on a
+#: CUDA tensor (ROADMAP, Queue 2 items 1 and 2).
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 #: Launches of the kernel since the last ``reset_launches``.
@@ -117,6 +119,11 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def _head_dim_fault(D: int) -> str:
+    return (f"flash_attention takes head_dim in {HEAD_DIMS}, got {D} (other "
+            f"widths: ROADMAP, Queue 2 items 1 and 2)")
+
+
 def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype,
                   device: torch.device) -> None:
     if t.device != device:
@@ -167,8 +174,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
+        raise ValueError(_head_dim_fault(D))
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t, q.dtype, q.device)
     if positions is not None:
@@ -289,8 +295,7 @@ def attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
+        raise ValueError(_head_dim_fault(D))
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape)):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "

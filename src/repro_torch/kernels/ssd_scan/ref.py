@@ -119,6 +119,15 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+def ssd_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor,
+            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's oracle in its argument order: xh [B,S,H,P], dt [B,S,H]
+    (softplus-ed), A [H] (<0), Bc/Cc [B,S,N], D [H] -> (y [B,S,H,P],
+    h_final [B,H,P,N]); ``ssd_chunked`` itself."""
+    return ssd_chunked(xh, dt, A, Bc, Cc, D, chunk)
+
+
 def _rounded(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``t`` in fp32, rounded through ``dtype`` first where one is given."""
     return t.float() if dtype is None else t.to(dtype).float()

@@ -149,7 +149,7 @@ def ieee_fp32():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("heads", [(16, 8), (4, 1)])
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
 def test_flash_kernel_equals_plain_version(cuda, ieee_fp32, dtype, D, heads,
@@ -175,6 +175,49 @@ def test_flash_kernel_ragged_lengths(cuda, ieee_fp32, dtype, S):
         got = FA.gqa_flash_attention(q, k, v, **FLASH_MODES[mode])
         want = flash_attention_ref(q, k, v, **FLASH_MODES[mode])
         _assert_flash_close(got, want)
+
+
+#: The smoke configs' attention (ModelConfig.smoke(): head_dim 16; gemma2's
+#: window of 16 with softcap 50) beside FLASH_MODES.
+SMOKE_MODES = dict(FLASH_MODES,
+                   smoke_window=dict(causal=True, window=16, softcap=50.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("S", [1, 16, 33, 64, 96])
+def test_flash_kernels_small_head_dims_ragged_lengths(cuda, ieee_fp32, dtype,
+                                                      D, S):
+    """head_dim 16 and 32 at the smoke configs' short, ragged sequences
+    (one q tile, keys past the end zero-filled by TMA) in every mode:
+    the forward and the backward against their plain versions."""
+    q, k, v = _qkv(2, S, 4, 2, D, dtype, cuda, seed=23)
+    for mode, kw in SMOKE_MODES.items():
+        got = FA.gqa_flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _assert_flash_close(got, flash_attention_ref(q, k, v, **kw))
+        grads, want = _bwd_case(q, k, v, **kw)
+        _assert_grads_close(grads, want, q, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_kernels_small_head_dims_are_bitwise_repeatable(cuda, dtype,
+                                                              D):
+    """Two launches of the forward and of the backward (MQA's split
+    partials and the one-split path) on the same inputs give the same
+    bits at head_dim 16 and 32."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    for B, S, H, KV in ((1, 1024, 4, 1), (2, 320, 8, 2)):
+        q, k, v = _qkv(B, S, H, KV, D, dtype, cuda, seed=25)
+        dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=26)[0]
+        kw = dict(causal=True, softcap=50.0)
+        out = K.attend(q, k, v, **kw)
+        assert torch.equal(out, K.attend(q, k, v, **kw))
+        a = K.attend_bwd(q, k, v, out, dout, **kw)
+        b = K.attend_bwd(q, k, v, out, dout, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -214,7 +257,7 @@ FLASH_EDGE_CASES = {
 }
 
 
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("case", list(FLASH_EDGE_CASES))
 def test_flash_kernel_edge_shapes(cuda, D, case):
     S, (H, KV), window, cap = FLASH_EDGE_CASES[case]
@@ -268,19 +311,21 @@ def test_flash_wrapper_rejects_bad_inputs(cuda):
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "qwen3-moe-30b-a3b",
                                   "hubert-xlarge"])
+@pytest.mark.parametrize("width", ["wide", "smoke"])
 def test_prefill_on_the_card_runs_the_kernel_once_per_layer(cuda, ieee_fp32,
-                                                            arch):
-    """The smoke config with head_dim 64 (the kernel's smallest), or
-    hubert-xlarge's own 80 (bidirectional, frame embeddings in): fp32
-    logits on the card equal the CPU run of the same parameters (the MoE's
-    routing, capacity and einsums on the card included)."""
+                                                            arch, width):
+    """The smoke config with head_dim 64, or hubert-xlarge's own 80
+    (bidirectional, frame embeddings in), and ("smoke") the smoke config's
+    own head_dim 16: fp32 logits on the card equal the CPU run of the same
+    parameters (the MoE's routing, capacity and einsums on the card
+    included)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = replace(get_config(arch).smoke(),
-                  head_dim=80 if arch == "hubert-xlarge" else 64,
-                  compute_dtype="float32")
+    cfg = replace(get_config(arch).smoke(), compute_dtype="float32")
+    if width == "wide":
+        cfg = replace(cfg, head_dim=80 if arch == "hubert-xlarge" else 64)
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(0)
     if cfg.input_mode == "tokens":
@@ -1135,7 +1180,7 @@ def _flash_positions(S):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("which", ["repeated", "shuffled", "descending",
                                    "gaps"])
 @pytest.mark.parametrize("mode", ["causal", "window", "window_softcap",
@@ -1245,7 +1290,7 @@ def test_flash_kernel_position_masks_bitwise_equal_to_parent_build(cuda):
                              **FLASH_MODES[mode])), (dtype, mode, p is None)
 
 
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir",
                                   "positions"])
 def test_flash_forward_statistics_equal_plain_version(cuda, ieee_fp32, D,
@@ -1307,15 +1352,17 @@ def test_flash_wrapper_rejects_bad_positions(cuda):
         FA.gqa_flash_attention(q, k[:, :32], v[:, :32], positions=pos)
 
 
-def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32):
-    """qwen2-vl-7b's smoke config with head_dim 64, fp32, image-style
-    M-RoPE positions: logits on the card equal the CPU run's (which the
-    CPU twins hold to the JAX package's default path)."""
+@pytest.mark.parametrize("head_dim", [64, 16])
+def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32,
+                                                     head_dim):
+    """qwen2-vl-7b's smoke config with head_dim 64 or its own 16, fp32,
+    image-style M-RoPE positions: logits on the card equal the CPU run's
+    (which the CPU twins hold to the JAX package's default path)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import init_params
 
-    cfg = replace(get_config("qwen2-vl-7b").smoke(), head_dim=64,
+    cfg = replace(get_config("qwen2-vl-7b").smoke(), head_dim=head_dim,
                   compute_dtype="float32")
     params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(0)
@@ -1385,7 +1432,7 @@ def _assert_grads_close(got, want, q, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("heads", [(16, 8), (8, 1), (4, 4)])
 @pytest.mark.parametrize("mode", list(FLASH_MODES))
 def test_flash_backward_equals_plain_version(cuda, ieee_fp32, dtype, D,
@@ -1414,15 +1461,48 @@ def test_flash_kernels_never_write_past_head_dim_80(cuda, ieee_fp32, dtype,
     a canary: the forward's output, the bf16 forward's fp32 output (a
     canary after its end), and dq, dk, dv (MQA (8, 1): the fp32 partials
     and their reduce) keep the canary, and agree with the plain version."""
+    _assert_never_writes_past_head_dim(cuda, dtype, heads, mode, 80, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 1)])
+@pytest.mark.parametrize("mode", ["causal", "bidir"])
+def test_flash_kernels_never_write_past_small_head_dims(cuda, ieee_fp32,
+                                                        dtype, D, heads,
+                                                        mode):
+    """head_dim 16 and 32, whose bf16 kernels keep the 64-column layout:
+    q, k, v and dout too are views of the first D of 64 columns with the
+    canary in the rest, so a tensor map that ran past a head's D columns
+    (into the canary, or with contiguous rows into the next heads') would
+    change every result; every output keeps its canary."""
+    _assert_never_writes_past_head_dim(cuda, dtype, heads, mode, D, 64,
+                                       input_views=True)
+
+
+def _assert_never_writes_past_head_dim(cuda, dtype, heads, mode, D, W,
+                                       input_views=False):
+    """The forward and the backward through the C entry points with every
+    output (and, with ``input_views``, every input) a view of the first D
+    of W columns, the rest a canary: the outputs keep the canary and agree
+    with the plain version."""
     from repro_torch.kernels.flash_attention import flash_attention as K
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_stats_ref,
     )
 
-    B, S, (H, KV), D, W, canary = 2, 200, heads, 80, 128, 7.0
+    B, S, (H, KV), canary = 2, 200, heads, 7.0
     kw = FLASH_MODES[mode]
     q, k, v = _qkv(B, S, H, KV, D, dtype, cuda, seed=21)
     dout = _qkv(B, S, H, 1, D, dtype, cuda, seed=22)[0]
+    if input_views:
+        def view_of(t):
+            buf = torch.full((*t.shape[:3], W), canary, dtype=dtype,
+                             device=cuda)
+            buf[..., :D] = t
+            return buf[..., :D]
+
+        q, k, v, dout = (view_of(t) for t in (q, k, v, dout))
     bf16 = dtype == torch.bfloat16
     lib, stream = K._load(), torch.cuda.current_stream().cuda_stream
     scale = D ** -0.5
@@ -1487,6 +1567,19 @@ def test_flash_backward_with_positions_equals_plain_version(
         cuda, ieee_fp32, dtype, which, mode):
     q, k, v = _qkv(2, 320, 4, 2, 128, dtype, cuda, seed=7)
     pos = torch.from_numpy(_flash_positions(320)[which].astype(
+        np.int32)).to(cuda)
+    got, want = _bwd_case(q, k, v, positions=pos, **FLASH_MODES[mode])
+    _assert_grads_close(got, want, q, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("which", ["repeated", "shuffled", "gaps"])
+@pytest.mark.parametrize("mode", ["causal", "window_softcap", "bidir"])
+def test_flash_backward_with_positions_at_small_head_dims(
+        cuda, ieee_fp32, dtype, D, which, mode):
+    q, k, v = _qkv(2, 200, 4, 2, D, dtype, cuda, seed=27)
+    pos = torch.from_numpy(_flash_positions(200)[which].astype(
         np.int32)).to(cuda)
     got, want = _bwd_case(q, k, v, positions=pos, **FLASH_MODES[mode])
     _assert_grads_close(got, want, q, k)
@@ -1676,11 +1769,14 @@ def test_flash_backward_build_failure_raises(cuda, tmp_path):
     assert "undeclared_name" in str(err.value)
 
 
-def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32):
-    """gemma-2b's smoke config with head_dim 64, fp32: one make_train_step
-    on the card (flash forward and backward kernels) against the CPU's
-    (plain versions): loss, gradient norm and parameters; one forward and
-    one backward launch a layer, and a recompute with remat."""
+@pytest.mark.parametrize("head_dim", [64, 16])
+def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32,
+                                                      head_dim):
+    """gemma-2b's smoke config with head_dim 64 or its own 16, fp32: one
+    make_train_step on the card (flash forward and backward kernels)
+    against the CPU's (plain versions): loss, gradient norm and
+    parameters; one forward and one backward launch a layer, and a
+    recompute with remat."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params
@@ -1688,7 +1784,7 @@ def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32):
     from repro_torch.optim.adamw import tree_leaves
 
     for remat in (False, True):
-        cfg = replace(get_config("gemma-2b").smoke(), head_dim=64,
+        cfg = replace(get_config("gemma-2b").smoke(), head_dim=head_dim,
                       compute_dtype="float32", remat=remat)
         opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
         toks = torch.from_numpy(np.random.default_rng(0).integers(

@@ -278,3 +278,56 @@ def test_front_ends_count_buckets_as_the_jax_package():
         mine.reset_stats()
         assert mine.cache_info()["hits"] == mine.cache_info()["misses"] == 0
         assert mine.cache_info()["buckets"]
+
+
+@pytest.mark.parametrize("n_replicas", [0, 1, 3, 9])
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_plain_oracles_equal_the_jax_packages(n_replicas, n):
+    """ref.dominates_ref, concurrent_ref and leq_ref against the JAX
+    package's kernels/dvv_ops/ref.py on the same packed clocks: exact."""
+    from repro.kernels.dvv_ops import ref as jax_ref
+
+    args, xs, ys = _pairs(n_replicas, n, 31 * n_replicas + n)
+    for name in ("dominates_ref", "concurrent_ref", "leq_ref"):
+        got = getattr(ref, name)(*_t(args))
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(getattr(jax_ref, name)(*_j(args))),
+            err_msg=name)
+    np.testing.assert_array_equal(ref.dominates_ref(*_t(args)).numpy(),
+                                  [x.dominates(y) for x, y in zip(xs, ys)])
+    np.testing.assert_array_equal(
+        ref.concurrent_ref(*_t(args)).numpy(),
+        [not x.leq(y) and not y.leq(x) for x, y in zip(xs, ys)])
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (5, 3, 4), (23, 4, 5),
+                                   (9, 2, 8), (64, 5, 13), (0, 3, 4)])
+def test_sync_mask_bucketed_equals_the_jax_packages(shape):
+    """core.batched.sync_mask_bucketed (the shared CPU instance, called on
+    numpy arrays) against the JAX package's module-level instance, as
+    tests/test_delta_sync.py holds that one."""
+    args = _grouped(*shape, seed=sum(shape))
+    got = TB.sync_mask_bucketed("cpu")(*args)
+    assert got.dtype == bool and got.shape == shape[:2]
+    np.testing.assert_array_equal(got, RB.sync_mask_bucketed(*args))
+    np.testing.assert_array_equal(got, RB.sync_mask_np(*args))
+
+
+def test_sync_mask_bucketed_counts_buckets_as_the_jax_package():
+    """One instance per device, created without touching the device; a
+    fresh instance of each package over the same run of shapes counts the
+    same hits and misses and keeps the same buckets."""
+    front = TB.sync_mask_bucketed("cpu")
+    assert front is TB.sync_mask_bucketed(torch.device("cpu"))
+    assert front.device == torch.device("cpu")
+    assert TB.sync_mask_bucketed("meta") is not front
+    mine, theirs = TB.BucketedSyncMask(device="cpu"), RB.BucketedSyncMask()
+    for n, (N, K, R) in enumerate([(5, 2, 3), (7, 2, 5), (9, 2, 3),
+                                   (3, 3, 9), (5, 2, 3), (40, 4, 4)]):
+        args = _grouped(N, K, R, seed=n)
+        np.testing.assert_array_equal(mine(*args), theirs(*args))
+        assert mine.cache_info() == theirs.cache_info()
+    mine.reset_stats()
+    theirs.reset_stats()
+    assert mine.cache_info() == theirs.cache_info()

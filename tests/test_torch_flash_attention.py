@@ -274,3 +274,60 @@ def test_plain_version_index_positions_equal_no_positions():
             gqa_flash_attention(q, k, v, **kw),
             gqa_flash_attention(q, k, v, positions=torch.arange(
                 96, dtype=torch.int32), **kw))
+
+
+#: The card tests' five masking modes (tests/test_torch_cuda.py
+#: FLASH_MODES) at CPU size.
+SMALL_D_MODES = {
+    "causal": dict(causal=True, window=0, softcap=0.0),
+    "window": dict(causal=True, window=24, softcap=0.0),
+    "bidir": dict(causal=False, window=0, softcap=0.0),
+    "softcap": dict(causal=True, window=0, softcap=50.0),
+    "window_softcap": dict(causal=True, window=16, softcap=50.0),
+}
+
+
+@pytest.mark.parametrize("D", [8, 16, 32])
+@pytest.mark.parametrize("mode", list(SMALL_D_MODES))
+def test_plain_version_at_small_head_dims_matches_jax_naive(D, mode):
+    """head_dim 8, 16 (every smoke config's) and 32 (examples/train_e2e.py's):
+    the plain version's output against the JAX package's default path
+    (``_attend_naive``) within 1e-5, and its gradient
+    (``flash_attention_bwd_ref``) against ``jax.vjp`` of that path within
+    1e-5 of each tensor's largest magnitude (tests/test_torch_train.py's
+    bound), fp32, on the same numpy inputs."""
+    import importlib
+
+    import jax
+
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+    )
+    JA = importlib.import_module("repro.models.attention")
+
+    B, S, H, KV = 2, 80, 4, 2
+    kw = SMALL_D_MODES[mode]
+    rng = np.random.default_rng([D, len(mode)])
+    q, dout = (rng.normal(size=(B, S, H, D)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.normal(size=(B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    pos = jnp.arange(S, dtype=jnp.int32)
+    spec = JA.AttnSpec(n_heads=H, n_kv_heads=KV, head_dim=D,
+                       causal=kw["causal"], sliding_window=kw["window"],
+                       attn_softcap=kw["softcap"])
+
+    def attend(q, k, v):
+        return JA._attend_naive(JA._group_q(q, KV), k, v, pos, pos,
+                                spec).reshape(B, S, H, D)
+
+    want, vjp = jax.vjp(attend, *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = gqa_flash_attention(tq, tk, tv, **kw)
+    _assert_close(got, want, 1e-5)
+    grads = flash_attention_bwd_ref(tq, tk, tv, got, torch.from_numpy(dout),
+                                    **kw)
+    for g, w, t in zip(grads, vjp(jnp.asarray(dout)), (tq, tk, tv)):
+        assert g.shape == t.shape
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()

@@ -143,11 +143,25 @@ print(json.dumps({
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/flash_attention_probe.py",
                                     "tools/flash_bwd_gate_probe.py",
-                                    "tools/ssd_scan_probe.py"])
+                                    "tools/ssd_scan_probe.py",
+                                    "tools/small_heads_probe.py"])
 def test_chip_scripts_import_no_jax_and_no_repro(script):
     """The scripts that run on the card, loaded as modules (their main()
     not run), pull in neither jax nor the JAX package."""
     path = SRC.parent / script
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, str(path)],
+                         env=env, capture_output=True, text=True, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "cuda_initialized": False}
+
+
+@pytest.mark.parametrize("script", sorted(
+    p.name for p in (SRC.parent / "examples_torch").glob("*.py")))
+def test_examples_import_no_jax_and_no_repro(script):
+    """Every ``examples_torch/`` script, loaded as a module (its main() not
+    run), pulls in neither jax nor the JAX package and touches no card."""
+    path = SRC.parent / "examples_torch" / script
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE, str(path)],
                          env=env, capture_output=True, text=True, check=True)

@@ -31,7 +31,7 @@ from repro_torch.kernels.ssd_scan import (
 )
 from repro_torch.kernels.ssd_scan.ref import (
     chunk_bwd, chunk_bwd_summed, chunk_out, chunk_state, reduce_bwd,
-    ssd_passes, ssd_passes_bwd, state_grad_from_y, state_pass,
+    ssd_passes, ssd_passes_bwd, ssd_ref, state_grad_from_y, state_pass,
     state_pass_bwd,
 )
 from repro_torch.kernels.ssd_scan.ssd_scan import (
@@ -99,6 +99,19 @@ def test_fp32_matches_jax(shape, oracle):
     reset_launches()
     y, h = ssd_scan(*map(torch.from_numpy, arrs), chunk=chunk)
     assert launches == {"ssd_scan": 0}
+    assert _rel(_np(y), _np(want_y)) < 1e-5
+    assert _rel(_np(h), _np(want_h)) < 1e-5
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ssd_ref_matches_the_jax_ssd_ref(shape):
+    """ref.ssd_ref (the kernel's oracle in its argument order) against the
+    JAX package's ssd_ref on the same fp32 inputs: relative 1e-5, as
+    tests/test_kernels.py holds the Pallas kernel."""
+    arrs = _draw(shape, seed=3)
+    want_y, want_h = jax_ssd_ref(*map(jnp.asarray, arrs), shape[-1])
+    y, h = ssd_ref(*map(torch.from_numpy, arrs), shape[-1])
+    assert y.dtype == h.dtype == torch.float32
     assert _rel(_np(y), _np(want_y)) < 1e-5
     assert _rel(_np(h), _np(want_h)) < 1e-5
 
