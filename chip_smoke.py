@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m and
-qwen3-moe-30b-a3b serving, gemma-2b and mamba2-780m training, hubert-xlarge
-prefill and training, every config's smoke size, the nine examples) on one
-CUDA card.
+"""Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m,
+qwen3-moe-30b-a3b, qwen3-14b and granite-8b serving, qwen2-vl-7b prefill,
+decode and training with image-style M-RoPE positions, gemma-2b, mamba2-780m
+and qwen3-moe-30b-a3b training, hubert-xlarge prefill and training, every
+config's smoke size, the nine examples) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -33,7 +34,9 @@ exits non-zero:
            [1, 8192, 28, 128], 4 KV heads, bf16, causal; an image of 4,096
            patches sharing one temporal id between text runs); at
            qwen3-moe-30b-a3b's prefill shape (q [1, 4096, 32, 128], 4 KV
-           heads, bf16, causal, no softcap); and at hubert-xlarge's
+           heads, bf16, causal, no softcap); at qwen3-14b's and
+           granite-8b's (q [1, 8192, 40 or 32, 128], 8 KV heads, bf16,
+           causal: GQA groups of 5 and 4); and at hubert-xlarge's
            (bidirectional, 16 heads of 80 on 16 KV heads: bf16 [1, 32768],
            the audio_model prefill's, and fp32 [1, 1024]; where one call's
            fp32 scores would pass PLAIN_SCORE_BYTES, the plain version runs
@@ -57,7 +60,10 @@ exits non-zero:
            gemma-2b's training shape (q [1, 4096, 8, 256], 1 KV head,
            bf16, causal), gemma2-9b's global and local layers, the global
            layer at S 4096 with q drawn 30 times larger (scores where the
-           softcap bends), qwen2-vl-7b's M-RoPE row, fp32
+           softcap bends), qwen2-vl-7b's M-RoPE row, vl_train's (the same
+           at [1, 4096], where kv_splits gives each of a group's 7 query
+           heads its own block) and moe_train's (q [1, 4096, 32, 128], 4
+           KV heads, causal), fp32
            [1, 1024, 16, 256], and hubert-xlarge's training shape (q
            [4, 4096, 16, 80], 16 KV heads, bf16, bidirectional) and fp32
            [1, 1024, 16, 80]; and at head_dim 16 and 32 (the forward rows
@@ -140,9 +146,9 @@ exits non-zero:
   smoke_configs  every registry config's .smoke() (head_dim 16; jamba-
            1.5-large-398b and grok-1-314b run on the card only here), fp32
            compute, parameters from --seed made on the host: a prefill of
-           SMOKE_TOKENS, 4 decode steps from an empty cache (decoders) and,
-           but for the three MoE configs, the loss, every gradient leaf
-           and one make_train_step through launch/steps.py, on the card
+           SMOKE_TOKENS, 4 decode steps from an empty cache (decoders),
+           the loss, every gradient leaf and one make_train_step through
+           launch/steps.py (the MoE configs' routers real), on the card
            against the port's CPU run of the same parameters within 1e-4
            (logits and loss absolutely, each gradient leaf over its largest
            magnitude); each config's flash_attention and ssd_scan launches
@@ -210,6 +216,48 @@ exits non-zero:
            prefill's first-layer fraction_dropped equals a host recount
            (numpy, the per-slot occupancy loop) over the experts the card's
            router chose for that layer's input.
+  qwen3_14b_model, granite_8b_model  as model, for qwen3-14b (40 layers,
+           40 heads over 8 KV heads of 128, QK-norm; 14.77 B parameters in
+           bf16, its published checkpoint's dtype: fp32 would leave no room
+           for the prefill) and granite-8b (36 layers, 32 heads over 8;
+           8.05 B fp32 parameters): a warm-up and a timed prefill of tokens
+           [1, 8192], each launching flash_attention once a layer, then
+           the 8 requests served through BatchScheduler, sessions in a
+           KVCluster on the card, all read back.
+  qwen3_14b_parity, granite_8b_parity  each cut to 2 layers at full
+           width, fp32: prefill logits of [1, 2048] tokens through the
+           kernels against the plain versions on the card, to
+           PREFILL_DECODE_TOL.
+  vl_model  qwen2-vl-7b at full width and depth (28 layers, d_model 3584,
+           28 heads over 4 KV heads of 128, M-RoPE sections 16/24/24; 7.07
+           B fp32 parameters, bf16 compute) on embeddings (the vision
+           tower is a stub, as in the JAX package) with image-style
+           positions [3, 1, 8192]: text, an image of 4,096 patches whose
+           temporal id repeats while the height and width rows walk a 64 x
+           64 grid, text.  A warm-up and a timed prefill through
+           make_prefill_step, each launching the flash kernel's position
+           instance 28 times (counts by instance zeroed just before, read
+           just after); then 16 decode steps of embeddings from an empty
+           cache.  No BatchScheduler: the JAX package's serve.py refuses
+           embedding-input models.
+  vl_trace  that prefill and the 16 decode steps traced on the card:
+           device time by kernel class, the flash share, the idle share.
+  vl_parity  the 2-layer cut, fp32, [1, 2048] with the same kind of
+           positions: logits through the kernels against the plain
+           versions on the card, to PREFILL_DECODE_TOL; the same prefill
+           masked by index differs by more than 1e-2.
+  vl_train  qwen2-vl-7b cut to 8 layers at full width (2.41 B fp32
+           parameters and AdamW moments; bf16 compute, remat) through
+           make_train_step on embeddings, labels and image-style positions
+           [1, 4096]: as audio_train (4 timed steps, one traced), every
+           flash launch, forward and backward, by position.
+  vl_train_parity  the 2-layer cut, [1, 2048]: the loss and every
+           gradient leaf through the kernels against the plain versions,
+           fp32 within 1e-4, bf16 within the RMS gate (the row errors,
+           read beside each side's against the exact gradient, are not
+           gated: the unembedding's rows over a 152,064-wide vocabulary
+           carry 2,048 label columns, where one bf16 step of the final
+           hidden state reads up to 0.4 of a row's RMS).
   train    gemma-2b at full width and depth (18 layers, 2.51 B fp32
            parameters and fp32 AdamW moments, bf16 compute, each group
            checkpointed) trained as `python -m repro_torch.launch.train`
@@ -244,6 +292,21 @@ exits non-zero:
            and dy of the kernels' run, reduced into its A_log and dt_bias
            by the kernels and by the plain version in fp32, each held to
            the plain version in float64 (the kernels' within 1e-4).
+  moe_train  qwen3-moe-30b-a3b cut to 2 layers at full width (128
+           experts top-8; 1.87 B fp32 parameters and AdamW moments; bf16
+           compute, remat; 4 layers peaked at 75.7 GB) trained as train
+           trains gemma-2b through the Trainer on SyntheticTokens
+           [1, 4096]: 4 timed steps (each with every MoE layer's
+           fraction_dropped), no save; the traced step reports device
+           time by MoE part (router,
+           capacity assignment, dispatch and combine products, expert
+           products, attention, the head: the forward and remat's
+           recompute) and by kernel class (flash forward and backward,
+           GEMMs, the rest), and every MoE layer's fraction_dropped.
+  moe_train_parity  qwen3-moe-30b-a3b cut to 2 layers at full width, fp32,
+           real fp32 routers, tokens [1, 1024]: the loss and every gradient
+           leaf through the kernels against the plain versions on the card
+           within 1e-4, both runs routing every token to the same experts.
   audio_model  hubert-xlarge, the audio encoder, at full width and depth
            (48 layers, d_model 1280, 16 heads of 80, bidirectional, 1.26 B
            fp32 parameters from --seed, bf16 compute), after mamba2-780m's
@@ -390,12 +453,19 @@ AUDIO_HEADS = (16, 16, 80)              # hubert-xlarge's: bidirectional
 SMOKE_HEADS = (4, 2, 16)                # a smoke config's attention
 QUICKSTART_HEADS = (4, 1, 16)           # gemma-2b's smoke config (MQA)
 E2E_HEADS = (8, 2, 32)                  # granite-mini, d_model 256
+# GQA groups of 5 and 8 at head_dim 128: qwen3-14b's and granite-8b's
+# attention (served at full width and depth, [1, 8192])
+QWEN3_14B_HEADS = (40, 8, 128)
+GRANITE_8B_HEADS = (32, 8, 128)
 FLASH_ROWS = (
     ("local", "bfloat16", 1, 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
     ("global", "bfloat16", 1, 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
     ("causal", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, FLASH_HEADS),
     ("global_fp32", "float32", 1, 1024, True, 0, 50.0, 1e-5, FLASH_HEADS),
     ("qwen3_moe", "bfloat16", 1, 4096, True, 0, 0.0, 2e-2, MOE_FLASH_HEADS),
+    ("qwen3_14b", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, QWEN3_14B_HEADS),
+    ("granite_8b", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2,
+     GRANITE_8B_HEADS),
     ("hubert", "bfloat16", 1, 32768, False, 0, 0.0, 2e-2, AUDIO_HEADS),
     ("hubert_fp32", "float32", 1, 1024, False, 0, 0.0, 1e-5, AUDIO_HEADS),
     # head_dim 16 and 32: the examples' own shapes (quickstart.py's
@@ -420,9 +490,11 @@ FLASH_ROWS = (
 PLAIN_SCORE_BYTES = 16 << 30
 # the M-RoPE row: qwen2-vl-7b's attention (src/repro_torch/configs/
 # qwen2_vl_7b.py: 28 heads, 4 KV heads, head_dim 128), bf16, causal, masked
-# by the temporal positions of text, an image of 4,096 patches, text
+# by the temporal positions of text, an image of 4,096 patches, text; at
+# another length S the text and the image scale with S (vl_positions)
 MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM = 28, 4, 128
 MROPE_TEXT, MROPE_IMAGE, MROPE_S = 512, 4096, 8192
+MROPE_GRID_WIDTH = 64         # the image's patches a row
 
 # mamba2-780m serving (src/repro_torch/configs/mamba2_780m.py)
 SSM_ARCH = "mamba2-780m"
@@ -464,6 +536,31 @@ MOE_PREFILL = (1, 4096)       # cut from prefill_32k's [32, 32768]: its fp32
 MOE_PARITY_LAYERS = 2
 #: prefill tokens for (a): capacity(8) == capacity(1) == 8, nothing drops
 MOE_PARITY_TOKENS = 8
+MOE_TRAIN_LAYERS = 2          # cut from 48 (1.87 B parameters, 29.9 GB of
+                              # fp32 parameters, gradients and moments);
+                              # 4 layers (3.11 B) peaked at 75.7 GB
+
+# qwen3-14b and granite-8b served at full width and depth through
+# model_phase: qwen3-14b in bf16 parameters, its published checkpoint's
+# dtype (hf:Qwen/Qwen3-14B; in fp32 its 59 GB leave no room for the
+# prefill), granite-8b in fp32 as gemma2-9b; each with a cut of
+# DENSE_PARITY_LAYERS at full width, fp32, kernels against plain versions
+DENSE_SERVE = (("qwen3-14b", "bfloat16"), ("granite-8b", "float32"))
+DENSE_PARITY_LAYERS, DENSE_PARITY_TOKENS = 2, 2048
+
+# qwen2-vl-7b (src/repro_torch/configs/qwen2_vl_7b.py): embeddings and
+# image-style M-RoPE positions [3, B, S] through launch/steps.py's steps
+# (the JAX package's serve.py refuses embedding-input models, so no
+# BatchScheduler); fp32 parameters, bf16 compute, as gemma2-9b
+VL_ARCH = "qwen2-vl-7b"
+VL_PREFILL = (1, 8192)        # cut from prefill_32k's [32, 32768]: its fp32
+                              # logits alone would be 638 GB (5.0 GB here)
+VL_DECODE_STEPS = 16
+VL_PARITY_LAYERS, VL_PARITY_TOKENS = 2, 2048
+VL_TRAIN_LAYERS = 8           # cut from 28: 2.41 B parameters, 38.6 GB of
+                              # fp32 parameters, gradients and moments
+VL_TRAIN = (1, 4096)          # cut from train_4k's [256, 4096]
+
 #: cuBLAS's GEMM kernels on Hopper carry one of these in their names
 GEMM_KERNELS = ("gemm", "xmma", "nvjet", "cutlass", "cublas")
 
@@ -483,6 +580,13 @@ BWD_ROWS = (
     ("mrope_positions", "bfloat16", MROPE_S,
      (MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM), True, 0, 0.0, True, 1.0,
      1),
+    # the training shapes of vl_train (positions; kv_splits gives each of
+    # the 7 query heads of a group its own block) and of moe_train
+    ("vl_train", "bfloat16", VL_TRAIN[1],
+     (MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM), True, 0, 0.0, True, 1.0,
+     VL_TRAIN[0]),
+    ("qwen3_moe_train", "bfloat16", 4096, MOE_FLASH_HEADS, True, 0, 0.0,
+     False, 1.0, 1),                    # TRAIN_TOKENS
     ("global_fp32", "float32", 1024, FLASH_HEADS, True, 0, 50.0, False, 1.0,
      1),
     # hubert-xlarge's training shape (audio_train's [4, 4096])
@@ -827,15 +931,26 @@ def live_pairs(S: int, causal: bool, window: int) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
+def compiled_flex():
+    """A fresh torch.compile of FlexAttention for one yardstick.  Each
+    yardstick closes over its own mask, which dynamo guards on, so past
+    its recompile limit a shared compile would run FlexAttention's unfused
+    path (every score in memory) and time that instead: dynamo's caches
+    are emptied first."""
+    import torch
+    from torch.nn.attention.flex_attention import flex_attention
+
+    torch._dynamo.reset()
+    return torch.compile(flex_attention, dynamic=False)
+
+
 def flex_attention_call(S: int, window: int, cap: float):
     """FlexAttention computing a causal row's function on [B, H, S, D]
     tensors: the softcap as score_mod, causal (and window) as the block
     mask, GQA by enable_gqa.  Compiled once per variant; the port never
     calls it."""
     import torch
-    from torch.nn.attention.flex_attention import (
-        create_block_mask, flex_attention,
-    )
+    from torch.nn.attention.flex_attention import create_block_mask
 
     def mask(b, h, qi, ki):
         ok = ki <= qi
@@ -845,7 +960,7 @@ def flex_attention_call(S: int, window: int, cap: float):
         return cap * torch.tanh(s / cap)
 
     block_mask = create_block_mask(mask, None, None, S, S, device="cuda")
-    fn = torch.compile(flex_attention, dynamic=False)
+    fn = compiled_flex()
     return lambda q, k, v: fn(q, k, v, score_mod=score,
                               block_mask=block_mask, enable_gqa=True)
 
@@ -936,14 +1051,19 @@ def flash_rows(seed: int):
     return rows
 
 
+def vl_positions(S: int = MROPE_S):
+    """Image-style M-RoPE positions [3, S] (data.image_positions):
+    MROPE_TEXT text tokens, an image of MROPE_IMAGE patches (both scaled by
+    S / MROPE_S) on a grid MROPE_GRID_WIDTH patches wide, then text."""
+    from repro_torch.data import image_positions
+    return image_positions(S, MROPE_TEXT * S // MROPE_S,
+                           MROPE_IMAGE * S // MROPE_S, MROPE_GRID_WIDTH)
+
+
 def mrope_positions(S: int = MROPE_S):
-    """The temporal row of M-RoPE positions: MROPE_TEXT text tokens, an
-    image of MROPE_IMAGE patches sharing the next id, then text again."""
-    import numpy as np
-    t = MROPE_TEXT
-    return np.concatenate([np.arange(t), np.full(MROPE_IMAGE, t),
-                           np.arange(t + 1, t + 1 + S - t - MROPE_IMAGE)]
-                          ).astype(np.int32)
+    """The temporal row of ``vl_positions``: the positions the attention
+    masks by."""
+    return vl_positions(S)[0]
 
 
 def flash_mrope_row(seed: int):
@@ -955,9 +1075,7 @@ def flash_mrope_row(seed: int):
     from repro_torch.kernels.flash_attention.ref import (
         BF16_ROW_TOL, flash_attention_ref, row_scaled_err,
     )
-    from torch.nn.attention.flex_attention import (
-        create_block_mask, flex_attention,
-    )
+    from torch.nn.attention.flex_attention import create_block_mask
 
     H, KV, D, S = MROPE_HEADS, MROPE_KV_HEADS, MROPE_HEAD_DIM, MROPE_S
     rng = np.random.default_rng([seed, S, H])
@@ -997,7 +1115,7 @@ def flash_mrope_row(seed: int):
         return pos[ki] <= pos[qi]
 
     block_mask = create_block_mask(mask, None, None, S, S, device="cuda")
-    fn = torch.compile(flex_attention, dynamic=False)
+    fn = compiled_flex()
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     library = partial(fn, qt, kt, vt, block_mask=block_mask,
                       enable_gqa=True)
@@ -1025,9 +1143,7 @@ def bwd_library_call(q, k, v, dout, causal: bool, window: int, cap: float,
                   for t in (q, k, v))
     dt = dout.transpose(1, 2).contiguous()
     if cap or window or pos is not None:
-        from torch.nn.attention.flex_attention import (
-            create_block_mask, flex_attention,
-        )
+        from torch.nn.attention.flex_attention import create_block_mask
         S = q.shape[1]
 
         def mask(b, h, qi, ki):
@@ -1042,8 +1158,7 @@ def bwd_library_call(q, k, v, dout, causal: bool, window: int, cap: float,
         if cap:
             kw["score_mod"] = lambda s, b, h, qi, ki: cap * torch.tanh(
                 s / cap)
-        name, out = "flex_attention", torch.compile(
-            flex_attention, dynamic=False)(qt, kt, vt, **kw)
+        name, out = "flex_attention", compiled_flex()(qt, kt, vt, **kw)
     else:
         name, out = "scaled_dot_product_attention", \
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
@@ -2246,32 +2361,31 @@ def profiler_ranges(targets):
             setattr(module, name, fn)
 
 
-def moe_breakdown(cfg, params, tokens):
-    """One prefill traced with the host's ops, each MoE part and each
-    attention layer inside a profiler range: device microseconds by part
-    (a range's device time is its ops' kernels) and by kernel class."""
+def moe_breakdown(fn):
+    """``fn`` (warmed by the caller) traced with the host's ops, each MoE
+    part and each attention layer inside a profiler range: device
+    microseconds by part (a range's device time is its ops' kernels: the
+    forward's, and in a training step remat's recompute, never the
+    backward's, which falls in "rest") and by kernel class."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import lm, moe
 
     targets = {"moe.route": (moe, "route"), "moe.assign": (moe, "assign"),
                "moe.experts": (moe, "experts"), "moe.ffn": (lm, "moe_ffn"),
                "attention": (lm, "attention"), "head": (lm, "_head")}
-    toks = torch.zeros(tokens, dtype=torch.int32, device="cuda")
-    prefill = make_prefill_step(cfg)
-    prefill(params, {"tokens": toks})                 # warm, untraced
     torch.cuda.synchronize()
     with profiler_ranges(targets), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": toks})
+        fn()
         torch.cuda.synchronize()
     ranges = dict.fromkeys(targets, 0.0)
     for e in prof.events():
         if e.name in ranges and e.device_type == DeviceType.CPU:
             ranges[e.name] += e.device_time_total
-    classes = {"gemm": 0.0, "flash_attention": 0.0, "elementwise_other": 0.0}
+    classes = {"gemm": 0.0, "flash_attention": 0.0,
+               "flash_attention_bwd": 0.0, "elementwise_other": 0.0}
     for e in prof.key_averages():
         us = e.self_device_time_total
         # the kernels' own rows: not the host ops that launched them, nor
@@ -2279,7 +2393,8 @@ def moe_breakdown(cfg, params, tokens):
         if us <= 0 or e.device_type != DeviceType.CUDA or e.key in targets:
             continue
         low = e.key.lower()
-        cls = "flash_attention" if "flash_fwd" in low else "gemm" \
+        cls = "flash_attention" if "flash_fwd" in low else \
+            "flash_attention_bwd" if "flash_bwd" in low else "gemm" \
             if any(g in low for g in GEMM_KERNELS) else "elementwise_other"
         classes[cls] += us
     busy = sum(classes.values())
@@ -2297,6 +2412,54 @@ def moe_breakdown(cfg, params, tokens):
             "by_part_share": {k: v / busy for k, v in parts.items()}
             if busy else None,
             "by_kernel_class_us": classes}
+
+
+def moe_prefill_breakdown(cfg, params, tokens):
+    """``moe_breakdown`` of one prefill of zero tokens ``tokens`` after an
+    untraced one."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+
+    toks = torch.zeros(tokens, dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(cfg)
+    prefill(params, {"tokens": toks})                 # warm, untraced
+    return moe_breakdown(lambda: prefill(params, {"tokens": toks}))
+
+
+def moe_train_phases(seed: int):
+    """Run and emit moe_train (qwen3-moe-30b-a3b cut to MOE_TRAIN_LAYERS,
+    through the Trainer) and moe_train_parity (its 2-layer cut, fp32 only:
+    bf16 near-ties turn expert pairs, ROADMAP Queue 3); returns the
+    moe_train line (the kernels line reads its launches)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    moe_train = train_phase(
+        seed, cfg=replace_layers(cfg, MOE_TRAIN_LAYERS), phase="moe_train",
+        save=False, trace=moe_train_trace)
+    emit(moe_train)
+    emit(grad_parity_phase(
+        "moe_train_parity", replace_layers(cfg, MOE_PARITY_LAYERS),
+        (1, TRAIN_PARITY_TOKENS), seed, dtypes=("float32",)))
+    return moe_train
+
+
+def moe_train_trace(trainer):
+    """One more step of ``trainer`` traced by ``moe_breakdown`` (device
+    time by MoE part in the forward and its recompute, and by kernel
+    class, the flash backward's included), with every MoE layer's
+    fraction_dropped in that step's forward."""
+    cfg = trainer.model_cfg
+    n_moe = cfg.n_groups * sum(s.ffn == "moe" for s in cfg.pattern)
+    with moe_calls() as calls:
+        out = moe_breakdown(lambda: trainer.run(steps=1))
+    # the forward's calls: remat's recompute stops inside a group's last
+    # MoE call once the tensors the backward saved are back (torch's
+    # non-reentrant checkpoint), so those calls never return
+    out["moe_calls"] = len(calls)
+    out["fraction_dropped_per_layer"] = [
+        float(m["fraction_dropped"]) for _, _, m in calls[:n_moe]]
+    return out
 
 
 def recount_dropped(idx, n_experts: int, C: int):
@@ -2430,15 +2593,19 @@ def state_bytes(trainer) -> int:
         trainer.params, trainer.opt_state) for t in tree_leaves(tree))
 
 
-def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
-                kernel=None, save=True):
+def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, cfg=None,
+                phase="train", kernel=None, save=True,
+                trace=None):
     """``arch`` at full width and depth (fp32 parameters and moments, bf16
     compute, remat) trained TRAIN_STEPS steps on TRAIN_TOKENS from the
     port's SyntheticTokens, as launch/train.py drives it, and one more
     step traced on the card (device time by kernel class); then, with
     ``save``, one save of the whole state through the CheckpointManager.
     ``kernel`` is the kernel package whose forward and backward every
-    layer launches each step (flash_attention by default)."""
+    layer launches each step (flash_attention by default); ``cfg``, if
+    given, is trained in place of ``arch``'s config (a cut of its depth);
+    ``trace(trainer)`` runs and reports the traced step
+    (``traced_train_step`` by default)."""
     import shutil
 
     import torch
@@ -2448,7 +2615,7 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
 
     kernel = kernel or FA
     (fwd_name,), (bwd_name,) = kernel.launches, kernel.bwd_launches
-    cfg, tokens = get_config(arch), TRAIN_TOKENS
+    cfg, tokens = cfg or get_config(arch), TRAIN_TOKENS
     blob = ROOT / "build" / "chip_smoke_ckpt" / phase
     shutil.rmtree(blob, ignore_errors=True)
     blob.mkdir(parents=True)
@@ -2469,22 +2636,31 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
         layer0["mamba"]["in_x"]
     probe = {"embed": trainer.params["embed"][:8].clone(),
              "layer0": first[0].clone()}
+    n_moe = cfg.n_groups * sum(s.ffn == "moe" for s in cfg.pattern)
     torch.cuda.reset_peak_memory_stats()
     kernel.reset_launches()
     dvv_ops.reset_launches()
     steps = []
-    for _ in range(TRAIN_STEPS):
-        fwd, bwd = kernel.launches[fwd_name], kernel.bwd_launches[bwd_name]
-        t = time.perf_counter()
-        trainer.run(steps=1)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t
-        row = trainer.metrics_log[-1]
-        steps.append({"step": row["step"], "s": sec,
-                      "tokens_per_s": tokens[0] * tokens[1] / sec,
-                      "loss": row["loss"], "grad_norm": row["grad_norm"],
-                      fwd_name: kernel.launches[fwd_name] - fwd,
-                      bwd_name: kernel.bwd_launches[bwd_name] - bwd})
+    with moe_calls() as calls:
+        for _ in range(TRAIN_STEPS):
+            fwd = kernel.launches[fwd_name]
+            bwd = kernel.bwd_launches[bwd_name]
+            start = len(calls)
+            t = time.perf_counter()
+            trainer.run(steps=1)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+            row = trainer.metrics_log[-1]
+            steps.append({"step": row["step"], "s": sec,
+                          "tokens_per_s": tokens[0] * tokens[1] / sec,
+                          "loss": row["loss"], "grad_norm": row["grad_norm"],
+                          fwd_name: kernel.launches[fwd_name] - fwd,
+                          bwd_name: kernel.bwd_launches[bwd_name] - bwd})
+            if n_moe:               # the forward's MoE layers (moe_train_trace)
+                steps[-1]["fraction_dropped"] = [
+                    float(m["fraction_dropped"])
+                    for _, _, m in calls[start:start + n_moe]]
+    del calls
     launches = {**kernel.launches, **kernel.bwd_launches,
                 **dvv_ops.launches}
     if hasattr(kernel, "bwd_path_launches"):
@@ -2494,7 +2670,7 @@ def train_phase(seed: int, device="cuda", *, arch=TRAIN_ARCH, phase="train",
                s_per_step_after_first=sum(r["s"] for r in steps[1:])
                / max(len(steps) - 1, 1))
     if device == "cuda":
-        out["trace"] = traced_train_step(trainer)
+        out["trace"] = (trace or traced_train_step)(trainer)
     moved = {n: not torch.equal(t, ref) for n, t, ref in (
         ("embed", trainer.params["embed"][:8], probe["embed"]),
         ("layer0", first[0], probe["layer0"]))}
@@ -2906,15 +3082,16 @@ def ssm_train_parity_phase(seed: int, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# hubert-xlarge, the audio encoder
+# inputs, parity cuts and make_train_step training of any config
 # ---------------------------------------------------------------------------
 
-def audio_batch(cfg, tokens, seed: int, labels: bool = False,
-                device="cuda"):
-    """Frame embeddings [B, S, d_model] ~ N(0, 1), rounded to bf16 (so a
-    bf16 and an fp32 run read the same values) and held in the config's
-    compute dtype, and with ``labels`` classes in [0, vocab_size), drawn on
-    ``device`` from ``seed``."""
+def embedding_batch(cfg, tokens, seed: int, labels: bool = False,
+                    device="cuda"):
+    """Embeddings [B, S, d_model] ~ N(0, 1), rounded to bf16 (so a bf16 and
+    an fp32 run read the same values) and held in the config's compute
+    dtype; with ``labels`` classes in [0, vocab_size); for an M-RoPE config
+    (qwen2-vl-7b) every batch row's image-style positions (``vl_positions``,
+    [3, B, S]); drawn on ``device`` from ``seed``."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed)
     emb = torch.randn((*tokens, cfg.d_model), generator=gen, device=device)
@@ -2924,8 +3101,375 @@ def audio_batch(cfg, tokens, seed: int, labels: bool = False,
         batch["labels"] = torch.randint(0, cfg.vocab_size, tokens,
                                         generator=gen, device=device,
                                         dtype=torch.int32)
+    if cfg.mrope:
+        B, S = tokens
+        batch["positions"] = torch.from_numpy(vl_positions(S)).to(
+            device)[:, None].expand(3, B, S).contiguous()
     return batch
 
+
+def model_batch(cfg, tokens, seed: int, labels: bool = False,
+                device="cuda"):
+    """``embedding_batch`` for an embedding-input config; for a token
+    config, tokens (and with ``labels``, labels) in [0, vocab_size) drawn
+    on ``device`` from ``seed``."""
+    import torch
+    if cfg.input_mode != "tokens":
+        return embedding_batch(cfg, tokens, seed, labels, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {n: torch.randint(0, cfg.vocab_size, tokens, generator=gen,
+                             device=device, dtype=torch.int32)
+            for n in (("tokens", "labels") if labels else ("tokens",))}
+
+
+def expect_instances(cfg, batch, calls: int) -> dict:
+    """The flash launches by mask instance that ``calls`` launches a layer
+    give: by position where the batch has positions, else by index."""
+    n = calls * cfg.n_groups * sum(s.mixer.startswith("attn")
+                                   for s in cfg.pattern)
+    by_pos = "positions" in batch
+    return {"index": 0 if by_pos else n, "positions": n if by_pos else 0}
+
+
+def prefill_parity_phase(phase: str, cfg, tokens, seed: int, device="cuda"):
+    """``cfg`` (a cut at full width, fp32 compute): prefill logits of
+    ``model_batch`` [tokens] through the kernels against the same
+    parameters and inputs through the plain versions on the card, to
+    PREFILL_DECODE_TOL, each attention layer launching the flash kernel
+    once (by position where the batch has positions).  With positions,
+    the same prefill masked by index must differ by more than 1e-2: the
+    positions count."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    params = init_params(gen, cfg, device=device)
+    batch = model_batch(cfg, tokens, seed + 5, device=device)
+    prefill = make_prefill_step(cfg)
+    FA.reset_launches()
+    got = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = dict(FA.instance_launches)
+    with plain_attention():
+        FA.reset_launches()
+        want = prefill(params, batch)
+        plain_launches = FA.launches["flash_attention"]
+    err = float((got - want).abs().max())
+    out = {"phase": phase, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+           "compute_dtype": cfg.compute_dtype, "tokens": list(tokens),
+           "flash_attention_launches": launches,
+           "plain_launches": plain_launches, "max_abs_logit_diff": err,
+           "max_abs_logit": float(want.abs().max()),
+           "tol": PREFILL_DECODE_TOL}
+    by_pos = "positions" in batch
+    if by_pos:
+        index = prefill(params, {k: t for k, t in batch.items()
+                                 if k != "positions"})
+        out["index_masked_max_abs_logit_diff"] = float(
+            (index - want).abs().max())
+        del index
+    del params, got, want
+    torch.cuda.empty_cache()
+    expect = expect_instances(cfg, batch, 1)
+    if device == "cuda" and launches != expect or plain_launches:
+        raise AssertionError(f"parity prefill launched flash_attention "
+                             f"{launches} (plain {plain_launches}), "
+                             f"expected {expect} (0)")
+    if not err <= PREFILL_DECODE_TOL:
+        raise AssertionError(f"logits through the kernels differ from the "
+                             f"plain versions' by {err} > "
+                             f"{PREFILL_DECODE_TOL}")
+    if by_pos and not out["index_masked_max_abs_logit_diff"] > 1e-2:
+        raise AssertionError(f"masks by index give the logits of masks by "
+                             f"position: {out}")
+    return out
+
+
+def step_train_phase(phase: str, cfg, tokens, seed: int, device="cuda"):
+    """``cfg`` (fp32 parameters and AdamW moments, bf16 compute, remat)
+    through make_train_step, as tests/test_arch_smoke.py trains an
+    embedding-input config (the Trainer's token pipeline yields no
+    embeddings): TRAIN_STEPS timed steps on one seeded ``model_batch`` with
+    labels [tokens], each launching the flash forward twice a layer
+    (remat's recompute) and its backward once (by position where the
+    batch has positions; counts zeroed just before the steps and read
+    after each), then one more step traced on the card (device time by
+    kernel class); finite losses and norms, parameters that move."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg, device=device)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS + 1)
+    opt_state = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    out = {"phase": phase, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+           "param_count": count_params(cfg), "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "tokens": list(tokens), "init_s": time.perf_counter() - t,
+           "state_bytes": tree_bytes(params) + tree_bytes(opt_state)}
+    batch = model_batch(cfg, tokens, seed + 6, labels=True, device=device)
+    step = make_train_step(cfg, opt_cfg)
+    wq = params["blocks"]["layer0"]["attn"]["wq"]
+    probe = {"wq": wq[0].clone(), "unembed": params["unembed"].clone()}
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        fwd = FA.launches["flash_attention"]
+        bwd = FA.bwd_launches["flash_attention_bwd"]
+        t = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        steps.append({"s": sec, "tokens_per_s": tokens[0] * tokens[1] / sec,
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "flash_attention": FA.launches["flash_attention"] - fwd,
+                      "flash_attention_bwd":
+                          FA.bwd_launches["flash_attention_bwd"] - bwd})
+    instances = {"fwd": dict(FA.instance_launches),
+                 "bwd": dict(FA.bwd_instance_launches)}
+    out.update(steps=steps, launches={**FA.launches, **FA.bwd_launches},
+               instance_launches=instances,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               s_per_step_after_first=sum(r["s"] for r in steps[1:])
+               / max(len(steps) - 1, 1))
+    state = [params, opt_state]
+
+    def traced():
+        state[:] = step(*state, batch)[:2]
+    out["trace"] = traced_by_class(traced)
+    moved = {n: not torch.equal(a, b) for n, a, b in (
+        ("wq", wq[0], probe["wq"]),
+        ("unembed", params["unembed"], probe["unembed"]))}
+    out["params_moved"] = moved
+    bad = [r for r in steps if not (math.isfinite(r["loss"])
+                                    and math.isfinite(r["grad_norm"]))]
+    if bad or not all(moved.values()):
+        raise AssertionError(f"training gave non-finite losses or norms "
+                             f"{bad}, or left parameters in place {moved}")
+    calls = 2 if cfg.remat else 1
+    want = (calls * cfg.n_layers, cfg.n_layers)
+    per_step = [(r["flash_attention"], r["flash_attention_bwd"])
+                for r in steps]
+    want_instances = {
+        "fwd": expect_instances(cfg, batch, calls * TRAIN_STEPS),
+        "bwd": expect_instances(cfg, batch, TRAIN_STEPS)}
+    if device == "cuda" and (per_step != [want] * TRAIN_STEPS
+                             or instances != want_instances):
+        raise AssertionError(f"flash launches per step {per_step}, expected "
+                             f"{want} (forward with its recompute, "
+                             f"backward); by instance {instances}, expected "
+                             f"{want_instances}")
+    del state, params, opt_state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextmanager
+def recorded_routes(calls: list):
+    """Append every call's chosen experts (``moe.route``'s [G,S,K]) to
+    ``calls`` while the context is open (``moe_ffn`` looks ``route`` up in
+    its module at each call)."""
+    from repro_torch.models import moe
+
+    original = moe.route
+
+    def recording(*args, **kw):
+        out = original(*args, **kw)
+        calls.append(out[3])
+        return out
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = original
+
+
+def grad_parity_phase(phase: str, base, tokens, seed: int, device="cuda", *,
+                      dtypes=("float32", "bfloat16")):
+    """``base`` (a cut at full width, remat) on ``model_batch`` with labels
+    [tokens]: the loss and every gradient leaf through the flash kernels
+    against the same through the plain versions on the card, (a) in fp32
+    compute within TRAIN_PARITY_TOL (the FMA kernels), (b) where
+    ``dtypes`` has bf16, in bf16 compute (the wgmma kernels) under the
+    flash backward's two gates: each leaf within ref.BF16_GRAD_ROW_TOL of
+    the plain bf16 version's by grad_row_err, and its RMS distance from
+    the exact gradient (the plain versions in fp32, (a)'s reference)
+    within ref.BF16_GRAD_RMS_RATIO of the plain bf16 version's by
+    grad_rms_err.  A leaf that the plain bf16 version itself gets no
+    closer than BF16_GRAD_ROW_TOL to the exact gradient by rows (qwen2-vl's
+    unembedding: its rows span a 152,064-wide vocabulary of which a few
+    thousand label columns carry weight, so one bf16 step of the final
+    hidden state, which two runs round apart, is 0.4 of a row's RMS)
+    cannot be held to that version by rows: its row error against the
+    exact gradient is held within BF16_GRAD_RMS_RATIO of the plain bf16
+    version's instead, and the leaf is named.  The worst leaves are named,
+    and beside the bf16 row errors each side's against the exact
+    gradient.  A MoE config routes for real (its routers are fp32): both
+    runs must choose the same experts."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
+    )
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    params = init_params(gen, base, device=device)
+    names = leaf_paths(params)
+    out = {"phase": phase, "arch": base.name,
+           "n_layers": base.n_layers, "d_model": base.d_model,
+           "heads": [base.n_heads, base.n_kv_heads, base.resolved_head_dim],
+           "remat": base.remat, "tokens": list(tokens),
+           "grad_leaves": len(names)}
+    calls = 2 if base.remat else 1
+    grads = {}
+    for dtype in dtypes:
+        cfg = replace(base, compute_dtype=dtype)
+        batch = model_batch(cfg, tokens, seed + 8, labels=True,
+                            device=device)
+        want_launches = {
+            "fwd": expect_instances(cfg, batch, calls),
+            "bwd": expect_instances(cfg, batch, 1)}
+        FA.reset_launches()
+        with recorded_routes([]) as routes:
+            loss, got = loss_and_grads(params, batch, cfg)
+        torch.cuda.synchronize()
+        launches = {"fwd": dict(FA.instance_launches),
+                    "bwd": dict(FA.bwd_instance_launches)}
+        with plain_attention(), recorded_routes([]) as plain_routes:
+            FA.reset_launches()
+            want_loss, want = loss_and_grads(params, batch, cfg)
+            plain = {**FA.launches, **FA.bwd_launches}
+        if device == "cuda" and launches != want_launches or \
+                set(plain.values()) != {0}:
+            raise AssertionError(f"{dtype} parity launches {launches}, "
+                                 f"expected {want_launches}; plain {plain}")
+        grads[dtype] = got, want
+        out[dtype] = {"loss": float(loss),
+                      "loss_abs_diff": abs(float(loss) - float(want_loss)),
+                      "kernel_launches": launches}
+        if routes:
+            same = len(routes) == len(plain_routes) and all(
+                torch.equal(a, b) for a, b in zip(routes, plain_routes))
+            out[dtype]["routes_equal"] = same
+            if not same:
+                raise AssertionError(f"{dtype}: the kernels' run routes "
+                                     f"tokens to other experts than the "
+                                     f"plain versions' run: {out}")
+    got, exact = grads["float32"]
+    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+           for g, w in zip(got, exact)]
+    f32 = out["float32"]
+    f32.update(grad_max_rel_diff=max(rel), tol=TRAIN_PARITY_TOL,
+               worst_leaves=sorted(zip(rel, names), reverse=True)[:3])
+    row_faults, ratio = [], [0.0]
+    if "bfloat16" in grads:
+        got, plain = grads["bfloat16"]
+        row = [grad_row_err(g, w) for g, w in zip(got, plain)]
+        ratio = [grad_rms_err(g, e) / max(grad_rms_err(w, e), 1e-30)
+                 for g, w, e in zip(got, plain, exact)]
+        exact_row = {side: [grad_row_err(g, e) for g, e in zip(grads, exact)]
+                     for side, grads in (("kernels", got), ("plain", plain))}
+        against_exact = {}
+        for n, r, k, w in zip(names, row, exact_row["kernels"],
+                              exact_row["plain"]):
+            if w > BF16_GRAD_ROW_TOL:
+                against_exact[n] = {"kernels": k, "plain": w,
+                                    "ratio": k / w}
+                if not k <= BF16_GRAD_RMS_RATIO * w:
+                    row_faults.append(n)
+            elif not r <= BF16_GRAD_ROW_TOL:
+                row_faults.append(n)
+        out["bfloat16"].update(
+            grad_max_row_err=max(row), row_tol=BF16_GRAD_ROW_TOL,
+            worst_row_leaves=sorted(zip(row, names), reverse=True)[:3],
+            worst_row_leaves_against_exact={
+                side: sorted(zip(errs, names), reverse=True)[:3]
+                for side, errs in exact_row.items()},
+            rows_held_against_exact=against_exact,
+            grad_max_rms_err_ratio=max(ratio),
+            rms_ratio_tol=BF16_GRAD_RMS_RATIO,
+            worst_ratio_leaves=sorted(zip(ratio, names), reverse=True)[:3])
+    del params, grads, got, exact
+    torch.cuda.empty_cache()
+    if not (f32["loss_abs_diff"] <= TRAIN_PARITY_TOL
+            and max(rel) <= TRAIN_PARITY_TOL):
+        raise AssertionError(f"fp32 loss or gradients through the kernels "
+                             f"differ from the plain versions': {out}")
+    if row_faults or not max(ratio) <= BF16_GRAD_RMS_RATIO:
+        raise AssertionError(f"bf16 gradients through the kernels fail the "
+                             f"flash backward's gates: {out}")
+    return out
+
+
+def init_timed(cfg, seed: int):
+    """``cfg``'s parameters on the card from ``seed``, and the seconds."""
+    import torch
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = time.perf_counter()
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t
+
+
+# ---------------------------------------------------------------------------
+# qwen3-14b and granite-8b, served
+# ---------------------------------------------------------------------------
+
+def dense_phases(seed: int):
+    """Each DENSE_SERVE config at full width and depth through model_phase
+    (prefill [1, PREFILL_TOKENS], served requests, sessions in the store),
+    then its cut of DENSE_PARITY_LAYERS layers, fp32, through
+    prefill_parity_phase; emits the lines, returns the model lines by
+    arch."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+
+    lines = {}
+    for arch, param_dtype in DENSE_SERVE:
+        tag = arch.replace("-", "_")
+        cfg = replace(get_config(arch), param_dtype=param_dtype)
+        params, init_s = init_timed(cfg, seed)
+        line = model_phase(cfg, params, seed, phase=f"{tag}_model")
+        line.update(param_count=count_params(cfg), init_s=init_s,
+                    heads=[cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim])
+        emit(line)
+        lines[arch] = line
+        del params
+        torch.cuda.empty_cache()
+        emit(prefill_parity_phase(
+            f"{tag}_parity", replace(replace_layers(
+                get_config(arch), DENSE_PARITY_LAYERS),
+                compute_dtype="float32"), (1, DENSE_PARITY_TOKENS), seed))
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# hubert-xlarge, the audio encoder
+# ---------------------------------------------------------------------------
 
 def audio_model_phase(cfg, params, seed: int, device="cuda"):
     """hubert-xlarge's prefill through make_prefill_step on frame
@@ -2938,7 +3482,7 @@ def audio_model_phase(cfg, params, seed: int, device="cuda"):
     from repro_torch.launch.steps import make_prefill_step
 
     prefill = make_prefill_step(cfg)
-    batch = audio_batch(cfg, AUDIO_PREFILL, seed + 1, device=device)
+    batch = embedding_batch(cfg, AUDIO_PREFILL, seed + 1, device=device)
     secs, launches, peaks = [], [], []
     for _ in range(1 + AUDIO_PREFILL_REPS):
         torch.cuda.reset_peak_memory_stats()
@@ -2982,227 +3526,10 @@ def audio_trace_phase(cfg, params, seed: int):
     from repro_torch.launch.steps import make_prefill_step
 
     prefill = make_prefill_step(cfg)
-    batch = audio_batch(cfg, AUDIO_PREFILL, seed + 1)
+    batch = embedding_batch(cfg, AUDIO_PREFILL, seed + 1)
     out = {"phase": "audio_trace", "prefill_tokens": list(AUDIO_PREFILL),
            **traced_by_class(lambda: prefill(params, batch))}
     out["flash_share"] = out["device_share_by_class"]["flash_fwd"]
-    return out
-
-
-def audio_parity_phase(seed: int, device="cuda"):
-    """hubert-xlarge cut to AUDIO_PARITY_LAYERS layers at full width, fp32
-    compute: prefill logits of [1, AUDIO_PARITY_TOKENS] frames through the
-    kernels against the same parameters and frames through the plain
-    versions on the card, to PREFILL_DECODE_TOL."""
-    from dataclasses import replace
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import init_params
-
-    cfg = replace(replace_layers(get_config(AUDIO_ARCH),
-                                 AUDIO_PARITY_LAYERS),
-                  compute_dtype="float32")
-    gen = torch.Generator(device=device).manual_seed(seed + 4)
-    params = init_params(gen, cfg, device=device)
-    batch = audio_batch(cfg, (1, AUDIO_PARITY_TOKENS), seed + 5,
-                        device=device)
-    prefill = make_prefill_step(cfg)
-    FA.reset_launches()
-    got = prefill(params, batch)
-    torch.cuda.synchronize()
-    launches = FA.launches["flash_attention"]
-    with plain_attention():
-        FA.reset_launches()
-        want = prefill(params, batch)
-        plain_launches = FA.launches["flash_attention"]
-    err = float((got - want).abs().max())
-    out = {"phase": "audio_parity", "arch": cfg.name,
-           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-           "compute_dtype": cfg.compute_dtype,
-           "tokens": AUDIO_PARITY_TOKENS,
-           "flash_attention_launches": launches,
-           "plain_launches": plain_launches, "max_abs_logit_diff": err,
-           "max_abs_logit": float(want.abs().max()),
-           "tol": PREFILL_DECODE_TOL}
-    if device == "cuda" and launches != cfg.n_layers or plain_launches:
-        raise AssertionError(f"parity prefill launched flash_attention "
-                             f"{launches} times (plain {plain_launches}), "
-                             f"expected {cfg.n_layers} (0)")
-    if not err <= PREFILL_DECODE_TOL:
-        raise AssertionError(f"logits through the kernels differ from the "
-                             f"plain versions' by {err} > "
-                             f"{PREFILL_DECODE_TOL}")
-    return out
-
-
-def audio_train_phase(seed: int, device="cuda"):
-    """hubert-xlarge at full width and depth (fp32 parameters and AdamW
-    moments, bf16 compute, remat) through make_train_step, as
-    tests/test_arch_smoke.py trains it (the token pipeline has no frame
-    embeddings): TRAIN_STEPS timed steps on one seeded batch of frame
-    embeddings and labels [AUDIO_TRAIN], each launching the flash forward
-    twice a layer (remat's recompute) and its backward once (counts zeroed
-    just before the steps and read after each), then one more step traced
-    on the card (device time by kernel class); finite losses and norms,
-    parameters that move."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import count_params, init_params
-    from repro_torch.optim import AdamWConfig, init_opt_state
-
-    cfg = get_config(AUDIO_ARCH)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg, device=device)
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                          total_steps=TRAIN_STEPS + 1)
-    opt_state = init_opt_state(params, opt_cfg)
-    torch.cuda.synchronize()
-    out = {"phase": "audio_train", "arch": cfg.name,
-           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-           "param_count": count_params(cfg), "param_dtype": cfg.param_dtype,
-           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
-           "tokens": list(AUDIO_TRAIN), "init_s": time.perf_counter() - t,
-           "state_bytes": tree_bytes(params) + tree_bytes(opt_state)}
-    batch = audio_batch(cfg, AUDIO_TRAIN, seed + 6, labels=True,
-                        device=device)
-    step = make_train_step(cfg, opt_cfg)
-    wq = params["blocks"]["layer0"]["attn"]["wq"]
-    probe = {"wq": wq[0].clone(), "unembed": params["unembed"].clone()}
-    torch.cuda.reset_peak_memory_stats()
-    FA.reset_launches()
-    steps = []
-    for _ in range(TRAIN_STEPS):
-        fwd = FA.launches["flash_attention"]
-        bwd = FA.bwd_launches["flash_attention_bwd"]
-        t = time.perf_counter()
-        params, opt_state, metrics = step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t
-        steps.append({"s": sec, "tokens_per_s":
-                      AUDIO_TRAIN[0] * AUDIO_TRAIN[1] / sec,
-                      "loss": float(metrics["loss"]),
-                      "grad_norm": float(metrics["grad_norm"]),
-                      "flash_attention": FA.launches["flash_attention"] - fwd,
-                      "flash_attention_bwd":
-                          FA.bwd_launches["flash_attention_bwd"] - bwd})
-    out.update(steps=steps, launches={**FA.launches, **FA.bwd_launches},
-               peak_bytes=torch.cuda.max_memory_allocated(),
-               s_per_step_after_first=sum(r["s"] for r in steps[1:])
-               / max(len(steps) - 1, 1))
-    state = [params, opt_state]
-
-    def traced():
-        state[:] = step(*state, batch)[:2]
-    out["trace"] = traced_by_class(traced)
-    moved = {n: not torch.equal(a, b) for n, a, b in (
-        ("wq", wq[0], probe["wq"]),
-        ("unembed", params["unembed"], probe["unembed"]))}
-    out["params_moved"] = moved
-    bad = [r for r in steps if not (math.isfinite(r["loss"])
-                                    and math.isfinite(r["grad_norm"]))]
-    if bad or not all(moved.values()):
-        raise AssertionError(f"training gave non-finite losses or norms "
-                             f"{bad}, or left parameters in place {moved}")
-    want = ((2 if cfg.remat else 1) * cfg.n_layers, cfg.n_layers)
-    per_step = [(r["flash_attention"], r["flash_attention_bwd"])
-                for r in steps]
-    if device == "cuda" and per_step != [want] * TRAIN_STEPS:
-        raise AssertionError(f"flash launches per step {per_step}, expected "
-                             f"{want} (forward with its recompute, "
-                             f"backward)")
-    del state, params, opt_state, batch
-    torch.cuda.empty_cache()
-    return out
-
-
-def audio_train_parity_phase(seed: int, device="cuda"):
-    """hubert-xlarge cut to AUDIO_PARITY_LAYERS layers at full width, remat,
-    frames [1, AUDIO_PARITY_TOKENS]: the loss and every gradient leaf
-    through the flash kernels against the same through the plain versions
-    on the card, (a) in fp32 compute within TRAIN_PARITY_TOL (the FMA
-    kernels), (b) in bf16 compute (the wgmma kernels) under the flash
-    backward's two gates: each leaf within ref.BF16_GRAD_ROW_TOL of the
-    plain bf16 version's by grad_row_err, and its RMS distance from the
-    exact gradient (the plain versions in fp32, (a)'s reference) within
-    ref.BF16_GRAD_RMS_RATIO of the plain bf16 version's by grad_rms_err.
-    The worst leaves are named."""
-    from dataclasses import replace
-
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.flash_attention.ref import (
-        BF16_GRAD_RMS_RATIO, BF16_GRAD_ROW_TOL, grad_rms_err, grad_row_err,
-    )
-    from repro_torch.models import init_params
-
-    base = replace_layers(get_config(AUDIO_ARCH), AUDIO_PARITY_LAYERS)
-    tokens = (1, AUDIO_PARITY_TOKENS)
-    gen = torch.Generator(device=device).manual_seed(seed + 7)
-    params = init_params(gen, base, device=device)
-    names = leaf_paths(params)
-    out = {"phase": "audio_train_parity", "arch": base.name,
-           "n_layers": base.n_layers, "d_model": base.d_model,
-           "heads": [base.n_heads, base.n_kv_heads, base.head_dim],
-           "remat": base.remat, "tokens": list(tokens),
-           "grad_leaves": len(names)}
-    want_launches = {"flash_attention":
-                     (2 if base.remat else 1) * base.n_layers,
-                     "flash_attention_bwd": base.n_layers}
-    grads = {}
-    for dtype in ("float32", "bfloat16"):
-        cfg = replace(base, compute_dtype=dtype)
-        batch = audio_batch(cfg, tokens, seed + 8, labels=True,
-                            device=device)
-        FA.reset_launches()
-        loss, got = loss_and_grads(params, batch, cfg)
-        torch.cuda.synchronize()
-        launches = {**FA.launches, **FA.bwd_launches}
-        with plain_attention():
-            FA.reset_launches()
-            want_loss, want = loss_and_grads(params, batch, cfg)
-            plain = {**FA.launches, **FA.bwd_launches}
-        if device == "cuda" and launches != want_launches or \
-                set(plain.values()) != {0}:
-            raise AssertionError(f"{dtype} parity launches {launches}, "
-                                 f"plain {plain}")
-        grads[dtype] = got, want
-        out[dtype] = {"loss": float(loss),
-                      "loss_abs_diff": abs(float(loss) - float(want_loss)),
-                      "kernel_launches": launches}
-    got, exact = grads["float32"]
-    rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
-           for g, w in zip(got, exact)]
-    f32 = out["float32"]
-    f32.update(grad_max_rel_diff=max(rel), tol=TRAIN_PARITY_TOL,
-               worst_leaves=sorted(zip(rel, names), reverse=True)[:3])
-    got, plain = grads["bfloat16"]
-    row = [grad_row_err(g, w) for g, w in zip(got, plain)]
-    ratio = [grad_rms_err(g, e) / max(grad_rms_err(w, e), 1e-30)
-             for g, w, e in zip(got, plain, exact)]
-    out["bfloat16"].update(
-        grad_max_row_err=max(row), row_tol=BF16_GRAD_ROW_TOL,
-        worst_row_leaves=sorted(zip(row, names), reverse=True)[:3],
-        grad_max_rms_err_ratio=max(ratio), rms_ratio_tol=BF16_GRAD_RMS_RATIO,
-        worst_ratio_leaves=sorted(zip(ratio, names), reverse=True)[:3])
-    del params, grads, got, plain, exact
-    torch.cuda.empty_cache()
-    if not (f32["loss_abs_diff"] <= TRAIN_PARITY_TOL
-            and max(rel) <= TRAIN_PARITY_TOL):
-        raise AssertionError(f"fp32 loss or gradients through the kernels "
-                             f"differ from the plain versions': {out}")
-    if not (max(row) <= BF16_GRAD_ROW_TOL
-            and max(ratio) <= BF16_GRAD_RMS_RATIO):
-        raise AssertionError(f"bf16 gradients through the kernels fail the "
-                             f"flash backward's gates: {out}")
     return out
 
 
@@ -3210,27 +3537,168 @@ def audio_phases(seed: int):
     """Run and emit the five audio phases in order; returns the
     audio_model and audio_train lines (the kernels line reads their
     launches)."""
+    from dataclasses import replace
+
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import count_params, init_params
+    from repro_torch.models import count_params
 
     cfg = get_config(AUDIO_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    params, init_s = init_timed(cfg, seed)
     audio = audio_model_phase(cfg, params, seed)
     audio.update(param_count=count_params(cfg), init_s=init_s)
     emit(audio)
     emit(audio_trace_phase(cfg, params, seed))
     del params
     torch.cuda.empty_cache()
-    emit(audio_parity_phase(seed))
-    audio_train = audio_train_phase(seed)
+    cut = replace_layers(cfg, AUDIO_PARITY_LAYERS)
+    emit(prefill_parity_phase(
+        "audio_parity", replace(cut, compute_dtype="float32"),
+        (1, AUDIO_PARITY_TOKENS), seed))
+    audio_train = step_train_phase("audio_train", cfg, AUDIO_TRAIN, seed)
     emit(audio_train)
-    emit(audio_train_parity_phase(seed))
+    emit(grad_parity_phase("audio_train_parity", cut,
+                           (1, AUDIO_PARITY_TOKENS), seed))
     return audio, audio_train
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl-7b: embeddings and image-style M-RoPE positions
+# ---------------------------------------------------------------------------
+
+def vl_model_phase(cfg, params, seed: int):
+    """qwen2-vl-7b's prefill of embeddings [VL_PREFILL] with image-style
+    positions through make_prefill_step: a warm-up and a timed run, each
+    launching the flash kernel's position instance once a layer and the
+    index instance never (counts zeroed just before each run, read just
+    after); then VL_DECODE_STEPS decode steps of embeddings through
+    make_decode_step from an empty cache of SERVE_MAX_LEN.  Seconds and
+    the peak device memory of each."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+
+    prefill = make_prefill_step(cfg)
+    batch = embedding_batch(cfg, VL_PREFILL, seed + 1)
+    out = {"phase": "vl_model", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype,
+           "param_bytes": tree_bytes(params),
+           "prefill_tokens": list(VL_PREFILL),
+           "positions": f"text {MROPE_TEXT}, image {MROPE_IMAGE} "
+                        f"({MROPE_IMAGE // MROPE_GRID_WIDTH} x "
+                        f"{MROPE_GRID_WIDTH} patches), text"}
+    secs, launches = [], []
+    for _ in ("warm-up", "timed"):
+        torch.cuda.reset_peak_memory_stats()
+        FA.reset_launches()
+        t = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        launches.append(dict(FA.instance_launches))
+        peak = torch.cuda.max_memory_allocated()   # before the checks' own
+        if tuple(logits.shape) != (*VL_PREFILL, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"are not finite or of the wrong shape")
+        del logits
+    want = expect_instances(cfg, batch, 1)
+    if launches != [want] * 2:
+        raise AssertionError(f"flash_attention launches per prefill by "
+                             f"instance {launches}, expected {want}")
+    n_tok = VL_PREFILL[0] * VL_PREFILL[1]
+    out.update({"prefill_s": {"warm_up": secs[0], "timed": secs[1]},
+                "prefill_tokens_per_s": n_tok / secs[1],
+                "flash_attention_launches": launches[1],
+                "prefill_peak_bytes": peak})
+    del batch
+    torch.cuda.empty_cache()
+
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, VL_PREFILL[0], SERVE_MAX_LEN)
+    emb = embedding_batch(cfg, (VL_DECODE_STEPS, VL_PREFILL[0]),
+                          seed + 2)["embeddings"]
+    torch.cuda.reset_peak_memory_stats()
+    FA.reset_launches()
+    finite = []
+    t = time.perf_counter()
+    for pos in range(VL_DECODE_STEPS):
+        logits, cache = step(params, cache, emb[pos], pos)
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    if not bool(torch.stack(finite).all()):
+        raise AssertionError("decode logits are not finite")
+    out["decode"] = {"steps": VL_DECODE_STEPS, "max_len": SERVE_MAX_LEN,
+                     "seconds": decode_s,
+                     "s_per_decode_step": decode_s / VL_DECODE_STEPS,
+                     "flash_attention_launches": FA.launches[
+                         "flash_attention"],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+    del cache, emb
+    torch.cuda.empty_cache()
+    return out
+
+
+def vl_trace_phase(cfg, params, seed: int):
+    """One qwen2-vl-7b prefill at VL_PREFILL and VL_DECODE_STEPS decode
+    steps, each traced on the card: device time by kernel class, the
+    flash kernel's share, the idle share and the top device events."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+
+    prefill = make_prefill_step(cfg)
+    batch = embedding_batch(cfg, VL_PREFILL, seed + 1)
+    out = {"phase": "vl_trace", "prefill_tokens": list(VL_PREFILL),
+           "decode_steps": VL_DECODE_STEPS,
+           "prefill": traced_by_class(lambda: prefill(params, batch))}
+    out["flash_share"] = out["prefill"]["device_share_by_class"][
+        "flash_fwd"]
+    del batch
+    torch.cuda.empty_cache()
+    step = make_decode_step(cfg)
+    cache = init_cache(cfg, VL_PREFILL[0], SERVE_MAX_LEN)
+    emb = embedding_batch(cfg, (VL_DECODE_STEPS, VL_PREFILL[0]),
+                          seed + 2)["embeddings"]
+    out["decode"] = traced_by_class(lambda: [
+        step(params, cache, emb[pos], pos) for pos in range(VL_DECODE_STEPS)])
+    return out
+
+
+def vl_phases(seed: int):
+    """Run and emit the five qwen2-vl-7b phases in order (vl_model,
+    vl_trace, vl_parity, vl_train, vl_train_parity); returns the vl_model
+    and vl_train lines (the kernels line reads their launches)."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+
+    cfg = get_config(VL_ARCH)
+    params, init_s = init_timed(cfg, seed)
+    vl = vl_model_phase(cfg, params, seed)
+    vl.update(param_count=count_params(cfg), init_s=init_s)
+    emit(vl)
+    emit(vl_trace_phase(cfg, params, seed))
+    del params
+    torch.cuda.empty_cache()
+    emit(prefill_parity_phase(
+        "vl_parity", replace(replace_layers(cfg, VL_PARITY_LAYERS),
+                             compute_dtype="float32"),
+        (1, VL_PARITY_TOKENS), seed))
+    vl_train = step_train_phase(
+        "vl_train", replace_layers(cfg, VL_TRAIN_LAYERS), VL_TRAIN, seed)
+    emit(vl_train)
+    emit(grad_parity_phase(
+        "vl_train_parity", replace_layers(cfg, VL_PARITY_LAYERS),
+        (1, VL_PARITY_TOKENS), seed))
+    return vl, vl_train
 
 
 # ---------------------------------------------------------------------------
@@ -3246,10 +3714,10 @@ def tree_to(tree, device):
 
 def smoke_run(cfg, params, batch, device):
     """One prefill of ``batch``, SMOKE_DECODE_STEPS decode steps over its
-    first positions from an empty cache (decoders), and, but for the MoE
-    configs, the loss and every gradient leaf and one make_train_step,
-    through launch/steps.py on ``device``: the results on the host and
-    the kernels' launches (zeroed just before, read just after)."""
+    first positions from an empty cache (decoders), the loss and every
+    gradient leaf and one make_train_step, through launch/steps.py on
+    ``device``: the results on the host and the kernels' launches (zeroed
+    just before, read just after)."""
     import torch
     from repro_torch.kernels import flash_attention as FA, ssd_scan as SS
     from repro_torch.launch.steps import (
@@ -3273,12 +3741,11 @@ def smoke_run(cfg, params, batch, device):
         for pos in range(SMOKE_DECODE_STEPS):
             logits, cache = step(p, cache, x[:, pos], pos)
             out["decode"].append(logits.cpu())
-    if not cfg.moe_experts:
-        loss, grads = loss_and_grads(p, b, cfg)
-        out["loss"], out["grads"] = float(loss), [g.cpu() for g in grads]
-        opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
-        _, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), b)
-        out["step"] = (float(m["loss"]), float(m["grad_norm"]))
+    loss, grads = loss_and_grads(p, b, cfg)
+    out["loss"], out["grads"] = float(loss), [g.cpu() for g in grads]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    _, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), b)
+    out["step"] = (float(m["loss"]), float(m["grad_norm"]))
     out["seconds"] = time.perf_counter() - t
     out["launches"] = {**FA.launches, **FA.bwd_launches, **SS.launches,
                        **SS.bwd_launches}
@@ -3288,11 +3755,11 @@ def smoke_run(cfg, params, batch, device):
 def smoke_configs_phase(seed: int):
     """Every registry config's .smoke() (head_dim 16), fp32 compute, random
     parameters from --seed made on the host: its prefill of tokens (or
-    frame embeddings) SMOKE_TOKENS, SMOKE_DECODE_STEPS decode steps, and,
-    but for the MoE configs (whose train step no CPU twin holds yet), the
-    loss, every gradient leaf and one make_train_step, on the card against
-    the port's CPU run of the same parameters and inputs, within
-    SMOKE_TOL; each layer's kernels launched as often as the path asks
+    frame embeddings) SMOKE_TOKENS, SMOKE_DECODE_STEPS decode steps, the
+    loss, every gradient leaf and one make_train_step (the MoE configs'
+    with real fp32 routers, as tests/test_torch_train.py holds them against
+    the JAX package), on the card against the port's CPU run of the same
+    parameters and inputs, within SMOKE_TOL; each layer's kernels launched as often as the path asks
     (flash_attention for attention, ssd_scan for Mamba layers)."""
     from dataclasses import replace
 
@@ -3332,21 +3799,17 @@ def smoke_configs_phase(seed: int):
         mixers = [spec.mixer for spec in cfg.pattern]
         n_attn = cfg.n_groups * sum(m.startswith("attn") for m in mixers)
         n_ssm = cfg.n_groups * mixers.count("mamba")
-        passes = 1
-        if "grads" in want:
-            passes = 3                      # prefill, gradients, the step
-            rel = [float((g - w).abs().max()
-                         / w.abs().max().clamp_min(1e-30))
-                   for g, w in zip(got["grads"], want["grads"])]
-            worst = max(range(len(rel)), key=rel.__getitem__)
-            row.update(
-                loss=want["loss"],
-                loss_abs_diff=abs(got["loss"] - want["loss"]),
-                grad_leaves=len(rel), grad_max_rel_diff=rel[worst],
-                worst_leaf=leaf_paths(params)[worst],
-                step_loss_abs_diff=abs(got["step"][0] - want["step"][0]),
-                step_grad_norm_rel_diff=abs(got["step"][1] - want["step"][1])
-                / max(1.0, want["step"][1]))
+        passes = 3                          # prefill, gradients, the step
+        rel = [float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(got["grads"], want["grads"])]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        row.update(
+            loss=want["loss"], loss_abs_diff=abs(got["loss"] - want["loss"]),
+            grad_leaves=len(rel), grad_max_rel_diff=rel[worst],
+            worst_leaf=leaf_paths(params)[worst],
+            step_loss_abs_diff=abs(got["step"][0] - want["step"][0]),
+            step_grad_norm_rel_diff=abs(got["step"][1] - want["step"][1])
+            / max(1.0, want["step"][1]))
         expect = {"flash_attention": passes * n_attn,
                   "flash_attention_bwd": (passes - 1) * n_attn,
                   "ssd_scan": passes * n_ssm,
@@ -3507,13 +3970,14 @@ def ptxas_lines(log: str):
 
 #: the phase lines kernels_summary reads launches from
 SUMMARY_LINES = ("store", "trace", "model", "moe", "ssm", "ssm_train",
-                 "train", "audio", "audio_train", "smoke", "examples")
+                 "train", "audio", "audio_train", "smoke", "examples",
+                 "qwen3-14b", "granite-8b", "vl", "vl_train", "moe_train")
 
 
 def kernels_summary(rows, lines):
     """The last lines' per-kernel summary: one entry per main-path row of
     ``rows`` (the kernels line), its launches read from the phase line of
-    ``lines`` (SUMMARY_LINES) that drives it."""
+    ``lines`` (keyed by SUMMARY_LINES) that drives it."""
     replaces = {
         "dvv_sync_mask": "src/repro/kernels/dvv_ops/dvv_ops.py:95",
         "dvv_read_sweep": "src/repro/kernels/dvv_ops/ops.py:47",
@@ -3534,11 +3998,24 @@ def kernels_summary(rows, lines):
     # launches of the run that drives that width in that dtype (quickstart
     # bf16 at 16, train_e2e bf16 at 32, smoke_configs fp32 at 16)
     store, trace, model, moe, ssm, ssm_train, train, audio, audio_train, \
-        smoke, examples = (lines[k] for k in SUMMARY_LINES)
+        smoke, examples, qwen3_14b, granite_8b, vl, vl_train, moe_train = (
+            lines[k] for k in SUMMARY_LINES)
     runs = examples["runs"]
     flash_paths = {
         "global": ("model", model["flash_attention_launches"], None),
         "qwen3_moe": ("moe_model", moe["flash_attention_launches"], None),
+        "qwen3_14b": ("qwen3_14b_model",
+                      qwen3_14b["flash_attention_launches"], None),
+        "granite_8b": ("granite_8b_model",
+                       granite_8b["flash_attention_launches"], None),
+        # the position instance: qwen2-vl-7b's prefill and training
+        "mrope_positions": ("vl_model",
+                            vl["flash_attention_launches"]["positions"],
+                            None),
+        "vl_train": ("vl_train", None,
+                     vl_train["instance_launches"]["bwd"]["positions"]),
+        "qwen3_moe_train": ("moe_train", None,
+                            moe_train["launches"]["flash_attention_bwd"]),
         "hubert": ("audio_model, audio_train",
                    audio["flash_attention_launches"],
                    audio_train["launches"]["flash_attention_bwd"]),
@@ -3639,7 +4116,7 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan.ssd_scan import build as build_ssd
-    from repro_torch.models import count_params, init_params
+    from repro_torch.models import count_params
 
     # IEEE fp32 for every fp32 product, the plain versions' included
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3673,11 +4150,7 @@ def main() -> int:
     emit(examples)
 
     cfg = get_config(ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    params, init_s = init_timed(cfg, args.seed)
     model = model_phase(cfg, params, args.seed)
     model.update(param_count=count_params(cfg), init_s=init_s)
     emit(model)
@@ -3687,11 +4160,7 @@ def main() -> int:
     emit(model_parity_phase(args.seed))
 
     cfg = get_config(SSM_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    params, init_s = init_timed(cfg, args.seed)
     ssm = model_phase(cfg, params, args.seed, phase="ssm_model",
                       tokens=SSM_PREFILL, kernel=SS)
     ssm.update(param_count=count_params(cfg), init_s=init_s)
@@ -3703,11 +4172,7 @@ def main() -> int:
     emit(ssm_parity_phase(args.seed))
 
     cfg = replace(get_config(MOE_ARCH), param_dtype=MOE_PARAM_DTYPE)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
+    params, init_s = init_timed(cfg, args.seed)
     moe = model_phase(cfg, params, args.seed, phase="moe_model",
                       tokens=MOE_PREFILL)
     moe.update(param_count=count_params(cfg),
@@ -3716,11 +4181,13 @@ def main() -> int:
     emit(moe)
     moe_trace = model_trace_phase(cfg, params, args.seed, phase="moe_trace",
                                   tokens=MOE_PREFILL)
-    moe_trace["breakdown"] = moe_breakdown(cfg, params, MOE_PREFILL)
+    moe_trace["breakdown"] = moe_prefill_breakdown(cfg, params, MOE_PREFILL)
     emit(moe_trace)
     del params
     torch.cuda.empty_cache()
     emit(moe_parity_phase(args.seed))
+    dense = dense_phases(args.seed)
+    vl = vl_phases(args.seed)
 
     train = train_phase(args.seed)
     emit(train)
@@ -3729,6 +4196,7 @@ def main() -> int:
                             kernel=SS, save=False)
     emit(ssm_train)
     emit(ssm_train_parity_phase(args.seed))
+    moe_train = moe_train_phases(args.seed)
     audio, audio_train = audio_phases(args.seed)
     emit(dryrun_phase(smi, {
         TRAIN_ARCH: train["s_per_step_after_first"],
@@ -3737,7 +4205,8 @@ def main() -> int:
     summary = kernels_summary(rows, dict(
         store=store, trace=trace, model=model, moe=moe, ssm=ssm,
         ssm_train=ssm_train, train=train, audio=audio,
-        audio_train=audio_train, smoke=smoke, examples=examples))
+        audio_train=audio_train, smoke=smoke, examples=examples, **dense,
+        vl=vl[0], vl_train=vl[1], moe_train=moe_train))
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     emit({"kernels": summary})
     print(smi, flush=True)

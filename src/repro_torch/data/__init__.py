@@ -1,3 +1,6 @@
-from .pipeline import MemmapTokens, PipelineConfig, SyntheticTokens
+from .pipeline import (
+    MemmapTokens, PipelineConfig, SyntheticTokens, image_positions,
+)
 
-__all__ = ["PipelineConfig", "SyntheticTokens", "MemmapTokens"]
+__all__ = ["PipelineConfig", "SyntheticTokens", "MemmapTokens",
+           "image_positions"]

@@ -168,3 +168,25 @@ class MemmapTokens:
         rows = rows.astype(np.int32) % c.vocab_size
         self.cursor += c.global_batch
         return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+
+def image_positions(S: int, text: int, image: int, width: int,
+                    batch: int | None = None) -> np.ndarray:
+    """M-RoPE positions [3, S] (temporal, height, width) of a sequence that
+    holds ``text`` text tokens, then an image of ``image`` patches laid out
+    ``width`` patches a row, then text to the end: the image's temporal id
+    repeats while its height and width rows walk the grid, and text
+    carries its id on all three rows.  With ``batch``, [3, batch, S], every
+    row alike."""
+    if text + image > S:
+        raise ValueError(f"{text} text tokens and {image} patches do not "
+                         f"fit in {S}")
+    t = np.concatenate([np.arange(text), np.full(image, text),
+                        np.arange(text + 1, S - image + 1)])
+    h, w = t.copy(), t.copy()
+    h[text:text + image] = text + np.arange(image) // width
+    w[text:text + image] = text + np.arange(image) % width
+    pos = np.stack([t, h, w]).astype(np.int32)
+    if batch is None:
+        return pos
+    return np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, batch, S)))

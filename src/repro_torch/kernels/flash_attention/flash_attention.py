@@ -18,7 +18,8 @@ the build raises.
 Launch: ``attend`` checks device, dtype, shape and layout, allocates the
 output with ``torch.empty``, launches on PyTorch's current stream without
 synchronising, raises if the C entry point reports a CUDA error, and adds
-one to ``launches["flash_attention"]``.  With ``positions`` it masks by
+one to ``launches["flash_attention"]`` (and to ``instance_launches``
+under "index" or "positions").  With ``positions`` it masks by
 position through the kernels' second instance (``flash_attention_pos_launch``,
 which also writes each tile's least and greatest position into scratch the
 wrapper allocates).  The bf16 kernel reads q, k and v
@@ -40,7 +41,8 @@ launch when not given) and the output's gradient and returns dq, dk and
 dv (source note at the top of ``flash_attention_bwd.cu``).  It allocates
 the fp32 row scratch and, when the key tiles alone would leave the card's
 SMs idle, fp32 partials of dk and dv that the last kernel sums
-(``kv_splits``), and adds one to ``bwd_launches["flash_attention_bwd"]``.
+(``kv_splits``), and adds one to ``bwd_launches["flash_attention_bwd"]``
+(and to ``bwd_instance_launches``).
 bf16 runs on ``wgmma`` fed by TMA (q, k, v and dout must follow TMA's
 rules, as in the forward), fp32 on fp32 FMAs reading views with 16-byte
 copies; ``bwd_layout_fault`` says what a view lacks for either.
@@ -70,6 +72,9 @@ DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 launches: Dict[str, int] = {"flash_attention": 0}
 #: Launches of the backward since the last ``reset_launches``.
 bwd_launches: Dict[str, int] = {"flash_attention_bwd": 0}
+#: The same launches by mask instance: by index, or by ``positions``.
+instance_launches: Dict[str, int] = {"index": 0, "positions": 0}
+bwd_instance_launches: Dict[str, int] = {"index": 0, "positions": 0}
 FMA_KEY_TILE = 32                # keys per block of the fp32-FMA dk/dv kernel
 WGMMA_TILE = 64                  # q rows and keys per tile of the bf16 kernels
 
@@ -80,6 +85,9 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     launches["flash_attention"] = 0
     bwd_launches["flash_attention_bwd"] = 0
+    for counts in (instance_launches, bwd_instance_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def build() -> Path:
@@ -226,6 +234,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed with CUDA "
                            f"error {err}")
     launches["flash_attention"] += 1
+    instance_launches["index" if positions is None else "positions"] += 1
     return (out, lse, out32) if stats else out
 
 
@@ -371,4 +380,5 @@ def attend_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention backward launch failed with "
                            f"CUDA error {err}")
     bwd_launches["flash_attention_bwd"] += 1
+    bwd_instance_launches["index" if positions is None else "positions"] += 1
     return dq, dk, dv

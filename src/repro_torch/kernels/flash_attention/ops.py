@@ -11,8 +11,9 @@ directly, with no statistics. A second derivative through the
 backward kernel raises (``once_differentiable``) instead of reading as
 zero. A tensor on the card always goes to the kernels: if they cannot be
 built or launched, the call raises; there is no fallback. ``launches``
-and ``bwd_launches`` count the kernel launches; ``reset_launches`` zeroes
-both.
+and ``bwd_launches`` count the kernel launches, ``instance_launches`` and
+``bwd_instance_launches`` the same launches by mask instance ("index" or
+"positions"); ``reset_launches`` zeroes them all.
 
 ``block_q`` and ``block_k`` are accepted for the JAX package's signature:
 they shape the TPU kernel's grid and change nothing here (the CUDA kernel
@@ -26,7 +27,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import flash_attention as _cuda
-from .flash_attention import bwd_launches, launches, reset_launches
+from .flash_attention import (  # noqa: F401  (re-exported)
+    bwd_instance_launches, bwd_launches, instance_launches, launches,
+    reset_launches,
+)
 from .ref import flash_attention_ref
 
 

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import DVV_MECHANISM
 from repro_torch.core import batched as TB
+from repro_torch.data import image_positions
 from repro_torch.kernels.dvv_ops import ops, ref
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention.ref import (
@@ -1352,6 +1353,12 @@ def test_flash_wrapper_rejects_bad_positions(cuda):
         FA.gqa_flash_attention(q, k[:, :32], v[:, :32], positions=pos)
 
 
+def _image_positions(B):
+    """M-RoPE positions [3, B, 160] for every batch row: text ids 0..15,
+    an image of 64 patches on an 8 x 8 grid, then text ids 17..96."""
+    return torch.from_numpy(image_positions(160, 16, 64, 8, B))
+
+
 @pytest.mark.parametrize("head_dim", [64, 16])
 def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32,
                                                      head_dim):
@@ -1368,12 +1375,7 @@ def test_mrope_prefill_on_the_card_masks_by_position(cuda, ieee_fp32,
     rng = np.random.default_rng(0)
     emb = torch.from_numpy(rng.normal(size=(2, 160, cfg.d_model)).astype(
         np.float32))
-    t = np.concatenate([np.arange(16), np.full(64, 16), np.arange(17, 97)])
-    h, w = t.copy(), t.copy()
-    h[16:80] = 16 + np.arange(64) // 8
-    w[16:80] = 16 + np.arange(64) % 8
-    pos = torch.from_numpy(np.broadcast_to(
-        np.stack([t, h, w])[:, None], (3, 2, 160)).astype(np.int32))
+    pos = _image_positions(2)
     prefill = make_prefill_step(cfg)
     want = prefill(params, {"embeddings": emb, "positions": pos})
     index = prefill(params, {"embeddings": emb})
@@ -1815,6 +1817,105 @@ def test_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32,
             assert float((a - b).abs().max()) <= 2 * opt.lr + 1e-5
         assert fwd["flash_attention"] == cfg.n_layers * (2 if remat else 1)
         assert bwd["flash_attention_bwd"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: GQA groups of 5 and 7, and qwen2-vl-7b's training
+# ---------------------------------------------------------------------------
+
+#: (query heads, KV heads) of qwen3-14b (G 5) and qwen2-vl-7b (G 7): the
+#: backward's kv_splits takes the least divisor of G that fills the card,
+#: so a prime G splits a key tile's query heads over G blocks or not at all
+PRIME_GROUPS = {"qwen3_14b": (40, 8), "qwen2_vl_7b": (28, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", list(PRIME_GROUPS))
+@pytest.mark.parametrize("positions", [False, True])
+@pytest.mark.parametrize("S", [200, 4224])
+def test_flash_kernels_at_prime_gqa_groups(cuda, ieee_fp32, dtype, heads,
+                                           positions, S):
+    """D 128, causal, masks by index or by an image's positions (one
+    temporal id over half the sequence): the forward and the backward
+    against the plain version.  In bf16 the backward splits each key
+    tile's G query heads over G blocks (fp32 partials, the ordered
+    reduce) at S 200, and over one block at S 4224 (528 or 264 key tiles
+    fill the card's 132 SMs twice)."""
+    from repro_torch.kernels.flash_attention import flash_attention as K
+
+    H, KV = PRIME_GROUPS[heads]
+    q, k, v = _qkv(1, S, H, KV, 128, dtype, cuda, seed=11)
+    pos = torch.from_numpy(_flash_positions(S)["repeated"].astype(
+        np.int32)).to(cuda) if positions else None
+    kw = dict(causal=True, positions=pos)
+    FA.reset_launches()
+    got = FA.gqa_flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    by = "positions" if positions else "index"
+    assert FA.instance_launches == {"index": 0, "positions": 0, by: 1}
+    _assert_flash_close(got, flash_attention_ref(q, k, v, **kw))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = K.kv_splits(1, KV, S, H // KV, sms, K.bwd_key_tile(dtype))
+    assert splits in (1, H // KV)
+    if dtype == torch.bfloat16 and sms == 132:
+        assert splits == (H // KV if S == 200 else 1)
+    grads, want = _bwd_case(q, k, v, **kw)
+    assert FA.bwd_instance_launches == {"index": 0, "positions": 0, by: 1}
+    _assert_grads_close(grads, want, q, k)
+
+
+@pytest.mark.parametrize("width", ["smoke", "qwen2_vl_heads"])
+def test_vl_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32,
+                                                        width):
+    """qwen2-vl-7b's smoke config (2 layers), fp32, on embeddings with
+    image-style M-RoPE positions [3, B, S]: one make_train_step on the card
+    (the flash kernels' position instances, forward and backward) against
+    the CPU's (plain versions): loss, gradient norm, moments and
+    parameters.  ``qwen2_vl_heads`` gives it qwen2-vl-7b's attention: 28
+    query heads of 128 over 4 KV heads (G 7)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = replace(get_config("qwen2-vl-7b").smoke(), compute_dtype="float32",
+                  remat=True)
+    if width == "qwen2_vl_heads":
+        cfg = replace(cfg, d_model=256, n_heads=28, n_kv_heads=4,
+                      head_dim=128)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    rng = np.random.default_rng(0)
+    B, S = 2, 160
+    batch = {
+        "embeddings": torch.from_numpy(rng.normal(
+            size=(B, S, cfg.d_model)).astype(np.float32)),
+        "labels": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)),
+        "positions": _image_positions(B)}
+    runs = []
+    for device in ("cpu", cuda):
+        params = _to(init_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu"), device)
+        state = init_opt_state(params, opt)
+        FA.reset_launches()
+        params, state, m = make_train_step(cfg, opt)(
+            params, state, {k: x.to(device) for k, x in batch.items()})
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     [p.cpu() for p in tree_leaves(params)],
+                     [x.cpu() for x in tree_leaves(state["m"])],
+                     dict(FA.instance_launches),
+                     dict(FA.bwd_instance_launches)))
+    (cl, cn, cp, cm, _, _), (gl, gn, gp, gm, fwd, bwd) = runs
+    assert abs(gl - cl) < 1e-4 and abs(gn - cn) < 1e-4 * max(1, cn)
+    for a, b, ma, mb in zip(gp, cp, gm, cm):
+        assert float((ma - mb).abs().max()) <= 1e-4 * float(
+            mb.abs().max().clamp_min(1e-30))
+        clear = mb.abs() >= 1e-7      # as the gemma-2b step test above
+        assert float(torch.where(clear, (a - b).abs(), 0.0).max()) < 1e-5
+        assert float((a - b).abs().max()) <= 2 * opt.lr + 1e-5
+    assert fwd == {"index": 0, "positions": 2 * cfg.n_layers}
+    assert bwd == {"index": 0, "positions": cfg.n_layers}
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ STORE_EXAMPLES = ("kvstore_demo", "shopping_cart", "sharded_cluster",
                   "gossip_churn", "geo_replication", "durable_restart")
 #: durable_restart.py's lines that count WAL bytes, by their start
 WAL_LINES = ("  b's log: ", "  b crashed: crash at byte ", "  replayed ")
-_HEX = re.compile(r"\b[0-9a-f]{16}\b")
+#: a 16-digit hex fingerprint, not the digits after a float's point
+_HEX = re.compile(r"(?<![.\d])\b[0-9a-f]{16}\b")
 _NUM = re.compile(r"-?\d+(?:[.,]\d+)*(?:e[+-]?\d+)?")
 
 

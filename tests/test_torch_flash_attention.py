@@ -331,3 +331,20 @@ def test_plain_version_at_small_head_dims_matches_jax_naive(D, mode):
         assert g.shape == t.shape
         w = np.asarray(w)
         assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+@pytest.mark.parametrize("G", [5, 7])
+def test_kv_splits_of_a_prime_group_is_one_block_or_one_per_head(G):
+    """qwen3-14b's GQA groups of 5 and qwen2-vl-7b's of 7: the backward's
+    dk/dv blocks per key tile are the least divisor of G that gives the
+    card's SMs (132 on an H100) two blocks each, so 1 where the key tiles
+    alone do and G elsewhere (each query head of the group its own
+    block)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        WGMMA_TILE, kv_splits,
+    )
+    for KV in (4, 8):
+        for Sk in (64, 200, 1024, 4096, 4224, 8192):
+            tiles = KV * -(-Sk // WGMMA_TILE)
+            want = 1 if tiles >= 2 * 132 else G
+            assert kv_splits(1, KV, Sk, G, 132, WGMMA_TILE) == want

@@ -36,6 +36,7 @@ from repro import configs as JC
 from repro.models import layers as JL
 from repro.models import lm as JM
 from repro_torch import configs as TC
+from repro_torch.data import image_positions
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TM
 
@@ -572,12 +573,7 @@ def _vl_positions(B=2):
     row: t = 0..3, then 4 sixteen times (an image's patches), then 5..16;
     h and w lay the sixteen patches out on a 4 x 4 grid (text tokens carry
     t on all three streams)."""
-    t = np.concatenate([np.arange(4), np.full(16, 4), np.arange(5, 17)])
-    h, w = t.copy(), t.copy()
-    h[4:20] = 4 + np.arange(16) // 4
-    w[4:20] = 4 + np.arange(16) % 4
-    return np.broadcast_to(np.stack([t, h, w])[:, None],
-                           (3, B, 32)).astype(np.int32)
+    return image_positions(32, 4, 16, 4, B)
 
 
 @pytest.mark.parametrize("arch", MORE_MODELS)

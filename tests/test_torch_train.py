@@ -16,10 +16,14 @@ by ``params_from_numpy``):
     worst row within 0.08 of the plain version's;
   * ``loss_fn`` and every gradient leaf against ``jax.value_and_grad`` of
     the JAX package's ``loss_fn`` on the smoke configs of gemma-2b,
-    gemma2-9b, qwen3-14b and mamba2-780m, fp32: the loss within 1e-5, each
-    leaf within 1e-4 of its largest magnitude (the sums of a backward pass
-    run in another order in each framework; the largest reading is 1.4e-5);
-  * one ``make_train_step`` against the JAX package's: moments and
+    gemma2-9b, qwen3-14b, mamba2-780m, granite-8b, the three MoE configs
+    (qwen3-moe-30b-a3b, grok-1-314b, jamba-1.5-large-398b; routers real,
+    their aux and z losses in the loss) and qwen2-vl-7b on embeddings with
+    image-style M-RoPE positions [3, B, S], fp32: the loss within 1e-5,
+    each leaf within 1e-4 of its largest magnitude (the sums of a backward
+    pass run in another order in each framework);
+  * one ``make_train_step`` of gemma-2b and of qwen3-moe-30b-a3b against
+    the JAX package's: moments and
     metrics within the same bounds, parameters within 1e-6 wherever the
     gradient is far above Adam's eps (its first step moves an entry by lr
     times the gradient's sign) and within 2 lr elsewhere;
@@ -61,6 +65,7 @@ from repro_torch import configs as TC
 from repro_torch.ckpt import CheckpointManager as TCkpt
 from repro_torch.core import DVV_MECHANISM as T_DVV
 from repro_torch.data import PipelineConfig as TPipe
+from repro_torch.data import image_positions
 from repro_torch.kernels.flash_attention.ref import (
     delta_ref, flash_attention_bwd_ref, flash_attention_ref,
     flash_attention_stats_ref, grad_row_err,
@@ -83,7 +88,12 @@ pytestmark = pytest.mark.torch
 
 GRAD_TOL = 1e-4       # each gradient leaf, of its largest magnitude
 LOSS_TOL = 1e-5
-ARCHS = ("gemma-2b", "gemma2-9b", "qwen3-14b", "mamba2-780m")
+ARCHS = ("gemma-2b", "gemma2-9b", "qwen3-14b", "mamba2-780m",
+         # the MoE configs (real routers: fp32 leaves no near-tie that
+         # turns an expert pair), granite-8b, and qwen2-vl-7b on
+         # embeddings with image-style M-RoPE positions (_model_batch)
+         "qwen3-moe-30b-a3b", "grok-1-314b", "jamba-1.5-large-398b",
+         "granite-8b", "qwen2-vl-7b")
 
 
 def _t(a):
@@ -295,6 +305,23 @@ def _batch(vocab, seed=1, shape=(2, 32)):
             for k in ("tokens", "labels")}
 
 
+def _model_batch(cfg, seed=1, shape=(2, 32)):
+    """``_batch`` for a token model; for an embedding-input model,
+    embeddings [B, S, d] ~ N(0, 1), labels, and with M-RoPE image-style
+    positions: S / 8 text tokens, an image of S / 2 patches on a grid
+    S / 8 wide, then text (``data.image_positions``)."""
+    if cfg.input_mode == "tokens":
+        return _batch(cfg.vocab_size, seed, shape)
+    rng = np.random.default_rng(seed)
+    batch = {"embeddings": rng.normal(size=(*shape, cfg.d_model)).astype(
+        np.float32),
+        "labels": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.mrope:
+        B, S = shape
+        batch["positions"] = image_positions(S, S // 8, S // 2, S // 8, B)
+    return batch
+
+
 def _grads(params, batch, cfg):
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     loss, _ = TM.loss_fn(tree_unflatten(params, leaves), batch, cfg)
@@ -305,7 +332,7 @@ def _grads(params, batch, cfg):
 def test_loss_and_every_gradient_leaf_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc)
-    batch = _batch(jc.vocab_size)
+    batch = _model_batch(jc)
     (want, _), jgrads = jax.value_and_grad(
         lambda p: JM.loss_fn(p, {k: jnp.asarray(v) for k, v in
                                  batch.items()}, jc), has_aux=True)(jp)
@@ -318,8 +345,9 @@ def test_loss_and_every_gradient_leaf_match_jax(arch):
         assert _rel(g, w) <= GRAD_TOL
 
 
-def test_train_step_matches_jax():
-    jc, tc = _cfgs("gemma-2b")
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-moe-30b-a3b"])
+def test_train_step_matches_jax(arch):
+    jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=3)
     cfg = dict(lr=1e-2, warmup_steps=1, total_steps=10)
     jo_cfg, to_cfg = JAdamW(**cfg), TAdamW(**cfg)

@@ -58,7 +58,8 @@ def main() -> int:
     CS.emit(moe)
     trace = CS.model_trace_phase(cfg, params, args.seed, phase="moe_trace",
                                  tokens=CS.MOE_PREFILL)
-    trace["breakdown"] = CS.moe_breakdown(cfg, params, CS.MOE_PREFILL)
+    trace["breakdown"] = CS.moe_prefill_breakdown(cfg, params,
+                                                  CS.MOE_PREFILL)
     CS.emit(trace)
     del params
     torch.cuda.empty_cache()
