@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m,
-qwen3-moe-30b-a3b, qwen3-14b and granite-8b serving, qwen2-vl-7b prefill,
+qwen3-moe-30b-a3b, grok-1-314b (full width, 6 layers), qwen3-14b and
+granite-8b serving, qwen2-vl-7b prefill,
 decode and training with image-style M-RoPE positions, gemma-2b, mamba2-780m
 and qwen3-moe-30b-a3b training, hubert-xlarge prefill and training, every
 config's smoke size, the nine examples) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, each printed as one JSON line; a failure in any phase raises and
-exits non-zero:
+Phases, each printed as one JSON line with at_s, the seconds since the
+script was loaded; a failure in any phase raises and exits non-zero:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
            versions, and the time to build the kernels with nvcc (one
@@ -35,8 +36,9 @@ exits non-zero:
            patches sharing one temporal id between text runs); at
            qwen3-moe-30b-a3b's prefill shape (q [1, 4096, 32, 128], 4 KV
            heads, bf16, causal, no softcap); at qwen3-14b's and
-           granite-8b's (q [1, 8192, 40 or 32, 128], 8 KV heads, bf16,
-           causal: GQA groups of 5 and 4); and at hubert-xlarge's
+           granite-8b's and grok-1-314b's (q [1, 8192, 40, 32 or 48,
+           128], 8 KV heads, bf16, causal: GQA groups of 5, 4 and 6); and
+           at hubert-xlarge's
            (bidirectional, 16 heads of 80 on 16 KV heads: bf16 [1, 32768],
            the audio_model prefill's, and fp32 [1, 1024]; where one call's
            fp32 scores would pass PLAIN_SCORE_BYTES, the plain version runs
@@ -144,7 +146,7 @@ exits non-zero:
            comes back in both.  The numpy twins give the same roots,
            snapshots and reads.
   smoke_configs  every registry config's .smoke() (head_dim 16; jamba-
-           1.5-large-398b and grok-1-314b run on the card only here), fp32
+           1.5-large-398b runs on the card only here), fp32
            compute, parameters from --seed made on the host: a prefill of
            SMOKE_TOKENS, 4 decode steps from an empty cache (decoders),
            the loss, every gradient leaf and one make_train_step through
@@ -216,6 +218,21 @@ exits non-zero:
            prefill's first-layer fraction_dropped equals a host recount
            (numpy, the per-slot occupancy loop) over the experts the card's
            router chose for that layer's input.
+  grok_model  grok-1-314b at its published widths (d_model 6144, 48 heads
+           over 8 KV heads of 128, 8 experts top-2 of d_ff 32,768 on
+           every layer, vocab 131,072, tied embeddings) cut to 6 layers,
+           30.33 B bf16 parameters (60.65 GB) from --seed, after
+           qwen3-moe's parity: as moe_model at tokens [1, 8192] (each
+           prefill launching flash_attention 6 times, every layer's
+           fraction_dropped), the 8 requests served and read back; beside
+           decode seconds a step, the step's bytes floor (every expert's
+           weights, read by the one-hot dispatch).
+  grok_trace  as moe_trace, for grok at [1, 8192].
+  grok_parity  the 2-layer cut in fp32 (42.58 GB): (a) as moe_parity's;
+           (b) logits of a [1, 2048] prefill through the kernels against
+           the plain versions on the card, to PREFILL_DECODE_TOL; (c) that
+           prefill's first-layer fraction_dropped against the host's
+           recount.
   qwen3_14b_model, granite_8b_model  as model, for qwen3-14b (40 layers,
            40 heads over 8 KV heads of 128, QK-norm; 14.77 B parameters in
            bf16, its published checkpoint's dtype: fp32 would leave no room
@@ -386,6 +403,7 @@ from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+LOADED = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.launch import roofline  # noqa: E402
@@ -457,6 +475,9 @@ E2E_HEADS = (8, 2, 32)                  # granite-mini, d_model 256
 # attention (served at full width and depth, [1, 8192])
 QWEN3_14B_HEADS = (40, 8, 128)
 GRANITE_8B_HEADS = (32, 8, 128)
+# a GQA group of 6: grok-1-314b's attention (served at full width, a cut of
+# GROK_LAYERS layers, [1, 8192])
+GROK_HEADS = (48, 8, 128)
 FLASH_ROWS = (
     ("local", "bfloat16", 1, 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
     ("global", "bfloat16", 1, 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
@@ -466,6 +487,7 @@ FLASH_ROWS = (
     ("qwen3_14b", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, QWEN3_14B_HEADS),
     ("granite_8b", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2,
      GRANITE_8B_HEADS),
+    ("grok", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, GROK_HEADS),
     ("hubert", "bfloat16", 1, 32768, False, 0, 0.0, 2e-2, AUDIO_HEADS),
     ("hubert_fp32", "float32", 1, 1024, False, 0, 0.0, 1e-5, AUDIO_HEADS),
     # head_dim 16 and 32: the examples' own shapes (quickstart.py's
@@ -531,6 +553,7 @@ SSD_BWD_ROWS = (
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_PARAM_DTYPE = "bfloat16"  # the published checkpoint's (hf:Qwen/Qwen3-
                               # 30B-A3B); fp32 master weights take 122 GB
+                              # (grok-1-314b's 19.7 GB a layer)
 MOE_PREFILL = (1, 4096)       # cut from prefill_32k's [32, 32768]: its fp32
                               # logits alone would be 637 GB (2.5 GB here)
 MOE_PARITY_LAYERS = 2
@@ -539,6 +562,26 @@ MOE_PARITY_TOKENS = 8
 MOE_TRAIN_LAYERS = 2          # cut from 48 (1.87 B parameters, 29.9 GB of
                               # fp32 parameters, gradients and moments);
                               # 4 layers (3.11 B) peaked at 75.7 GB
+
+# grok-1-314b (src/repro_torch/configs/grok_1_314b.py) at its published
+# widths, cut in depth, served as qwen3-moe-30b-a3b is (moe_phases)
+GROK_ARCH = "grok-1-314b"
+GROK_LAYERS = 6               # cut from 64: 30.33 B parameters, 60.65 GB
+GROK_PREFILL = (1, PREFILL_TOKENS)
+#: the parity cut's [1, 2048] prefill (42.58 GB of fp32 parameters), the
+#: kernels against the plain versions and the drop recount
+GROK_PARITY_TOKENS = (1, 2048)
+#: moe_phases' arguments by phase tag.  Only grok's parity holds the
+#: kernels against the plain versions: among qwen3-moe's 128 experts a
+#: token's 8th and 9th probabilities lie within fp32's rounding of each
+#: other far more often than grok's 2nd and 3rd of 8, and one token
+#: routed apart moves the logits of every later token (capacity, attention)
+MOE_SERVE = {
+    "moe": dict(arch=MOE_ARCH, tokens=MOE_PREFILL,
+                parity_tokens=MOE_PREFILL),
+    "grok": dict(arch=GROK_ARCH, layers=GROK_LAYERS, tokens=GROK_PREFILL,
+                 parity_tokens=GROK_PARITY_TOKENS, plain=True),
+}
 
 # qwen3-14b and granite-8b served at full width and depth through
 # model_phase: qwen3-14b in bf16 parameters, its published checkpoint's
@@ -711,6 +754,11 @@ print(json.dumps({**dvv_ops.launches, **flash_attention.launches,
 
 
 def emit(obj) -> None:
+    """Print ``obj`` as one JSON line; a phase line also gets ``at_s``, the
+    seconds since the script was loaded, so that each phase's wall time is
+    the difference from the line before."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - LOADED}
     print(json.dumps(obj), flush=True)
 
 
@@ -2146,6 +2194,10 @@ def model_phase(cfg, params, seed: int, *, phase="model",
         "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
         "decode_steps": steps, "seconds": serve_s,
         "s_per_decode_step": serve_s / steps,
+        # a step reads every parameter at least once (the MoE's one-hot
+        # dispatch every expert's, a tied head the whole embedding)
+        "bytes_floor_per_step": out["param_bytes"],
+        "floor_s_per_step": out["param_bytes"] / HBM_BYTES_PER_S,
         "tokens_per_s": SERVE_REQUESTS * SERVE_TOKENS / serve_s,
         "launches_while_serving": serve_launches,
         "read_back_launches": {k: v - serve_launches[k]
@@ -2479,24 +2531,21 @@ def recount_dropped(idx, n_experts: int, C: int):
     return np.float32(1) - np.float32(kept) / np.float32(G * S * K), kept
 
 
-def moe_parity_phase(seed: int):
-    """qwen3-moe-30b-a3b cut to MOE_PARITY_LAYERS layers at full width,
-    fp32: (a) prefill logits of MOE_PARITY_TOKENS tokens against
-    token-by-token decode; (b) a [1, 4096] prefill's first-layer
-    fraction_dropped against the host's recount over the experts the
-    card's router chose."""
-    from dataclasses import replace
-
+def moe_parity_phase(phase: str, cfg, tokens, seed: int, *,
+                     plain: bool = False):
+    """``cfg`` (a MoE config cut at full width; fp32 here): (a) prefill
+    logits of MOE_PARITY_TOKENS tokens against token-by-token decode; then
+    one prefill of ``tokens`` through the kernels: with ``plain``, (b) its
+    logits against the same prefill through the plain versions on the
+    card, to PREFILL_DECODE_TOL; and (c) its first-layer fraction_dropped
+    against the host's recount over the experts the card's router chose."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.lm import moe_spec
     from repro_torch.models.moe import capacity, route
 
-    cfg = replace(get_config(MOE_ARCH), n_layers=MOE_PARITY_LAYERS,
-                  compute_dtype="float32")
     spec = moe_spec(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     params = init_params(gen, cfg)
@@ -2514,45 +2563,106 @@ def moe_parity_phase(seed: int):
     errs = torch.stack([(step(params, cache, toks[:, i], i)[0][0]
                          - pre[i]).abs().max() for i in range(S)])
     err = float(errs.max())
+    out = {"phase": phase, "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype,
+           "prefill_vs_decode": {
+               "tokens": S, "capacity": capacity(S, spec),
+               "flash_attention_launches": launches,
+               "max_abs_logit_diff": err,
+               "max_abs_logit": float(pre.abs().max()),
+               "tol": PREFILL_DECODE_TOL}}
 
-    toks = torch.randint(0, cfg.vocab_size, MOE_PREFILL, generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, tokens, generator=gen,
                          device="cuda", dtype=torch.int32)
+    FA.reset_launches()
     with moe_calls(keep_inputs=True) as calls:
         logits = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
+    kernel_launches = FA.launches["flash_attention"]
     finite = bool(torch.isfinite(logits).all())
+    if plain:
+        with plain_attention():
+            FA.reset_launches()
+            want = prefill(params, {"tokens": toks})
+            plain_launches = FA.launches["flash_attention"]
+        plain_err = float((logits - want).abs().max())
+        out["kernels_vs_plain"] = {
+            "tokens": list(tokens), "flash_attention_launches":
+            kernel_launches, "plain_launches": plain_launches,
+            "max_abs_logit_diff": plain_err,
+            "max_abs_logit": float(want.abs().max()),
+            "tol": PREFILL_DECODE_TOL}
+        del want
     del logits
     layer, x, metrics = calls[0]
     idx = route(layer, x, spec)[3].cpu().numpy()
     C = capacity(x.shape[1], spec)
     host, kept = recount_dropped(idx, spec.n_experts, C)
     card = metrics["fraction_dropped"].cpu().numpy()
-    out = {"phase": "moe_parity", "arch": cfg.name,
-           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "compute_dtype": cfg.compute_dtype,
-           "a_prefill_vs_decode": {
-               "tokens": S, "capacity": capacity(S, spec),
-               "flash_attention_launches": launches,
-               "max_abs_logit_diff": err,
-               "max_abs_logit": float(pre.abs().max()),
-               "tol": PREFILL_DECODE_TOL},
-           "b_fraction_dropped": {
-               "tokens": list(MOE_PREFILL), "capacity": C,
-               "card_layer0": float(card), "host_recount": float(host),
-               "kept": kept, "slots": idx.size,
-               "per_layer": [float(m["fraction_dropped"])
-                             for _, _, m in calls],
-               "logits_finite": finite}}
-    if launches != cfg.n_layers:
-        raise AssertionError(f"parity prefill launched flash_attention "
-                             f"{launches} times, expected {cfg.n_layers}")
+    out["fraction_dropped"] = {
+        "tokens": list(tokens), "capacity": C,
+        "card_layer0": float(card), "host_recount": float(host),
+        "kept": kept, "slots": idx.size,
+        "per_layer": [float(m["fraction_dropped"]) for _, _, m in calls],
+        "logits_finite": finite}
+    del params, calls, layer, x
+    torch.cuda.empty_cache()
+    if launches != cfg.n_layers or kernel_launches != cfg.n_layers:
+        raise AssertionError(f"parity prefills launched flash_attention "
+                             f"{launches} and {kernel_launches} times, "
+                             f"expected {cfg.n_layers}")
     if not err <= PREFILL_DECODE_TOL:
         raise AssertionError(f"prefill and decode logits differ by {err} > "
                              f"{PREFILL_DECODE_TOL}")
+    if plain and (plain_launches or not plain_err <= PREFILL_DECODE_TOL):
+        raise AssertionError(f"logits through the kernels differ from the "
+                             f"plain versions' by {plain_err} > "
+                             f"{PREFILL_DECODE_TOL} (plain launches "
+                             f"{plain_launches})")
     if card != host or not finite:
         raise AssertionError(f"fraction_dropped on the card {card!r}, host "
                              f"recount {host!r}; logits finite: {finite}")
     return out
+
+
+def moe_phases(tag: str, arch: str, seed: int, *, tokens, parity_tokens,
+               layers=None, plain: bool = False):
+    """``arch`` in MOE_PARAM_DTYPE parameters, at its published widths
+    (cut to ``layers`` layers where given): <tag>_model (model_phase at
+    ``tokens``, every MoE layer's fraction_dropped, the requests served),
+    <tag>_trace (model_trace_phase and the device time by MoE part), then
+    <tag>_parity on its MOE_PARITY_LAYERS-layer cut in fp32
+    (moe_parity_phase at ``parity_tokens``, ``plain``); emits the lines,
+    returns <tag>_model's."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+
+    base = get_config(arch)
+    cfg = replace(replace_layers(base, layers) if layers else base,
+                  param_dtype=MOE_PARAM_DTYPE)
+    params, init_s = init_timed(cfg, seed)
+    line = model_phase(cfg, params, seed, phase=f"{tag}_model",
+                       tokens=tokens)
+    line.update(param_count=count_params(cfg),
+                active_param_count=count_params(cfg, active_only=True),
+                init_s=init_s, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim])
+    emit(line)
+    trace = model_trace_phase(cfg, params, seed, phase=f"{tag}_trace",
+                              tokens=tokens)
+    trace["breakdown"] = moe_prefill_breakdown(cfg, params, tokens)
+    emit(trace)
+    del params
+    torch.cuda.empty_cache()
+    emit(moe_parity_phase(
+        f"{tag}_parity", replace(replace_layers(base, MOE_PARITY_LAYERS),
+                                 compute_dtype="float32"),
+        parity_tokens, seed, plain=plain))
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -3971,7 +4081,8 @@ def ptxas_lines(log: str):
 #: the phase lines kernels_summary reads launches from
 SUMMARY_LINES = ("store", "trace", "model", "moe", "ssm", "ssm_train",
                  "train", "audio", "audio_train", "smoke", "examples",
-                 "qwen3-14b", "granite-8b", "vl", "vl_train", "moe_train")
+                 "qwen3-14b", "granite-8b", "vl", "vl_train", "moe_train",
+                 "grok")
 
 
 def kernels_summary(rows, lines):
@@ -3998,8 +4109,8 @@ def kernels_summary(rows, lines):
     # launches of the run that drives that width in that dtype (quickstart
     # bf16 at 16, train_e2e bf16 at 32, smoke_configs fp32 at 16)
     store, trace, model, moe, ssm, ssm_train, train, audio, audio_train, \
-        smoke, examples, qwen3_14b, granite_8b, vl, vl_train, moe_train = (
-            lines[k] for k in SUMMARY_LINES)
+        smoke, examples, qwen3_14b, granite_8b, vl, vl_train, moe_train, \
+        grok = (lines[k] for k in SUMMARY_LINES)
     runs = examples["runs"]
     flash_paths = {
         "global": ("model", model["flash_attention_launches"], None),
@@ -4008,6 +4119,7 @@ def kernels_summary(rows, lines):
                       qwen3_14b["flash_attention_launches"], None),
         "granite_8b": ("granite_8b_model",
                        granite_8b["flash_attention_launches"], None),
+        "grok": ("grok_model", grok["flash_attention_launches"], None),
         # the position instance: qwen2-vl-7b's prefill and training
         "mrope_positions": ("vl_model",
                             vl["flash_attention_launches"]["positions"],
@@ -4102,8 +4214,6 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    from dataclasses import replace
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4171,21 +4281,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(ssm_parity_phase(args.seed))
 
-    cfg = replace(get_config(MOE_ARCH), param_dtype=MOE_PARAM_DTYPE)
-    params, init_s = init_timed(cfg, args.seed)
-    moe = model_phase(cfg, params, args.seed, phase="moe_model",
-                      tokens=MOE_PREFILL)
-    moe.update(param_count=count_params(cfg),
-               active_param_count=count_params(cfg, active_only=True),
-               init_s=init_s)
-    emit(moe)
-    moe_trace = model_trace_phase(cfg, params, args.seed, phase="moe_trace",
-                                  tokens=MOE_PREFILL)
-    moe_trace["breakdown"] = moe_prefill_breakdown(cfg, params, MOE_PREFILL)
-    emit(moe_trace)
-    del params
-    torch.cuda.empty_cache()
-    emit(moe_parity_phase(args.seed))
+    moe, grok = (moe_phases(tag, seed=args.seed, **kw)
+                 for tag, kw in MOE_SERVE.items())
     dense = dense_phases(args.seed)
     vl = vl_phases(args.seed)
 
@@ -4206,7 +4303,7 @@ def main() -> int:
         store=store, trace=trace, model=model, moe=moe, ssm=ssm,
         ssm_train=ssm_train, train=train, audio=audio,
         audio_train=audio_train, smoke=smoke, examples=examples, **dense,
-        vl=vl[0], vl_train=vl[1], moe_train=moe_train))
+        vl=vl[0], vl_train=vl[1], moe_train=moe_train, grok=grok))
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1864,6 +1864,57 @@ def test_flash_kernels_at_prime_gqa_groups(cuda, ieee_fp32, dtype, heads,
     _assert_grads_close(grads, want, q, k)
 
 
+#: grok-1-314b's attention and experts: 48 query heads over 8 KV heads of
+#: 128 (a GQA group of 6, neither a power of two nor odd), 8 experts top-2
+GROK_WIDE = dict(n_heads=48, n_kv_heads=8, head_dim=128, moe_experts=8,
+                 moe_topk=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_grok_gqa_group_of_6(cuda, ieee_fp32, dtype):
+    """[1, 1024], 48 heads over 8 of 128, causal: one launch, against the
+    plain version."""
+    q, k, v = _qkv(1, 1024, GROK_WIDE["n_heads"], GROK_WIDE["n_kv_heads"],
+                   GROK_WIDE["head_dim"], dtype, cuda, seed=12)
+    FA.reset_launches()
+    got = FA.gqa_flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_flash_close(got, flash_attention_ref(q, k, v, causal=True))
+
+
+def test_grok_geometry_prefill_and_decode_on_the_card_equal_the_cpu_run(
+        cuda, ieee_fp32):
+    """grok-1-314b's smoke config at its own attention and experts
+    (GROK_WIDE), fp32: a prefill of [2, 96] tokens (one flash launch a
+    layer) and 4 decode steps from an empty cache on the card, logits
+    within 1e-4 of the CPU run of the same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache, init_params
+
+    cfg = replace(get_config("grok-1-314b").smoke(), compute_dtype="float32",
+                  **GROK_WIDE)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)).astype(np.int32))
+    prefill = make_prefill_step(cfg)
+    want = prefill(params, {"tokens": toks})
+    on_card = _to(params, cuda)
+    FA.reset_launches()
+    got = prefill(on_card, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert FA.launches["flash_attention"] == cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    step = make_decode_step(cfg)
+    caches = [init_cache(cfg, 2, 8, device=d) for d in ("cpu", cuda)]
+    for pos in range(4):
+        want, _ = step(params, caches[0], toks[:, pos], pos)
+        got, _ = step(on_card, caches[1], toks[:, pos].to(cuda), pos)
+        assert float((got.cpu() - want).abs().max()) < 1e-4, pos
+
+
 @pytest.mark.parametrize("width", ["smoke", "qwen2_vl_heads"])
 def test_vl_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32,
                                                         width):

@@ -144,7 +144,8 @@ print(json.dumps({
                                     "tools/flash_attention_probe.py",
                                     "tools/flash_bwd_gate_probe.py",
                                     "tools/ssd_scan_probe.py",
-                                    "tools/small_heads_probe.py"])
+                                    "tools/small_heads_probe.py",
+                                    "tools/moe_probe.py"])
 def test_chip_scripts_import_no_jax_and_no_repro(script):
     """The scripts that run on the card, loaded as modules (their main()
     not run), pull in neither jax nor the JAX package."""

@@ -9,7 +9,9 @@ package's, carried over by ``params_from_numpy``):
   * ``ssm_forward`` and ``decode_ssm`` on one layer;
   * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b,
     gemma-2b, mamba2-780m and the three MoE configs (qwen3-moe-30b-a3b,
-    jamba-1.5-large-398b, grok-1-314b) against JAX
+    jamba-1.5-large-398b, grok-1-314b; grok also at its own attention and
+    experts, 48 heads over 8 KV heads of 128 and 8 experts top-2, the MoE
+    configs against the default path too) against JAX
     ``forward(use_pallas=True)``: <= 1e-4 in fp32, <= 0.05 in bf16 (the
     bound of ``tests/test_kernels.py:224``), and the aux loss (the MoE
     layers' load-balance and z losses, 0 without them);
@@ -51,6 +53,20 @@ pytestmark = pytest.mark.torch
 DENSE = ("gemma2-9b", "granite-8b", "gemma-2b")
 MODELS = DENSE + ("mamba2-780m",)
 MOE_MODELS = ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "grok-1-314b")
+#: hubert-xlarge's smoke config at the config's own head_dim, 80 (the
+#: smoke's is 16): the width the flash kernels take for it on the card
+HUBERT_D80 = "hubert-xlarge@head_dim80"
+#: grok-1-314b's smoke config at the config's own attention and experts,
+#: 48 heads over 8 KV heads of 128 and 8 experts top-2 (the smoke's are 4
+#: over 2 of 16 and 4): the GQA group of 6 and the routing the card serves
+#: at full width
+GROK_WIDE = "grok-1-314b@heads48x8d128e8"
+#: the config overrides of a "<arch>@<what>" name
+CASES = {HUBERT_D80: ("hubert-xlarge", {"head_dim": 80}),
+         GROK_WIDE: ("grok-1-314b", {"n_heads": 48, "n_kv_heads": 8,
+                                     "head_dim": 128, "moe_experts": 8,
+                                     "moe_topk": 2})}
+MOE_CASES = MOE_MODELS + (GROK_WIDE,)
 #: prefill vs token-by-token decode, fp32 logits (final softcap 30 bounds
 #: them to +-30): the bound ``chip_smoke.py``'s model_parity phase holds at
 #: full width.  At smoke size the two agree far inside it.
@@ -66,9 +82,13 @@ def _np(t):
         else np.asarray(jnp.asarray(t, jnp.float32))
 
 
-def _cfgs(arch, compute="float32", **kw):
-    jc = replace(JC.get_config(arch).smoke(), compute_dtype=compute, **kw)
-    tc = replace(TC.get_config(arch).smoke(), compute_dtype=compute, **kw)
+def _cfgs(name, compute="float32", **kw):
+    """Both packages' smoke configs of an arch or a CASES name."""
+    arch, over = CASES.get(name, (name, {}))
+    jc = replace(JC.get_config(arch).smoke(), compute_dtype=compute,
+                 **over, **kw)
+    tc = replace(TC.get_config(arch).smoke(), compute_dtype=compute,
+                 **over, **kw)
     return jc, tc
 
 
@@ -263,9 +283,9 @@ def test_count_params_from_shapes_matches_jax(arch):
         assert TM.count_params(tc, active_only=True) == TM.count_params(tc)
 
 
-@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_CASES)
 def test_init_params_has_the_jax_shapes_and_dtypes(arch):
-    jc, tc = JC.get_config(arch).smoke(), TC.get_config(arch).smoke()
+    jc, tc = _cfgs(arch)
     want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)),
                         JM.param_specs(jc))
     got = TM.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
@@ -288,7 +308,7 @@ def test_forward_matches_jax_pallas_path(arch, compute, tol):
     assert np.abs(_np(got) - _np(want)).max() <= tol
 
 
-def _moe_forward(arch, compute, zero_router=False):
+def _moe_forward(arch, compute, zero_router=False, use_pallas=True):
     jc, tc = _cfgs(arch, compute)
     jp, tp = _params(jc, tc)
     if zero_router:
@@ -299,13 +319,13 @@ def _moe_forward(arch, compute, zero_router=False):
                 tp["blocks"][f"layer{i}"]["moe"]["router"].zero_()
     toks = np.random.default_rng(0).integers(0, jc.vocab_size, (2, 32))
     want, want_aux = JM.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                                replace(jc, use_pallas=True))
+                                replace(jc, use_pallas=use_pallas))
     got, aux = TM.forward(tp, {"tokens": _t(toks.astype(np.int32))}, tc)
     assert got.dtype == torch.float32 and aux.dtype == torch.float32
     return np.abs(_np(got) - _np(want)).max(), float(aux), float(want_aux)
 
 
-@pytest.mark.parametrize("arch", MOE_MODELS)
+@pytest.mark.parametrize("arch", MOE_CASES)
 def test_moe_forward_matches_jax_pallas_path(arch):
     """fp32 logits within 1e-4 and the aux (every MoE layer's load-balance
     and z losses) within 1e-5 of the JAX package's."""
@@ -314,7 +334,16 @@ def test_moe_forward_matches_jax_pallas_path(arch):
     assert abs(aux - want_aux) <= 1e-5 and aux > 0.0
 
 
-@pytest.mark.parametrize("arch", MOE_MODELS)
+@pytest.mark.parametrize("arch", MOE_CASES)
+def test_moe_forward_matches_jax_default_path(arch):
+    """The same bounds against the JAX package's default path (jnp
+    attention, use_pallas False)."""
+    err, aux, want_aux = _moe_forward(arch, "float32", use_pallas=False)
+    assert err <= 1e-4
+    assert abs(aux - want_aux) <= 1e-5 and aux > 0.0
+
+
+@pytest.mark.parametrize("arch", MOE_CASES)
 def test_moe_forward_bf16_matches_jax_pallas_path(arch):
     """bf16 logits within 0.05 with every router zeroed: each token then
     takes experts 0..K-1 in both packages (``lax.top_k``'s tie order) and
@@ -359,7 +388,7 @@ def test_loss_fn_matches_jax():
     assert abs(float(got) - float(want)) < 1e-4
 
 
-@pytest.mark.parametrize("arch", MOE_MODELS)
+@pytest.mark.parametrize("arch", MOE_CASES)
 def test_moe_loss_fn_matches_jax(arch):
     """Mean CE plus the MoE layers' aux losses, each part held apart."""
     jc, tc = _cfgs(arch)
@@ -377,7 +406,7 @@ def test_moe_loss_fn_matches_jax(arch):
     assert abs(float(tparts["ce"]) - float(jparts["ce"])) < 1e-4
 
 
-@pytest.mark.parametrize("arch", MODELS + MOE_MODELS)
+@pytest.mark.parametrize("arch", MODELS + MOE_CASES)
 def test_decode_steps_match_jax(arch):
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=3)
@@ -471,7 +500,7 @@ def test_prefill_matches_token_by_token_decode(arch):
     assert err < PREFILL_DECODE_TOL / 10, err
 
 
-@pytest.mark.parametrize("arch", MOE_MODELS)
+@pytest.mark.parametrize("arch", MOE_CASES)
 def test_moe_prefill_matches_token_by_token_decode(arch):
     """The CPU twin of chip_smoke.py's moe_parity (a): at 8 tokens the
     capacity is 8 (``capacity(S)``'s floor) whether a group holds 8 tokens
@@ -532,19 +561,10 @@ def test_serve_main_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 MORE_MODELS = ("qwen3-14b", "hubert-xlarge", "qwen2-vl-7b")
-#: hubert-xlarge's smoke config at the config's own head_dim, 80 (the
-#: smoke's is 16): the width the flash kernels take for it on the card
-HUBERT_D80 = "hubert-xlarge@head_dim80"
 #: the gradient twins' bounds, tests/test_torch_train.py's: the loss
 #: absolutely, each gradient leaf over its largest magnitude (fp32 sums in
 #: another order)
 LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
-
-
-def _case(name):
-    """(arch, config overrides) of a MORE_MODELS name or HUBERT_D80."""
-    return ("hubert-xlarge", {"head_dim": 80}) if name == HUBERT_D80 \
-        else (name, {})
 
 
 #: bf16 forward against JAX's Pallas path, max abs logit difference.  The
@@ -594,8 +614,7 @@ def test_more_models_count_params_and_shapes_match_jax(arch):
 def test_more_models_forward_matches_jax(arch, compute):
     """fp32: within 1e-4 of both reference paths (Pallas and default);
     bf16: within BF16_LOGIT_TOL of the Pallas path."""
-    arch, kw = _case(arch)
-    jc, tc = _cfgs(arch, compute, **kw)
+    jc, tc = _cfgs(arch, compute)
     jp, tp = _params(jc, tc)
     jb, tb = _model_batch(jc, np.random.default_rng(0), 2, 32)
     got, _ = TM.forward(tp, tb, tc)
@@ -615,8 +634,7 @@ def test_more_models_loss_and_gradients_match_jax(name):
     loss_fn on the same parameters."""
     from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
-    arch, kw = _case(name)
-    jc, tc = _cfgs(arch, **kw)
+    jc, tc = _cfgs(name)
     jp, tp = _params(jc, tc, seed=5)
     rng = np.random.default_rng(6)
     jb, tb = _model_batch(jc, rng, 2, 32)

@@ -18,7 +18,8 @@ by ``params_from_numpy``):
     the JAX package's ``loss_fn`` on the smoke configs of gemma-2b,
     gemma2-9b, qwen3-14b, mamba2-780m, granite-8b, the three MoE configs
     (qwen3-moe-30b-a3b, grok-1-314b, jamba-1.5-large-398b; routers real,
-    their aux and z losses in the loss) and qwen2-vl-7b on embeddings with
+    their aux and z losses in the loss; grok also at its own 48 heads
+    over 8 of 128 and 8 experts top-2) and qwen2-vl-7b on embeddings with
     image-style M-RoPE positions [3, B, S], fp32: the loss within 1e-5,
     each leaf within 1e-4 of its largest magnitude (the sums of a backward
     pass run in another order in each framework);
@@ -93,7 +94,13 @@ ARCHS = ("gemma-2b", "gemma2-9b", "qwen3-14b", "mamba2-780m",
          # turns an expert pair), granite-8b, and qwen2-vl-7b on
          # embeddings with image-style M-RoPE positions (_model_batch)
          "qwen3-moe-30b-a3b", "grok-1-314b", "jamba-1.5-large-398b",
-         "granite-8b", "qwen2-vl-7b")
+         "granite-8b", "qwen2-vl-7b",
+         # grok at its own attention and experts (tests/test_torch_models.py)
+         "grok-1-314b@heads48x8d128e8")
+#: the config overrides of a "<arch>@<what>" name in ARCHS
+CASES = {"grok-1-314b@heads48x8d128e8": (
+    "grok-1-314b", {"n_heads": 48, "n_kv_heads": 8, "head_dim": 128,
+                    "moe_experts": 8, "moe_topk": 2})}
 
 
 def _t(a):
@@ -287,9 +294,12 @@ def test_delta_from_the_fp32_output_keeps_dq_near_the_plain_version(case):
 # loss, gradients, one train step, remat
 # ---------------------------------------------------------------------------
 
-def _cfgs(arch, **kw):
-    jc = replace(JC.get_config(arch).smoke(), compute_dtype="float32", **kw)
-    tc = replace(TC.get_config(arch).smoke(), compute_dtype="float32", **kw)
+def _cfgs(name, **kw):
+    arch, over = CASES.get(name, (name, {}))
+    jc = replace(JC.get_config(arch).smoke(), compute_dtype="float32",
+                 **over, **kw)
+    tc = replace(TC.get_config(arch).smoke(), compute_dtype="float32",
+                 **over, **kw)
     return jc, tc
 
 

@@ -1,21 +1,24 @@
-"""Run chip_smoke.py's qwen3-moe-30b-a3b phases alone on one card.
+"""Run chip_smoke.py's phases of one served MoE config alone on one card.
 
-    python tools/moe_probe.py [--seed 0]
+    python tools/moe_probe.py [--arch qwen3-moe-30b-a3b | grok-1-314b]
+                              [--seed 0]
 
 Builds the flash_attention kernel, then prints one JSON line each for
-chip_smoke.py's qwen3-moe flash_attention row (kernel against its plain
-version, bound, SDPA), its moe_model phase (bf16 parameters, a timed
-prefill of [1, 4096] launching flash_attention 48 times, 8 requests served
-and read back), its moe_trace phase with the device-time breakdown by MoE
-part, and its moe_parity phase; the card's name and power limit first.
-The quick check of a change to the MoE path (about 100 s of command)
-before a whole chip_smoke.py, which runs the same phases after the
-store's and the other models'.
+chip_smoke.py's flash_attention row at the config's prefill shape (kernel
+against its plain version, bound, SDPA) and its three phases through
+chip_smoke.moe_phases: qwen3-moe-30b-a3b's moe_model (bf16 parameters, a
+timed prefill of [1, 4096] launching flash_attention 48 times, 8 requests
+served and read back), moe_trace with the device-time breakdown by MoE
+part and moe_parity; or grok-1-314b's grok_model (full width cut to 6
+layers, bf16, [1, 8192], 6 launches), grok_trace and grok_parity (the
+kernels against the plain versions too); the card's name and power limit
+first.  The quick check of a change to the MoE path (about 100 s of
+command for qwen3-moe) before a whole chip_smoke.py, which runs the same
+phases after the store's and the other models'.
 """
 import argparse
 import sys
 import time
-from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -25,13 +28,16 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as CS  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.models import count_params, init_params  # noqa: E402
+
+#: each arch's flash row in chip_smoke.FLASH_ROWS and its phases' tag in
+#: chip_smoke.MOE_SERVE
+ARCHS = {CS.MOE_ARCH: ("qwen3_moe", "moe"), CS.GROK_ARCH: ("grok", "grok")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=list(ARCHS), default=CS.MOE_ARCH)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,27 +49,10 @@ def main() -> int:
     print(CS.nvidia_smi(), flush=True)
     start = time.perf_counter()
     flash_attention.build()
-    CS.FLASH_ROWS = tuple(r for r in CS.FLASH_ROWS if r[0] == "qwen3_moe")
+    variant, tag = ARCHS[args.arch]
+    CS.FLASH_ROWS = tuple(r for r in CS.FLASH_ROWS if r[0] == variant)
     CS.emit({"phase": "kernels", "rows": CS.flash_rows(args.seed)})
-
-    cfg = replace(get_config(CS.MOE_ARCH), param_dtype=CS.MOE_PARAM_DTYPE)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    t = time.perf_counter()
-    params = init_params(gen, cfg)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    moe = CS.model_phase(cfg, params, args.seed, phase="moe_model",
-                         tokens=CS.MOE_PREFILL)
-    moe.update(param_count=count_params(cfg), init_s=init_s)
-    CS.emit(moe)
-    trace = CS.model_trace_phase(cfg, params, args.seed, phase="moe_trace",
-                                 tokens=CS.MOE_PREFILL)
-    trace["breakdown"] = CS.moe_prefill_breakdown(cfg, params,
-                                                  CS.MOE_PREFILL)
-    CS.emit(trace)
-    del params
-    torch.cuda.empty_cache()
-    CS.emit(CS.moe_parity_phase(args.seed))
+    CS.moe_phases(tag, seed=args.seed, **CS.MOE_SERVE[tag])
     CS.emit({"phase": "wall", "seconds": time.perf_counter() - start})
     return 0
 
