@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (the DVV store, gemma2-9b, mamba2-780m,
-qwen3-moe-30b-a3b, grok-1-314b (full width, 6 layers), qwen3-14b and
-granite-8b serving, qwen2-vl-7b prefill,
+qwen3-moe-30b-a3b, grok-1-314b (full width, 6 layers), jamba-1.5-large-398b
+(full width, the first 5 layers of its block, and its long_500k decode
+step), qwen3-14b and granite-8b serving, qwen2-vl-7b prefill,
 decode and training with image-style M-RoPE positions, gemma-2b, mamba2-780m
 and qwen3-moe-30b-a3b training, hubert-xlarge prefill and training, every
 config's smoke size, the nine examples) on one CUDA card.
@@ -35,9 +36,10 @@ script was loaded; a failure in any phase raises and exits non-zero:
            [1, 8192, 28, 128], 4 KV heads, bf16, causal; an image of 4,096
            patches sharing one temporal id between text runs); at
            qwen3-moe-30b-a3b's prefill shape (q [1, 4096, 32, 128], 4 KV
-           heads, bf16, causal, no softcap); at qwen3-14b's and
-           granite-8b's and grok-1-314b's (q [1, 8192, 40, 32 or 48,
-           128], 8 KV heads, bf16, causal: GQA groups of 5, 4 and 6); and
+           heads, bf16, causal, no softcap); at qwen3-14b's,
+           granite-8b's, grok-1-314b's and jamba-1.5-large-398b's (q
+           [1, 8192, 40, 32, 48 or 64, 128], 8 KV heads, bf16, causal:
+           GQA groups of 5, 4, 6 and 8); and
            at hubert-xlarge's
            (bidirectional, 16 heads of 80 on 16 KV heads: bf16 [1, 32768],
            the audio_model prefill's, and fp32 [1, 1024]; where one call's
@@ -51,7 +53,8 @@ script was loaded; a failure in any phase raises and exits non-zero:
            ssd_scan: at mamba2-780m's widths (48 heads of 64, state 128,
            chunk 256) on inputs drawn as
            tests/test_kernels.py draws them, bf16 [1, 32768] and fp32
-           [1, 4096], and bf16 at the main path's [4, 32768]; y and
+           [1, 4096], and bf16 at the main path's [4, 32768]; and at
+           jamba-1.5-large-398b's 256 heads, bf16 [1, 8192]; y and
            h_final to 5e-2 (bf16) or 1e-5 (fp32) of the largest value,
            against the plain version run in fp32 on the upcast inputs.
            The bf16 rows take the wgmma path (three passes, three CUDA
@@ -117,7 +120,8 @@ script was loaded; a failure in any phase raises and exits non-zero:
            tracing the card only: device-busy seconds against wall seconds
            (the device's idle share), each kernel's device time per
            launch at the shapes the store gives it, and the host-to-device
-           and device-to-host copies per sweep (at most one each).
+           and device-to-host copies per sweep (at most one each; the
+           sweeps counted by the launch counters, zeroed just before).
   store_workload  the closed-loop serving workload of
            `python -m repro_torch.launch.serve --store-workload` (the JAX
            package's BENCH_serving.json coalescing deployment at its
@@ -208,12 +212,14 @@ script was loaded; a failure in any phase raises and exits non-zero:
   moe_trace  as model_trace, for qwen3-moe-30b-a3b at [1, 4096]; then one
            more prefill traced with the host's ops, the MoE's parts and
            the attention layers each inside a profiler range: device time
-           by part (router, capacity assignment, the dispatch and combine
-           products, expert products, attention, the head, the rest) and by
-           kernel class (GEMM, flash_attention, element-wise and other).
+           by part (flash_attention, counted by kernel name, and the rest of
+           the attention, router, capacity assignment, the dispatch and
+           combine products, expert products, the dense MLPs, the head, the
+           rest) and by kernel class (GEMM, flash_attention forward and
+           backward, the SSD scan, the rest).
   moe_parity  qwen3-moe-30b-a3b cut to 2 layers at full width, fp32: (a)
-           prefill logits of 8 tokens against token-by-token decode, to
-           PREFILL_DECODE_TOL (at 8 tokens or fewer a group's capacity is
+           prefill logits of 8 tokens against token-by-token decode,
+           within 2e-4 (at 8 tokens or fewer a group's capacity is
            8, so no token is dropped on either side); (b) a [1, 4096]
            prefill's first-layer fraction_dropped equals a host recount
            (numpy, the per-slot occupancy loop) over the experts the card's
@@ -230,9 +236,53 @@ script was loaded; a failure in any phase raises and exits non-zero:
   grok_trace  as moe_trace, for grok at [1, 8192].
   grok_parity  the 2-layer cut in fp32 (42.58 GB): (a) as moe_parity's;
            (b) logits of a [1, 2048] prefill through the kernels against
-           the plain versions on the card, to PREFILL_DECODE_TOL; (c) that
+           the plain versions on the card, within 1e-4; (c) that
            prefill's first-layer fraction_dropped against the host's
            recount.
+  jamba_model  jamba-1.5-large-398b, the hybrid, at its published widths
+           (d_model 8192; Mamba-2 of d_inner 16,384 in 256 SSD heads of 64,
+           state 128, chunk 256; 64 heads over 8 KV heads of 128; 16
+           experts top-2 of d_ff 24,576; vocab 65,536, tied) cut to the
+           first 5 layers of its 8-layer block (Mamba-2 at 0-3, MoE at 1
+           and 3, the attention layer at 4), 23.46 B bf16 parameters (46.91
+           GB) from --seed, after grok's parity: as moe_model at tokens
+           [1, 8192], each prefill launching flash_attention once and
+           ssd_scan 4 times on its wgmma path (model_phase expects each
+           kernel's launches from the pattern: attention layers and Mamba
+           layers times groups), every MoE layer's fraction_dropped, the 8
+           requests served (a KV cache and SSM state carried in each
+           BatchScheduler step) and read back; beside decode seconds a
+           step, its bytes floor (parameters and cache).
+  jamba_long  the long_500k decode step: batch 1 over a cache of 524,288
+           slots built by init_cache (2.15 GB of bf16 keys and values for
+           the attention layer, the four Mamba layers' conv windows and
+           state), a warm-up step at position 8,192 and 16 timed steps
+           after it through make_decode_step; then the same over
+           SERVE_MAX_LEN's 256 slots (seconds a step only: the host sets
+           a decode step's wall, so the cache's share is jamba_trace's,
+           from device time).  Each with its bytes floor (every
+           parameter and the whole cache read once); decode_attention
+           scores every slot and masks those past the position, so the
+           work does not depend on how many slots hold keys.
+  jamba_trace  one prefill of [1, 8192] and one decode step over
+           long_500k's 524,288 slots and over 256, each timed untraced,
+           traced on the card alone (the idle share, against the traced and
+           the untraced wall) and then with the
+           host's ops, the LM's parts inside profiler ranges: device time of
+           the SSD scan kernels, the Mamba mixer's GEMMs and plain-torch
+           parts (conv, gate, norm), flash_attention and the rest of the
+           attention, the router, capacity assignment, expert products,
+           dispatch and combine, the dense MLPs, the head, the rest; and
+           the long cache's share of a decode step (1 - the 256-slot
+           step's device time over the 524,288-slot step's).
+  jamba_parity  the cut pattern[3:5] (Mamba-2 with MoE, then the attention
+           layer with its MLP) in fp32 (45.45 GB): (a) prefill logits of
+           256 tokens (one SSD chunk) against token-by-token decode, at a
+           capacity factor of 8 so that capacity(256) = 256 and nothing
+           drops on either side (1.25 gives 40), within 2e-4; (b) logits
+           of a [1, 2048] prefill through the kernels against the plain
+           versions on the card, within 1e-4; (c) that prefill's MoE
+           layer's fraction_dropped against the host's recount.
   qwen3_14b_model, granite_8b_model  as model, for qwen3-14b (40 layers,
            40 heads over 8 KV heads of 128, QK-norm; 14.77 B parameters in
            bf16, its published checkpoint's dtype: fp32 would leave no room
@@ -315,11 +365,9 @@ script was loaded; a failure in any phase raises and exits non-zero:
            trains gemma-2b through the Trainer on SyntheticTokens
            [1, 4096]: 4 timed steps (each with every MoE layer's
            fraction_dropped), no save; the traced step reports device
-           time by MoE part (router,
-           capacity assignment, dispatch and combine products, expert
-           products, attention, the head: the forward and remat's
-           recompute) and by kernel class (flash forward and backward,
-           GEMMs, the rest), and every MoE layer's fraction_dropped.
+           time by part as moe_trace's (the flash backward's kernels by
+           name, the other parts the forward and remat's recompute) and by
+           kernel class, and every MoE layer's fraction_dropped.
   moe_train_parity  qwen3-moe-30b-a3b cut to 2 layers at full width, fp32,
            real fp32 routers, tokens [1, 1024]: the loss and every gradient
            leaf through the kernels against the plain versions on the card
@@ -478,6 +526,9 @@ GRANITE_8B_HEADS = (32, 8, 128)
 # a GQA group of 6: grok-1-314b's attention (served at full width, a cut of
 # GROK_LAYERS layers, [1, 8192])
 GROK_HEADS = (48, 8, 128)
+# 64 query heads over 8 KV heads of 128: jamba-1.5-large-398b's attention
+# (its one attention layer in eight, served at full width, [1, 8192])
+JAMBA_HEADS = (64, 8, 128)
 FLASH_ROWS = (
     ("local", "bfloat16", 1, 8192, True, 4096, 50.0, 2e-2, FLASH_HEADS),
     ("global", "bfloat16", 1, 8192, True, 0, 50.0, 2e-2, FLASH_HEADS),
@@ -488,6 +539,7 @@ FLASH_ROWS = (
     ("granite_8b", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2,
      GRANITE_8B_HEADS),
     ("grok", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, GROK_HEADS),
+    ("jamba", "bfloat16", 1, 8192, True, 0, 0.0, 2e-2, JAMBA_HEADS),
     ("hubert", "bfloat16", 1, 32768, False, 0, 0.0, 2e-2, AUDIO_HEADS),
     ("hubert_fp32", "float32", 1, 1024, False, 0, 0.0, 1e-5, AUDIO_HEADS),
     # head_dim 16 and 32: the examples' own shapes (quickstart.py's
@@ -523,15 +575,20 @@ SSM_ARCH = "mamba2-780m"
 SSM_PREFILL = (4, 32768)      # cut from prefill_32k's [32, 32768]: its fp32
                               # logits alone would be 211 GB (26.4 GB here)
 SSM_PARITY_LAYERS, SSM_PARITY_TOKENS = 4, 1024   # 4 chunks of 256
-# ssd_scan rows at mamba2-780m's widths: (variant, dtype, B, S, tol); the
-# error is max |y - y_ref| / max |y_ref| (and the same for h_final) against
-# the plain version run in fp32 on the upcast inputs (tests/test_kernels.py)
-SSD_ROWS = (
-    ("prefill_bf16", "bfloat16", 1, 32768, 5e-2),
-    ("fp32", "float32", 1, 4096, 1e-5),
-    ("main_path", "bfloat16", *SSM_PREFILL, 5e-2),
-)
 SSD_HEADS, SSD_HEAD_DIM, SSD_STATE, SSD_CHUNK = 48, 64, 128, 256
+#: jamba-1.5-large-398b's SSD heads: d_inner 16,384 in heads of 64 (its
+#: head dim, state and chunk are mamba2-780m's)
+JAMBA_SSD_HEADS = 256
+# ssd_scan rows: (variant, dtype, B, S, tol, heads), at mamba2-780m's
+# widths but the jamba row's 256 heads; the error is max |y - y_ref| /
+# max |y_ref| (and the same for h_final) against the plain version run in
+# fp32 on the upcast inputs (tests/test_kernels.py)
+SSD_ROWS = (
+    ("prefill_bf16", "bfloat16", 1, 32768, 5e-2, SSD_HEADS),
+    ("fp32", "float32", 1, 4096, 1e-5, SSD_HEADS),
+    ("main_path", "bfloat16", *SSM_PREFILL, 5e-2, SSD_HEADS),
+    ("jamba", "bfloat16", 1, 8192, 5e-2, JAMBA_SSD_HEADS),
+)
 #: the common part of the names of the SSD scan's CUDA kernels (both paths
 #: of the forward, and the backward's)
 SSD_KERNELS = "ssd_"
@@ -559,6 +616,13 @@ MOE_PREFILL = (1, 4096)       # cut from prefill_32k's [32, 32768]: its fp32
 MOE_PARITY_LAYERS = 2
 #: prefill tokens for (a): capacity(8) == capacity(1) == 8, nothing drops
 MOE_PARITY_TOKENS = 8
+#: every MoE parity's bounds (qwen3-moe, grok, jamba; fp32 cuts), the max
+#: abs logit difference of (a) prefill against decode and (b) kernels
+#: against plain versions.  On an H100 80GB HBM3 (a) reads 4.47e-6 for
+#: qwen3-moe, 1.70e-5 for grok and 1.72e-4 for jamba (256 tokens through
+#: an SSD chunk and a Mamba-2 decode), (b) 5.57e-5 for grok and 5.85e-5 for
+#: jamba, of logits up to 16.6
+MOE_PARITY_TOLS = (2e-4, 1e-4)
 MOE_TRAIN_LAYERS = 2          # cut from 48 (1.87 B parameters, 29.9 GB of
                               # fp32 parameters, gradients and moments);
                               # 4 layers (3.11 B) peaked at 75.7 GB
@@ -582,6 +646,30 @@ MOE_SERVE = {
     "grok": dict(arch=GROK_ARCH, layers=GROK_LAYERS, tokens=GROK_PREFILL,
                  parity_tokens=GROK_PARITY_TOKENS, plain=True),
 }
+
+# jamba-1.5-large-398b (src/repro_torch/configs/jamba_1_5_large_398b.py),
+# the hybrid: at its published widths, in MOE_PARAM_DTYPE parameters, cut to
+# the first layers of its 8-layer block (jamba_phases)
+JAMBA_ARCH = "jamba-1.5-large-398b"
+#: pattern[:5]: Mamba-2 mixers at 0-3 (d_inner 16,384, 256 SSD heads of 64,
+#: state 128, chunk 256), the block's one attention layer at 4 (64 heads over
+#: 8 KV heads of 128), 16-expert top-2 MoE at 1 and 3, dense MLPs at 0, 2
+#: and 4, the tied 65,536 vocabulary: 23,455,301,632 parameters, 46.91 GB in
+#: bf16.  pattern[:6] (67.05 GB) leaves too little beside the init's 12.9
+#: GB fp32 draw of one stacked expert tensor and the prefill.
+JAMBA_LAYERS = slice(0, 5)
+JAMBA_PREFILL = (1, PREFILL_TOKENS)
+#: the long_500k decode step (524,288 slots, batch 1): a warm-up step at
+#: JAMBA_LONG_POS, then JAMBA_LONG_STEPS timed steps
+JAMBA_LONG_POS, JAMBA_LONG_STEPS = PREFILL_TOKENS, 16
+#: the parity cut, pattern[3:5] (Mamba-2 with MoE, then the attention layer
+#: with its MLP): 11,362,641,920 parameters, 45.45 GB in fp32
+JAMBA_PARITY_LAYERS = slice(3, 5)
+#: (a)'s prefill: one SSD chunk (a prefill's length is a multiple of it), at
+#: a capacity factor that gives capacity(256) = 256, so that nothing drops
+#: in prefill or decode (the config's 1.25 gives 40)
+JAMBA_PARITY_DECODE_TOKENS, JAMBA_PARITY_CAPACITY = 256, 8.0
+JAMBA_PARITY_TOKENS = (1, 2048)
 
 # qwen3-14b and granite-8b served at full width and depth through
 # model_phase: qwen3-14b in bf16 parameters, its published checkpoint's
@@ -1400,12 +1488,12 @@ def flash_bwd_rows(seed: int):
     return rows
 
 
-def ssd_inputs(B: int, S: int, dtype, seed: int):
+def ssd_inputs(B: int, S: int, dtype, seed: int, H: int = SSD_HEADS):
     """tests/test_kernels.py's distribution, drawn on the card: x, B, C, D
     ~ N(0, 1), dt in [0.01, 0.2], A in [-2, -0.5]; xh is the [B,S,H,P]
     view of a [B,S,H*P] tensor, as ssm_forward passes it."""
     import torch
-    H, P, N = SSD_HEADS, SSD_HEAD_DIM, SSD_STATE
+    P, N = SSD_HEAD_DIM, SSD_STATE
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def normal(*shape):
@@ -1420,25 +1508,28 @@ def ssd_inputs(B: int, S: int, dtype, seed: int):
             normal(H))
 
 
-def ssd_ops(B: int, S: int) -> int:
-    """c^2 N + c^2 P + 4 c P N per (batch, head, chunk): C.B^T and
+def ssd_ops(B: int, S: int, H: int = SSD_HEADS) -> int:
+    """c^2 N per (batch, chunk): C.B^T on the lower triangle (B and C have
+    no head axis, so the function needs it once, however many heads the
+    kernel recomputes it for); c^2 P + 4 c P N per (batch, head, chunk):
     scores.x on the lower triangle, C.h^T and the state update."""
     c, P, N = SSD_CHUNK, SSD_HEAD_DIM, SSD_STATE
-    return B * SSD_HEADS * (S // c) * (c * c * N + c * c * P + 4 * c * P * N)
+    return B * (S // c) * (c * c * N + H * (c * c * P + 4 * c * P * N))
 
 
 def ssd_rows(seed: int):
     """ssd_scan against its plain version at mamba2-780m's widths (48
-    heads of 64, state 128, chunk 256).  No single PyTorch call computes
-    the SSD scan, so there is no library yardstick."""
+    heads of 64, state 128, chunk 256) and at jamba-1.5-large-398b's 256
+    heads.  No single PyTorch call computes the SSD scan, so there is no
+    library yardstick."""
     import torch
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.kernels.ssd_scan.ssd_scan import wgmma_path
 
     rows = []
-    for i, (variant, dtype, B, S, tol) in enumerate(SSD_ROWS):
-        args = ssd_inputs(B, S, getattr(torch, dtype), seed + i)
+    for i, (variant, dtype, B, S, tol, H) in enumerate(SSD_ROWS):
+        args = ssd_inputs(B, S, getattr(torch, dtype), seed + i, H)
         y, h = SS.ssd_scan(*args, chunk=SSD_CHUNK)
         torch.cuda.synchronize()
         want_y, want_h = ssd_chunked(*(a.float() for a in args), SSD_CHUNK)
@@ -1454,15 +1545,15 @@ def ssd_rows(seed: int):
             raise AssertionError(f"ssd_scan {variant} disagrees with its "
                                  f"plain version: {err} (tolerance {tol})")
         elem = args[0].element_size()
-        nbytes = (2 * B * S * SSD_HEADS * SSD_HEAD_DIM + B * S * SSD_HEADS
-                  + 2 * B * S * SSD_STATE + 2 * SSD_HEADS) * elem \
-            + B * SSD_HEADS * SSD_HEAD_DIM * SSD_STATE * 4
-        nops = ssd_ops(B, S)
+        nbytes = (2 * B * S * H * SSD_HEAD_DIM + B * S * H
+                  + 2 * B * S * SSD_STATE + 2 * H) * elem \
+            + B * H * SSD_HEAD_DIM * SSD_STATE * 4
+        nops = ssd_ops(B, S, H)
         b_ms, b_by = bound(nbytes, nops, FLOPS_PER_S[dtype])
         kern = partial(SS.ssd_scan, *args, chunk=SSD_CHUNK)
         plain = partial(ssd_chunked, *args, SSD_CHUNK)
         rows.append({"name": "ssd_scan", "variant": variant,
-                     "shape": [B, S, SSD_HEADS, SSD_HEAD_DIM, SSD_STATE],
+                     "shape": [B, S, H, SSD_HEAD_DIM, SSD_STATE],
                      "chunk": SSD_CHUNK, "dtype": dtype,
                      "path": wgmma_path(args[0], args[3], args[4],
                                         SSD_CHUNK),
@@ -1781,10 +1872,16 @@ def top_device_events(per, n: int = 8):
 def trace_phase(n_keys: int, seed: int):
     """The store schedule once more, traced on the card alone: how busy
     the device was over the run's wall time, and per-launch device time
-    of each dvv_ops kernel at the main path's own shapes."""
+    of each dvv_ops kernel at the main path's own shapes.  The sweeps are
+    the front ends' own launch counts (zeroed just before the schedule),
+    so that a trace which loses events can only read fewer copies, never
+    more copies than sweeps."""
+    from repro_torch.kernels import dvv_ops
+
+    dvv_ops.reset_launches()
     busy_us, per, wall_s = device_profile(lambda: run_schedule(n_keys, seed))
+    sweeps = sum(dvv_ops.launches.values())
     kernels = traced_dvv_kernels(per)
-    sweeps = sum(k["launches"] for k in kernels.values())
     copies = {way: sum(c for key, (c, _) in per.items()
                        if key.startswith(f"Memcpy {way}"))
               for way in ("HtoD", "DtoH")}
@@ -1795,7 +1892,9 @@ def trace_phase(n_keys: int, seed: int):
             "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1 - busy_us / 1e6 / wall_s
             if busy_us else None,
-            "kernels": kernels, "sweeps": sweeps, "copies": copies,
+            "kernels": kernels, "sweeps": sweeps,
+            "sweeps_traced": sum(k["launches"] for k in kernels.values()),
+            "copies": copies,
             "copies_per_sweep": {k: n / sweeps for k, n in copies.items()},
             "top_device_events": top_device_events(per)}
 
@@ -2107,21 +2206,50 @@ def requests(cfg, n: int, tokens: int, seed: int):
             for i, p in enumerate(prompts)]
 
 
+def prefill_launches(cfg) -> dict:
+    """The launches a forward of ``cfg`` asks of each kernel it runs: one
+    flash_attention an attention layer, one ssd_scan a Mamba layer (the
+    pattern's count times the groups); a kernel it does not run is left
+    out."""
+    n = {"flash_attention": sum(s.mixer.startswith("attn")
+                                for s in cfg.pattern),
+         "ssd_scan": sum(s.mixer == "mamba" for s in cfg.pattern)}
+    return {k: v * cfg.n_groups for k, v in n.items() if v}
+
+
+def model_kernels():
+    """The model kernels' packages by counter name."""
+    from repro_torch.kernels import flash_attention as FA, ssd_scan as SS
+    return {"flash_attention": FA, "ssd_scan": SS}
+
+
+def reset_model_kernels() -> None:
+    for k in model_kernels().values():
+        k.reset_launches()
+
+
+def model_launches(names) -> dict:
+    """The launch counts of the model kernels ``names``."""
+    kernels = model_kernels()
+    return {n: kernels[n].launches[n] for n in names}
+
+
 def model_phase(cfg, params, seed: int, *, phase="model",
-                tokens=(1, PREFILL_TOKENS), kernel=None):
+                tokens=(1, PREFILL_TOKENS)):
     """Prefill and serve ``cfg`` on the card through the port's entry
     points; the launch counters are zeroed just before each run and read
-    just after.  ``kernel`` is the kernel package every layer's prefill
-    must launch once (flash_attention by default)."""
+    just after.  Each prefill must launch each kernel as often as
+    ``prefill_launches`` says (a hybrid both), the SSD scan on its wgmma
+    path."""
     import torch
     from repro_torch.core import DVV_MECHANISM
-    from repro_torch.kernels import dvv_ops, flash_attention as FA
+    from repro_torch.kernels import dvv_ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import path_launches
     from repro_torch.launch.serve import BatchScheduler, serve_requests
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.store import KVCluster, SimNetwork
 
-    kernel = kernel or FA
-    (name,) = kernel.launches
+    expect = prefill_launches(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     toks = torch.randint(0, cfg.vocab_size, tokens, generator=gen,
                          device="cuda", dtype=torch.int32)
@@ -2130,16 +2258,17 @@ def model_phase(cfg, params, seed: int, *, phase="model",
            "d_model": cfg.d_model, "param_dtype": cfg.param_dtype,
            "param_bytes": tree_bytes(params),
            "prefill_tokens": list(tokens)}
-    secs, launches = [], []
+    secs, launches, paths = [], [], []
     for _ in ("warm-up", "timed"):
         torch.cuda.reset_peak_memory_stats()
-        kernel.reset_launches()
+        reset_model_kernels()
         t = time.perf_counter()
         with moe_calls() as calls:
             logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-        launches.append(kernel.launches[name])
+        launches.append(model_launches(expect))
+        paths.append(dict(path_launches))
         peak = torch.cuda.max_memory_allocated()   # before the checks' own
         if tuple(logits.shape) != (*tokens, cfg.vocab_size) or \
                 not bool(torch.isfinite(logits).all()) or \
@@ -2148,14 +2277,18 @@ def model_phase(cfg, params, seed: int, *, phase="model",
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
                                  f"are not finite or exceed the softcap")
         del logits
-    if launches != [cfg.n_layers] * 2:
-        raise AssertionError(f"{name} launches per prefill {launches}, "
-                             f"expected {cfg.n_layers}")
+    ssd_paths = {"wgmma": expect.get("ssd_scan", 0), "simple": 0}
+    if launches != [expect] * 2 or paths != [ssd_paths] * 2:
+        raise AssertionError(f"launches per prefill {launches}, SSD scan "
+                             f"paths {paths}, expected {expect} and "
+                             f"{ssd_paths}")
     n_tok = tokens[0] * tokens[1]
     out.update({"prefill_s": {"warm_up": secs[0], "timed": secs[1]},
                 "prefill_tokens_per_s": n_tok / secs[1],
-                f"{name}_launches": launches[1],
+                **{f"{n}_launches": c for n, c in launches[1].items()},
                 "prefill_peak_bytes": peak})
+    if "ssd_scan" in expect:
+        out["ssd_scan_path_launches"] = paths[1]
     if calls:                       # the timed prefill's MoE layers
         drops = [float(m["fraction_dropped"]) for _, _, m in calls]
         out["moe"] = {
@@ -2174,13 +2307,13 @@ def model_phase(cfg, params, seed: int, *, phase="model",
                            "srv1")
     queue = requests(cfg, SERVE_REQUESTS, SERVE_TOKENS, seed)
     done = list(queue)
-    kernel.reset_launches()
+    reset_model_kernels()
     dvv_ops.reset_launches()
     t = time.perf_counter()
     steps = serve_requests(sched, queue)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
-    serve_launches = {**kernel.launches, **dvv_ops.launches}
+    serve_launches = {**model_launches(expect), **dvv_ops.launches}
     keys = [f"session/{r.rid}" for r in done]
     reads = store.get_many(keys, via="srv1")
     for r in done:
@@ -2189,15 +2322,18 @@ def model_phase(cfg, params, seed: int, *, phase="model",
                 or len(r.generated) != SERVE_TOKENS:
             raise AssertionError(f"session/{r.rid} read back {got}, "
                                  f"expected {r.generated}")
+    # a step reads every parameter at least once (the MoE's one-hot
+    # dispatch every expert's, a tied head the whole embedding) and the
+    # whole cache (decode_attention scores every slot under a mask)
+    floor = out["param_bytes"] + tree_bytes(sched.cache)
     out.update(serve={
         "requests": SERVE_REQUESTS, "tokens_each": SERVE_TOKENS,
         "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
         "decode_steps": steps, "seconds": serve_s,
         "s_per_decode_step": serve_s / steps,
-        # a step reads every parameter at least once (the MoE's one-hot
-        # dispatch every expert's, a tied head the whole embedding)
-        "bytes_floor_per_step": out["param_bytes"],
-        "floor_s_per_step": out["param_bytes"] / HBM_BYTES_PER_S,
+        "cache_bytes": tree_bytes(sched.cache),
+        "bytes_floor_per_step": floor,
+        "floor_s_per_step": floor / HBM_BYTES_PER_S,
         "tokens_per_s": SERVE_REQUESTS * SERVE_TOKENS / serve_s,
         "launches_while_serving": serve_launches,
         "read_back_launches": {k: v - serve_launches[k]
@@ -2413,61 +2549,92 @@ def profiler_ranges(targets):
             setattr(module, name, fn)
 
 
-def moe_breakdown(fn):
-    """``fn`` (warmed by the caller) traced with the host's ops, each MoE
-    part and each attention layer inside a profiler range: device
-    microseconds by part (a range's device time is its ops' kernels: the
-    forward's, and in a training step remat's recompute, never the
-    backward's, which falls in "rest") and by kernel class."""
+def kernel_class(name: str) -> str:
+    """A device kernel's class: the SSD scan's (forward and backward), the
+    flash forward's, the flash backward's, cuBLAS's GEMMs or the rest."""
+    low = name.lower()
+    return "ssd_scan" if SSD_KERNELS in low else \
+        "flash_attention" if "flash_fwd" in low else \
+        "flash_attention_bwd" if "flash_bwd" in low else \
+        "gemm" if any(g in low for g in GEMM_KERNELS) else "other"
+
+
+def lm_breakdown(fn, cfg, decode: bool = False):
+    """``fn`` (warmed by the caller: a prefill or a training step of
+    ``cfg``, or with ``decode`` a decode step) traced with the host's ops,
+    each of the LM's parts inside a profiler range: device microseconds by
+    part and by kernel class.  A range holds the kernels its host ops
+    launched, ranges inside it included: the forward's, and in a training
+    step remat's recompute, never the backward's, which falls in "rest".
+    The hand-written kernels, launched through ctypes, are recorded under
+    no host op, so the SSD scan's and flash's (forward and backward) are
+    counted by kernel name, and the attention's range and, where ``cfg``
+    has Mamba layers, the Mamba mixer's are split by kernel class."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm, moe
 
-    targets = {"moe.route": (moe, "route"), "moe.assign": (moe, "assign"),
-               "moe.experts": (moe, "experts"), "moe.ffn": (lm, "moe_ffn"),
-               "attention": (lm, "attention"), "head": (lm, "_head")}
+    targets = {
+        "attention": (lm, "decode_attention" if decode else "attention"),
+        "moe.route": (moe, "route"), "moe.assign": (moe, "assign"),
+        "moe.experts": (moe, "experts"), "moe.ffn": (lm, "moe_ffn"),
+        "mlp": (lm, "_mlp"), "head": (lm, "_head")}
+    if cfg.has_ssm:
+        targets["mamba"] = (lm, "decode_ssm" if decode else "ssm_forward")
     torch.cuda.synchronize()
     with profiler_ranges(targets), profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ranges = dict.fromkeys(targets, 0.0)
+
+    def kernels_under(e):
+        yield from e.kernels
+        for child in e.cpu_children:
+            yield from kernels_under(child)
+
+    zero = dict.fromkeys(("ssd_scan", "flash_attention",
+                          "flash_attention_bwd", "gemm", "other"), 0.0)
+    ranges = {t: dict(zero) for t in targets}
     for e in prof.events():
         if e.name in ranges and e.device_type == DeviceType.CPU:
-            ranges[e.name] += e.device_time_total
-    classes = {"gemm": 0.0, "flash_attention": 0.0,
-               "flash_attention_bwd": 0.0, "elementwise_other": 0.0}
+            for k in kernels_under(e):
+                ranges[e.name][kernel_class(k.name)] += k.duration
+    classes = dict(zero)
     for e in prof.key_averages():
         us = e.self_device_time_total
         # the kernels' own rows: not the host ops that launched them, nor
         # the ranges' device-side rows
-        if us <= 0 or e.device_type != DeviceType.CUDA or e.key in targets:
-            continue
-        low = e.key.lower()
-        cls = "flash_attention" if "flash_fwd" in low else \
-            "flash_attention_bwd" if "flash_bwd" in low else "gemm" \
-            if any(g in low for g in GEMM_KERNELS) else "elementwise_other"
-        classes[cls] += us
+        if us > 0 and e.device_type == DeviceType.CUDA and \
+                e.key not in targets:
+            classes[kernel_class(e.key)] += us
     busy = sum(classes.values())
-    parts = {"router": ranges["moe.route"],
-             "capacity_assignment": ranges["moe.assign"],
-             "expert_products": ranges["moe.experts"],
-             "dispatch_combine_products_and_losses": ranges["moe.ffn"]
-             - ranges["moe.route"] - ranges["moe.assign"]
-             - ranges["moe.experts"],
-             "attention": ranges["attention"], "head": ranges["head"],
-             "rest": busy - ranges["moe.ffn"] - ranges["attention"]
-             - ranges["head"]}
-    return {"device_busy_us": busy,
-            "by_part_us": parts,
+    total = {t: sum(c.values()) for t, c in ranges.items()}
+    attn = ranges["attention"]
+    parts = {"flash_attention": classes["flash_attention"],
+             "flash_attention_bwd": classes["flash_attention_bwd"],
+             "attention_rest": attn["gemm"] + attn["other"],
+             "router": total["moe.route"],
+             "capacity_assignment": total["moe.assign"],
+             "expert_products": total["moe.experts"],
+             "dispatch_combine_products_and_losses": total["moe.ffn"]
+             - total["moe.route"] - total["moe.assign"]
+             - total["moe.experts"],
+             "dense_mlps": total["mlp"], "head": total["head"]}
+    if cfg.has_ssm:
+        mixer = ranges["mamba"]
+        parts.update(ssd_scan_kernels=classes["ssd_scan"],
+                     mamba_projection_gemms=mixer["gemm"],
+                     mamba_plain_torch=mixer["other"])
+    parts["rest"] = busy - sum(parts.values())
+    return {"device_busy_us": busy, "by_part_us": parts,
             "by_part_share": {k: v / busy for k, v in parts.items()}
             if busy else None,
             "by_kernel_class_us": classes}
 
 
 def moe_prefill_breakdown(cfg, params, tokens):
-    """``moe_breakdown`` of one prefill of zero tokens ``tokens`` after an
+    """``lm_breakdown`` of one prefill of zero tokens ``tokens`` after an
     untraced one."""
     import torch
     from repro_torch.launch.steps import make_prefill_step
@@ -2475,7 +2642,7 @@ def moe_prefill_breakdown(cfg, params, tokens):
     toks = torch.zeros(tokens, dtype=torch.int32, device="cuda")
     prefill = make_prefill_step(cfg)
     prefill(params, {"tokens": toks})                 # warm, untraced
-    return moe_breakdown(lambda: prefill(params, {"tokens": toks}))
+    return lm_breakdown(lambda: prefill(params, {"tokens": toks}), cfg)
 
 
 def moe_train_phases(seed: int):
@@ -2497,14 +2664,14 @@ def moe_train_phases(seed: int):
 
 
 def moe_train_trace(trainer):
-    """One more step of ``trainer`` traced by ``moe_breakdown`` (device
+    """One more step of ``trainer`` traced by ``lm_breakdown`` (device
     time by MoE part in the forward and its recompute, and by kernel
     class, the flash backward's included), with every MoE layer's
     fraction_dropped in that step's forward."""
     cfg = trainer.model_cfg
     n_moe = cfg.n_groups * sum(s.ffn == "moe" for s in cfg.pattern)
     with moe_calls() as calls:
-        out = moe_breakdown(lambda: trainer.run(steps=1))
+        out = lm_breakdown(lambda: trainer.run(steps=1), cfg)
     # the forward's calls: remat's recompute stops inside a group's last
     # MoE call once the tensors the backward saved are back (torch's
     # non-reentrant checkpoint), so those calls never return
@@ -2532,34 +2699,48 @@ def recount_dropped(idx, n_experts: int, C: int):
 
 
 def moe_parity_phase(phase: str, cfg, tokens, seed: int, *,
-                     plain: bool = False):
+                     plain: bool = False,
+                     decode_tokens: int = MOE_PARITY_TOKENS,
+                     capacity_factor=None):
     """``cfg`` (a MoE config cut at full width; fp32 here): (a) prefill
-    logits of MOE_PARITY_TOKENS tokens against token-by-token decode; then
-    one prefill of ``tokens`` through the kernels: with ``plain``, (b) its
-    logits against the same prefill through the plain versions on the
-    card, to PREFILL_DECODE_TOL; and (c) its first-layer fraction_dropped
-    against the host's recount over the experts the card's router chose."""
+    logits of ``decode_tokens`` tokens against token-by-token decode, at
+    ``capacity_factor`` where given (else the config's), whose capacity
+    for a group of that many tokens must hold them all, so that nothing
+    drops on either side; then one prefill of ``tokens`` through the
+    kernels: with ``plain``, (b) its logits against the same prefill
+    through the plain versions on the card; and (c) its first MoE layer's
+    fraction_dropped against the host's recount over the experts the
+    card's router chose.  MOE_PARITY_TOLS bound (a) and (b); every
+    prefill launches each kernel as ``prefill_launches`` says."""
+    from dataclasses import replace
+
     import torch
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import init_cache, init_params
     from repro_torch.models.lm import moe_spec
     from repro_torch.models.moe import capacity, route
 
-    spec = moe_spec(cfg)
+    expect = prefill_launches(cfg)
+
+    def launched():
+        return {f"{n}_launches": c for n, c in model_launches(expect).items()}
+
+    dec_cfg = replace(cfg, capacity_factor=capacity_factor or
+                      cfg.capacity_factor)
+    spec, dec_spec = moe_spec(cfg), moe_spec(dec_cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     params = init_params(gen, cfg)
-    S = MOE_PARITY_TOKENS
-    if capacity(S, spec) != capacity(1, spec):
-        raise AssertionError("prefill and decode groups differ in capacity")
+    S = decode_tokens
+    if capacity(S, dec_spec) < S:
+        raise AssertionError(f"a group of {S} tokens can drop: capacity "
+                             f"{capacity(S, dec_spec)}")
     toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                          device="cuda", dtype=torch.int32)
-    prefill = make_prefill_step(cfg)
-    FA.reset_launches()
-    pre = prefill(params, {"tokens": toks})[0]
-    launches = FA.launches["flash_attention"]
-    step = make_decode_step(cfg)
-    cache = init_cache(cfg, 1, S)
+    reset_model_kernels()
+    pre = make_prefill_step(dec_cfg)(params, {"tokens": toks})[0]
+    launches = launched()
+    step = make_decode_step(dec_cfg)
+    cache = init_cache(dec_cfg, 1, S)
     errs = torch.stack([(step(params, cache, toks[:, i], i)[0][0]
                          - pre[i]).abs().max() for i in range(S)])
     err = float(errs.max())
@@ -2567,32 +2748,33 @@ def moe_parity_phase(phase: str, cfg, tokens, seed: int, *,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "compute_dtype": cfg.compute_dtype,
            "prefill_vs_decode": {
-               "tokens": S, "capacity": capacity(S, spec),
-               "flash_attention_launches": launches,
-               "max_abs_logit_diff": err,
-               "max_abs_logit": float(pre.abs().max()),
-               "tol": PREFILL_DECODE_TOL}}
+               "tokens": S, "capacity": capacity(S, dec_spec),
+               **({"capacity_factor": capacity_factor}
+                  if capacity_factor else {}),
+               **launches, "max_abs_logit_diff": err,
+               "max_abs_logit": float(pre.abs().max()), "tol": MOE_PARITY_TOLS[0]}}
+    del cache, pre
 
+    prefill = make_prefill_step(cfg)
     toks = torch.randint(0, cfg.vocab_size, tokens, generator=gen,
                          device="cuda", dtype=torch.int32)
-    FA.reset_launches()
+    reset_model_kernels()
     with moe_calls(keep_inputs=True) as calls:
         logits = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
-    kernel_launches = FA.launches["flash_attention"]
+    kernel_launches = launched()
     finite = bool(torch.isfinite(logits).all())
     if plain:
-        with plain_attention():
-            FA.reset_launches()
+        with plain_attention(), plain_ssd():
+            reset_model_kernels()
             want = prefill(params, {"tokens": toks})
-            plain_launches = FA.launches["flash_attention"]
+            plain_launches = sum(launched().values())
         plain_err = float((logits - want).abs().max())
         out["kernels_vs_plain"] = {
-            "tokens": list(tokens), "flash_attention_launches":
-            kernel_launches, "plain_launches": plain_launches,
+            "tokens": list(tokens), **kernel_launches,
+            "plain_launches": plain_launches,
             "max_abs_logit_diff": plain_err,
-            "max_abs_logit": float(want.abs().max()),
-            "tol": PREFILL_DECODE_TOL}
+            "max_abs_logit": float(want.abs().max()), "tol": MOE_PARITY_TOLS[1]}
         del want
     del logits
     layer, x, metrics = calls[0]
@@ -2608,18 +2790,18 @@ def moe_parity_phase(phase: str, cfg, tokens, seed: int, *,
         "logits_finite": finite}
     del params, calls, layer, x
     torch.cuda.empty_cache()
-    if launches != cfg.n_layers or kernel_launches != cfg.n_layers:
-        raise AssertionError(f"parity prefills launched flash_attention "
-                             f"{launches} and {kernel_launches} times, "
-                             f"expected {cfg.n_layers}")
-    if not err <= PREFILL_DECODE_TOL:
+    want_launches = {f"{n}_launches": c for n, c in expect.items()}
+    if launches != want_launches or kernel_launches != want_launches:
+        raise AssertionError(f"parity prefills launched {launches} and "
+                             f"{kernel_launches}, expected "
+                             f"{want_launches}")
+    if not err <= MOE_PARITY_TOLS[0]:
         raise AssertionError(f"prefill and decode logits differ by {err} > "
-                             f"{PREFILL_DECODE_TOL}")
-    if plain and (plain_launches or not plain_err <= PREFILL_DECODE_TOL):
+                             f"{MOE_PARITY_TOLS[0]}")
+    if plain and (plain_launches or not plain_err <= MOE_PARITY_TOLS[1]):
         raise AssertionError(f"logits through the kernels differ from the "
-                             f"plain versions' by {plain_err} > "
-                             f"{PREFILL_DECODE_TOL} (plain launches "
-                             f"{plain_launches})")
+                             f"plain versions' by {plain_err} > {MOE_PARITY_TOLS[1]} "
+                             f"(plain launches {plain_launches})")
     if card != host or not finite:
         raise AssertionError(f"fraction_dropped on the card {card!r}, host "
                              f"recount {host!r}; logits finite: {finite}")
@@ -3542,6 +3724,170 @@ def init_timed(cfg, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# jamba-1.5-large-398b, the hybrid
+# ---------------------------------------------------------------------------
+
+def pattern_cut(cfg, layers: slice):
+    """``cfg`` cut to one group of ``cfg.pattern[layers]``."""
+    from dataclasses import replace
+    pattern = cfg.pattern[layers]
+    return replace(cfg, n_layers=len(pattern), pattern=pattern)
+
+
+def long_decode_phase(cfg, params, seed: int):
+    """long_500k's decode step: batch 1 over a cache of its 524,288 slots
+    built by init_cache, a warm-up step at JAMBA_LONG_POS and
+    JAMBA_LONG_STEPS timed steps after it through make_decode_step; then
+    the same steps over a cache of SERVE_MAX_LEN slots (at its last
+    positions): seconds a step, whose difference the host's time hides
+    (jamba_trace reads the cache's share from device time).
+    Beside each, the step's bytes floor: every parameter and the whole
+    cache read once."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_cache
+
+    shape = SHAPES["long_500k"]
+    B, n = shape.global_batch, JAMBA_LONG_STEPS
+    step = make_decode_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    toks = torch.randint(0, cfg.vocab_size, (n + 1, B), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    param_bytes = tree_bytes(params)
+    out = {"phase": "jamba_long", "arch": cfg.name, "shape": shape.name,
+           "batch": B, "steps": n, "param_bytes": param_bytes,
+           "note": "decode_attention scores every slot of the cache and "
+                   "masks those past pos: a step's work does not depend "
+                   "on how many slots hold keys"}
+    for name, slots, first in (("long", shape.seq_len, JAMBA_LONG_POS),
+                               ("short", SERVE_MAX_LEN,
+                                SERVE_MAX_LEN - n - 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = init_cache(cfg, B, slots)
+        step(params, cache, toks[0], first)             # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(1, n + 1):
+            logits, cache = step(params, cache, toks[i], first + i)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if tuple(logits.shape) != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"decode logits {tuple(logits.shape)} "
+                                 f"over {slots} slots are not finite")
+        floor = param_bytes + tree_bytes(cache)
+        out[name] = {
+            "slots": slots, "positions": [first + 1, first + n],
+            "cache_bytes": tree_bytes(cache),
+            "kv_cache_bytes": sum(tree_bytes(c) for c in cache.values()
+                                  if "k" in c),
+            "seconds": secs, "s_per_step": secs / n,
+            "bytes_floor_per_step": floor,
+            "floor_s_per_step": floor / HBM_BYTES_PER_S,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        del cache, logits
+    return out
+
+
+def jamba_trace_phase(cfg, params):
+    """One prefill of [JAMBA_PREFILL] and one decode step of batch 1 over
+    long_500k's 524,288 slots and over SERVE_MAX_LEN's, each timed once
+    untraced and then traced on the card alone (device-busy against wall
+    seconds: the idle share, against the traced and the untraced wall) and
+    with the host's ops (``lm_breakdown``: device time by part); the
+    long cache's share of a decode step, from device time."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_cache
+
+    shape = SHAPES["long_500k"]
+    B = shape.global_batch
+    toks = torch.zeros(JAMBA_PREFILL, dtype=torch.int32, device="cuda")
+    prefill, step = make_prefill_step(cfg), make_decode_step(cfg)
+    tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    caches = {n: init_cache(cfg, B, n)
+              for n in (shape.seq_len, SERVE_MAX_LEN)}
+    out = {"phase": "jamba_trace", "arch": cfg.name,
+           "prefill_tokens": list(JAMBA_PREFILL)}
+    for name, fn, decode in (
+            ("prefill", lambda: prefill(params, {"tokens": toks}), False),
+            ("long_decode", lambda: step(params, caches[shape.seq_len], tok,
+                                         JAMBA_LONG_POS), True),
+            ("short_decode", lambda: step(params, caches[SERVE_MAX_LEN],
+                                          tok, SERVE_MAX_LEN - 1), True)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        untraced_s = time.perf_counter() - t
+        busy_us, per, wall_s = device_profile(fn)
+        busy_s = busy_us / 1e6
+        out[name] = {
+            "wall_s": wall_s, "wall_untraced_s": untraced_s,
+            "device_busy_s": busy_s,
+            "device_idle_share": 1 - busy_s / wall_s if busy_us else None,
+            "device_idle_share_untraced_wall": 1 - busy_s / untraced_s
+            if busy_us else None,
+            "device_events": sum(c for c, _ in per.values()),
+            "top_device_events": top_device_events(per),
+            "breakdown": lm_breakdown(fn, cfg, decode)}
+    out["decode_slots"] = {"long_decode": shape.seq_len,
+                           "short_decode": SERVE_MAX_LEN}
+    out["long_cache_share"] = 1 - out["short_decode"][
+        "device_busy_s"] / out["long_decode"]["device_busy_s"] \
+        if out["long_decode"]["device_busy_s"] else None
+    del caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_phases(seed: int):
+    """jamba-1.5-large-398b at its published widths cut to JAMBA_LAYERS,
+    in MOE_PARAM_DTYPE parameters: jamba_model (model_phase at
+    JAMBA_PREFILL: one flash launch and four SSD scans on the wgmma path a
+    prefill, every MoE layer's fraction_dropped, the requests served and
+    read back), jamba_long (long_decode_phase), jamba_trace, then
+    jamba_parity on the JAMBA_PARITY_LAYERS cut in fp32
+    (moe_parity_phase: (a) at JAMBA_PARITY_DECODE_TOKENS tokens and
+    JAMBA_PARITY_CAPACITY, (b) and (c) at JAMBA_PARITY_TOKENS); emits the
+    lines, returns jamba_model's."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params
+
+    base = get_config(JAMBA_ARCH)
+    cfg = replace(pattern_cut(base, JAMBA_LAYERS),
+                  param_dtype=MOE_PARAM_DTYPE)
+    params, init_s = init_timed(cfg, seed)
+    line = model_phase(cfg, params, seed, phase="jamba_model",
+                       tokens=JAMBA_PREFILL)
+    line.update(param_count=count_params(cfg),
+                active_param_count=count_params(cfg, active_only=True),
+                init_s=init_s, heads=[cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim],
+                ssm_heads=[cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state],
+                pattern=[f"{s.mixer}+{s.ffn}" for s in cfg.pattern])
+    emit(line)
+    emit(long_decode_phase(cfg, params, seed))
+    emit(jamba_trace_phase(cfg, params))
+    del params
+    torch.cuda.empty_cache()
+    emit(moe_parity_phase(
+        "jamba_parity", replace(pattern_cut(base, JAMBA_PARITY_LAYERS),
+                                compute_dtype="float32"),
+        JAMBA_PARITY_TOKENS, seed, plain=True,
+        decode_tokens=JAMBA_PARITY_DECODE_TOKENS,
+        capacity_factor=JAMBA_PARITY_CAPACITY))
+    return line
+
+
+# ---------------------------------------------------------------------------
 # qwen3-14b and granite-8b, served
 # ---------------------------------------------------------------------------
 
@@ -4082,7 +4428,7 @@ def ptxas_lines(log: str):
 SUMMARY_LINES = ("store", "trace", "model", "moe", "ssm", "ssm_train",
                  "train", "audio", "audio_train", "smoke", "examples",
                  "qwen3-14b", "granite-8b", "vl", "vl_train", "moe_train",
-                 "grok")
+                 "grok", "jamba")
 
 
 def kernels_summary(rows, lines):
@@ -4110,7 +4456,7 @@ def kernels_summary(rows, lines):
     # bf16 at 16, train_e2e bf16 at 32, smoke_configs fp32 at 16)
     store, trace, model, moe, ssm, ssm_train, train, audio, audio_train, \
         smoke, examples, qwen3_14b, granite_8b, vl, vl_train, moe_train, \
-        grok = (lines[k] for k in SUMMARY_LINES)
+        grok, jamba = (lines[k] for k in SUMMARY_LINES)
     runs = examples["runs"]
     flash_paths = {
         "global": ("model", model["flash_attention_launches"], None),
@@ -4120,6 +4466,7 @@ def kernels_summary(rows, lines):
         "granite_8b": ("granite_8b_model",
                        granite_8b["flash_attention_launches"], None),
         "grok": ("grok_model", grok["flash_attention_launches"], None),
+        "jamba": ("jamba_model", jamba["flash_attention_launches"], None),
         # the position instance: qwen2-vl-7b's prefill and training
         "mrope_positions": ("vl_model",
                             vl["flash_attention_launches"]["positions"],
@@ -4166,12 +4513,15 @@ def kernels_summary(rows, lines):
                      "rms_err_ratio": r["rms_err_ratio"],
                      "device_kernels_ms": r["device_kernels_ms"]}
         elif r["name"] == "ssd_scan":
-            if r["variant"] != "main_path":
+            if r["variant"] not in ("main_path", "jamba"):
                 continue
-            launches = ssm["ssd_scan_launches"]
+            phase, line = ("ssm_model", ssm) if r["variant"] == "main_path" \
+                else ("jamba_model", jamba)
+            launches = line["ssd_scan_launches"]
             source = "src/repro_torch/kernels/ssd_scan/csrc/" + (
                 "ssd_passes.cu" if r["path"] == "wgmma" else "ssd_scan.cu")
             extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "main_path": phase,
                      "library": None, "rel_err": r["rel_err"],
                      "path": r["path"],
                      "device_kernels_ms": r["device_kernels_ms"]}
@@ -4272,7 +4622,7 @@ def main() -> int:
     cfg = get_config(SSM_ARCH)
     params, init_s = init_timed(cfg, args.seed)
     ssm = model_phase(cfg, params, args.seed, phase="ssm_model",
-                      tokens=SSM_PREFILL, kernel=SS)
+                      tokens=SSM_PREFILL)
     ssm.update(param_count=count_params(cfg), init_s=init_s)
     emit(ssm)
     emit(model_trace_phase(cfg, params, args.seed, phase="ssm_trace",
@@ -4283,6 +4633,7 @@ def main() -> int:
 
     moe, grok = (moe_phases(tag, seed=args.seed, **kw)
                  for tag, kw in MOE_SERVE.items())
+    jamba = jamba_phases(args.seed)
     dense = dense_phases(args.seed)
     vl = vl_phases(args.seed)
 
@@ -4303,7 +4654,8 @@ def main() -> int:
         store=store, trace=trace, model=model, moe=moe, ssm=ssm,
         ssm_train=ssm_train, train=train, audio=audio,
         audio_train=audio_train, smoke=smoke, examples=examples, **dense,
-        vl=vl[0], vl_train=vl[1], moe_train=moe_train, grok=grok))
+        vl=vl[0], vl_train=vl[1], moe_train=moe_train, grok=grok,
+        jamba=jamba))
     emit({"phase": "wall", "seconds": time.perf_counter() - start})
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1915,6 +1915,94 @@ def test_grok_geometry_prefill_and_decode_on_the_card_equal_the_cpu_run(
         assert float((got.cpu() - want).abs().max()) < 1e-4, pos
 
 
+#: jamba-1.5-large-398b's attention, experts and SSD widths on its smoke
+#: config cut to the first 5 layers of its block (Mamba-2 at 0-3, MoE at 1
+#: and 3, the attention layer at 4), as chip_smoke.py cuts the full config
+JAMBA_CUT = dict(n_heads=64, n_kv_heads=8, head_dim=128, moe_experts=16,
+                 moe_topk=2, ssm_headdim=64, ssm_state=128)
+
+
+def _jamba_cut(**kw):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("jamba-1.5-large-398b").smoke()
+    return replace(cfg, n_layers=5, pattern=cfg.pattern[:5], **JAMBA_CUT,
+                   **kw)
+
+
+def test_ssd_scan_at_jamba_256_heads_takes_the_wgmma_path(cuda, ieee_fp32):
+    """jamba-1.5-large-398b's SSD widths (256 heads of 64, state 128,
+    chunk 256) at [1, 2048] bf16: the wgmma passes, one launch counted,
+    against the plain version run in fp32 on the upcast inputs, to
+    test_kernels.py's 5e-2."""
+    from repro_torch.kernels import ssd_scan as SS
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import path_launches, wgmma_path
+
+    args = _ssd_inputs(1, 2048, 256, 64, 128, torch.bfloat16, cuda, seed=14)
+    assert wgmma_path(args[0], args[3], args[4], 256) == "wgmma"
+    SS.reset_launches()
+    y, h = SS.ssd_scan(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert SS.launches == {"ssd_scan": 1}
+    assert path_launches == {"wgmma": 1, "simple": 0}
+    want_y, want_h = ssd_chunked(*(a.float() for a in args), 256)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert _rel(y, want_y) < 5e-2 and _rel(h, want_h) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_jamba_64_heads_over_8(cuda, ieee_fp32, dtype):
+    """[1, 1024], 64 heads over 8 of 128 (a GQA group of 8), causal: one
+    launch, against the plain version."""
+    q, k, v = _qkv(1, 1024, JAMBA_CUT["n_heads"], JAMBA_CUT["n_kv_heads"],
+                   JAMBA_CUT["head_dim"], dtype, cuda, seed=15)
+    FA.reset_launches()
+    got = FA.gqa_flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.launches == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    _assert_flash_close(got, flash_attention_ref(q, k, v, causal=True))
+
+
+def test_hybrid_decode_step_over_a_long_cache(cuda, ieee_fp32):
+    """jamba's cut (JAMBA_CUT), fp32: init_cache of long_500k's 524,288
+    slots holds the attention layer's keys and values and the Mamba
+    layers' conv windows and SSD state with their shapes; one decode_step
+    at position 8,192 gives finite logits [1, V], writes that slot alone,
+    moves the SSD state, and gives the logits of the same step over a
+    cache of 8,193 slots within 1e-5 (the slots past the position are
+    masked)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_cache, init_params
+
+    cfg = _jamba_cut(compute_dtype="float32")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                         device=cuda)
+    slots, pos = SHAPES["long_500k"].seq_len, 8192
+    step = make_decode_step(cfg)
+    tok = torch.tensor([7], dtype=torch.int32, device=cuda)
+    out = {}
+    for n in (slots, pos + 1):
+        cache = init_cache(cfg, 1, n, device=cuda)
+        kv = (cfg.n_groups, 1, n, cfg.n_kv_heads, cfg.head_dim)
+        assert all(tuple(cache["layer4"][t].shape) == kv for t in "kv")
+        assert tuple(cache["layer0"]["ssd"].shape) == (
+            cfg.n_groups, 1, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+        logits, cache = step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        assert tuple(logits.shape) == (1, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
+        written = cache["layer4"]["k"].abs().amax(dim=(0, 1, 3, 4)) > 0
+        assert written.nonzero().flatten().tolist() == [pos]
+        assert all(cache[f"layer{i}"]["ssd"].abs().amax() > 0
+                   for i in range(4))
+        out[n] = logits
+        del cache
+    assert float((out[slots] - out[pos + 1]).abs().max()) < 1e-5
+
+
 @pytest.mark.parametrize("width", ["smoke", "qwen2_vl_heads"])
 def test_vl_training_step_on_the_card_equals_the_cpu_run(cuda, ieee_fp32,
                                                         width):

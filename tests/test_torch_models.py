@@ -10,20 +10,24 @@ package's, carried over by ``params_from_numpy``):
   * ``forward`` logits of the smoke configs of gemma2-9b, granite-8b,
     gemma-2b, mamba2-780m and the three MoE configs (qwen3-moe-30b-a3b,
     jamba-1.5-large-398b, grok-1-314b; grok also at its own attention and
-    experts, 48 heads over 8 KV heads of 128 and 8 experts top-2, the MoE
-    configs against the default path too) against JAX
+    experts, 48 heads over 8 KV heads of 128 and 8 experts top-2; jamba
+    also cut to the first 5 layers of its block at its own attention,
+    experts and SSD widths; the MoE configs against the default path
+    too) against JAX
     ``forward(use_pallas=True)``: <= 1e-4 in fp32, <= 0.05 in bf16 (the
     bound of ``tests/test_kernels.py:224``), and the aux loss (the MoE
     layers' load-balance and z losses, 0 without them);
   * ``count_params`` (total and active) and ``loss_fn``;
   * 8 ``decode_step``s, logits and cache (k/v, or the SSM's conv windows
-    and state);
-  * the two ``BatchScheduler``s side by side (gemma2-9b, mamba2-780m and
-    qwen3-moe-30b-a3b): identical tokens and identical session values in
-    the two stores;
+    and state; jamba's cut both);
+  * the two ``BatchScheduler``s side by side (gemma2-9b, mamba2-780m,
+    qwen3-moe-30b-a3b and jamba's cut): identical tokens and identical
+    session values in the two stores;
   * prefill against token-by-token decode, the CPU twin of
     ``chip_smoke.py``'s ``model_parity`` phase, which sets its tolerance
-    (MoE: at 8 tokens, where no token can be dropped).
+    (MoE: at 8 tokens, where no token can be dropped; jamba's cut also
+    at 4 SSD chunks with a capacity that drops nothing, as
+    ``jamba_parity`` (a) runs it).
 """
 import importlib
 from dataclasses import replace
@@ -61,12 +65,23 @@ HUBERT_D80 = "hubert-xlarge@head_dim80"
 #: over 2 of 16 and 4): the GQA group of 6 and the routing the card serves
 #: at full width
 GROK_WIDE = "grok-1-314b@heads48x8d128e8"
-#: the config overrides of a "<arch>@<what>" name
+#: jamba-1.5-large-398b's smoke config cut as chip_smoke.py cuts the full
+#: config, to the first 5 layers of its block (Mamba-2 at 0-3, MoE at 1 and
+#: 3, the attention layer at 4), at jamba's own attention (64 heads over 8
+#: KV heads of 128), experts (16, top-2) and SSD widths (P 64, N 128)
+JAMBA_CUT = "jamba-1.5-large-398b@cut5"
+#: the config overrides of a "<arch>@<what>" name; a callable takes the
+#: package's own config (the packages' LayerSpecs differ)
 CASES = {HUBERT_D80: ("hubert-xlarge", {"head_dim": 80}),
          GROK_WIDE: ("grok-1-314b", {"n_heads": 48, "n_kv_heads": 8,
                                      "head_dim": 128, "moe_experts": 8,
-                                     "moe_topk": 2})}
-MOE_CASES = MOE_MODELS + (GROK_WIDE,)
+                                     "moe_topk": 2}),
+         JAMBA_CUT: ("jamba-1.5-large-398b", {
+             "n_layers": 5, "pattern": lambda c: c.pattern[:5],
+             "n_heads": 64, "n_kv_heads": 8, "head_dim": 128,
+             "moe_experts": 16, "moe_topk": 2, "ssm_headdim": 64,
+             "ssm_state": 128})}
+MOE_CASES = MOE_MODELS + (GROK_WIDE, JAMBA_CUT)
 #: prefill vs token-by-token decode, fp32 logits (final softcap 30 bounds
 #: them to +-30): the bound ``chip_smoke.py``'s model_parity phase holds at
 #: full width.  At smoke size the two agree far inside it.
@@ -85,11 +100,14 @@ def _np(t):
 def _cfgs(name, compute="float32", **kw):
     """Both packages' smoke configs of an arch or a CASES name."""
     arch, over = CASES.get(name, (name, {}))
-    jc = replace(JC.get_config(arch).smoke(), compute_dtype=compute,
-                 **over, **kw)
-    tc = replace(TC.get_config(arch).smoke(), compute_dtype=compute,
-                 **over, **kw)
-    return jc, tc
+
+    def cfg(package):
+        smoke = package.get_config(arch).smoke()
+        return replace(smoke, compute_dtype=compute, **{
+            k: v(smoke) if callable(v) else v for k, v in over.items()},
+            **kw)
+
+    return cfg(JC), cfg(TC)
 
 
 def _params(jc, tc, seed=0):
@@ -408,16 +426,20 @@ def test_moe_loss_fn_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", MODELS + MOE_CASES)
 def test_decode_steps_match_jax(arch):
+    """8 decode steps against the JAX package's ``decode_step``, jitted as
+    its ``BatchScheduler`` jits it (one compile; run eagerly, its group
+    scan compiles again at every step)."""
     jc, tc = _cfgs(arch)
     jp, tp = _params(jc, tc, seed=3)
     B, max_len = 3, 24
     jcache = JM.init_cache(jc, B, max_len)
     tcache = TM.init_cache(tc, B, max_len, device="cpu")
     rng = np.random.default_rng(4)
+    jstep = jax.jit(lambda p, c, t, pos: JM.decode_step(p, c, t, pos, jc))
     for pos in range(8):
         toks = rng.integers(0, jc.vocab_size, (B,)).astype(np.int32)
-        jl, jcache = JM.decode_step(jp, jcache, jnp.asarray(toks),
-                                    jnp.asarray(pos, jnp.int32), jc)
+        jl, jcache = jstep(jp, jcache, jnp.asarray(toks),
+                           jnp.asarray(pos, jnp.int32))
         tl, tcache = TM.decode_step(tp, tcache, _t(toks), pos, tc)
         assert np.abs(_np(tl) - _np(jl)).max() < 1e-4
     for layer in jcache:
@@ -441,6 +463,13 @@ def test_batch_schedulers_serve_identical_moe_tokens_and_sessions():
     """The same on qwen3-moe-30b-a3b's smoke config: each decode step
     routes the 4 slots as 4 groups of one token (capacity 8)."""
     _serve_side_by_side("qwen3-moe-30b-a3b")
+
+
+def test_batch_schedulers_serve_identical_hybrid_tokens_and_sessions():
+    """The same on jamba's cut (JAMBA_CUT): each decode step carries the
+    attention layer's KV cache and the four Mamba layers' conv windows and
+    SSD state for every slot."""
+    _serve_side_by_side(JAMBA_CUT)
 
 
 def _serve_side_by_side(arch):
@@ -519,6 +548,33 @@ def test_moe_prefill_matches_token_by_token_decode(arch):
     pre = make_prefill_step(tc)(tp, {"tokens": toks})[0]
     step = make_decode_step(tc)
     cache = TM.init_cache(tc, 1, S, device="cpu")
+    dec = torch.stack([step(tp, cache, toks[:, i], i)[0][0]
+                       for i in range(S)])
+    err = float((pre - dec).abs().max())
+    assert err < PREFILL_DECODE_TOL / 10, err
+
+
+def test_hybrid_prefill_matches_decode_at_a_raised_capacity():
+    """The CPU twin of chip_smoke.py's jamba_parity (a) on jamba's cut:
+    fp32 prefill logits of 4 SSD chunks (the state crossing chunk
+    boundaries) against token-by-token decode through both caches, at a
+    capacity factor that gives capacity(32) >= 32, so that no token is
+    dropped on either side (1.25 gives 8)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.moe import capacity
+
+    S = 32
+    _, tc = _cfgs(JAMBA_CUT, capacity_factor=8.0)
+    assert S == 4 * tc.ssm_chunk and capacity(S, TM.moe_spec(tc)) >= S
+    assert capacity(S, TM.moe_spec(replace(tc, capacity_factor=1.25))) < S
+    tp = TM.init_params(torch.Generator().manual_seed(6), tc, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, tc.vocab_size, (1, S)).astype(np.int32))
+    pre = make_prefill_step(tc)(tp, {"tokens": toks})[0]
+    step = make_decode_step(tc)
+    cache = TM.init_cache(tc, 1, S, device="cpu")
+    assert {"k", "v"} <= set(cache["layer4"])
+    assert {"conv_x", "ssd"} <= set(cache["layer0"])
     dec = torch.stack([step(tp, cache, toks[:, i], i)[0][0]
                        for i in range(S)])
     err = float((pre - dec).abs().max())

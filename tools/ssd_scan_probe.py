@@ -8,7 +8,8 @@ temperature) before and after, the nvcc seconds and ptxas's registers,
 spills and performance notes of each library, then one JSON line per row
 of chip_smoke.py's ssd_scan rows (mamba2-780m's widths: 48 heads of 64,
 state 128, chunk 256; fp32 [1, 4096], bf16 [1, 32768] and bf16 at the main
-path's [4, 32768]) on inputs drawn as chip_smoke.py draws them from
+path's [4, 32768]; and jamba-1.5-large-398b's 256 heads, bf16 [1, 8192])
+on inputs drawn as chip_smoke.py draws them from
 --seed: the path the wrapper takes, the error (max |got - want| / max
 |want| for y and h_final) against the plain version run in fp32 on the
 upcast inputs, the bound, and CUDA-event milliseconds per call (mean of
@@ -23,7 +24,7 @@ ref.ssd_passes_bwd with the rounding of the path taken; fp32: autograd
 through ref.ssd_chunked), the bound, CUDA-event milliseconds of the kernel
 and of the plain version, and each backward kernel's device milliseconds
 (profiler), for each build.
---rows keeps only the named rows (prefill_bf16, fp32, main_path,
+--rows keeps only the named rows (prefill_bf16, fp32, main_path, jamba,
 bwd_train_bf16, bwd_fp32).
 
 --baseline builds a second library from other sources (for example the
@@ -191,15 +192,15 @@ def main() -> int:
     order = ["baseline", "kernel", "kernel", "baseline"] if args.baseline \
         else ["kernel", "kernel"]
 
-    for i, (variant, dtype, B, S, tol) in enumerate(CS.SSD_ROWS):
+    for i, (variant, dtype, B, S, tol, H) in enumerate(CS.SSD_ROWS):
         if args.rows and variant not in args.rows:
             continue
-        inputs = CS.ssd_inputs(B, S, getattr(torch, dtype), args.seed + i)
+        inputs = CS.ssd_inputs(B, S, getattr(torch, dtype), args.seed + i, H)
         path = SS.wgmma_path(inputs[0], inputs[3], inputs[4], CS.SSD_CHUNK)
         want_y, want_h = ssd_chunked(*(a.float() for a in inputs),
                                      CS.SSD_CHUNK)
         row = {"variant": variant, "dtype": dtype,
-               "shape": [B, S, CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE],
+               "shape": [B, S, H, CS.SSD_HEAD_DIM, CS.SSD_STATE],
                "chunk": CS.SSD_CHUNK, "path": path, "tol": tol}
         calls, outs = {}, {}
         for name, lib in libs.items():
@@ -230,11 +231,11 @@ def main() -> int:
             row["kernel_pass_ms"] = pass_ms(inputs, libs["kernel"],
                                             args.reps)
         elem = inputs[0].element_size()
-        H, P, N = CS.SSD_HEADS, CS.SSD_HEAD_DIM, CS.SSD_STATE
+        P, N = CS.SSD_HEAD_DIM, CS.SSD_STATE
         nbytes = (2 * B * S * H * P + B * S * H + 2 * B * S * N + 2 * H) \
             * elem + B * H * P * N * 4
         row["bound_ms"], row["bound_by"] = CS.bound(
-            nbytes, CS.ssd_ops(B, S), CS.FLOPS_PER_S[dtype])
+            nbytes, CS.ssd_ops(B, S, H), CS.FLOPS_PER_S[dtype])
         print(json.dumps(row), flush=True)
         del inputs, calls
         torch.cuda.empty_cache()
