@@ -1,0 +1,22 @@
+"""flash_roofline.prefill: the flash forward kernel's share of its
+roofline over the traced prompts: the sum over its launches of the least
+time the card could take (``peaks.bound_s`` of each launch's operations
+on the causal pairs and its bytes, q, k, v and the output once) over the
+device time of the kernels named ``flash_fwd``."""
+from perfbench.bench import peaks
+
+
+def read(run):
+    seg = run.get("segment")
+    if run.get("kind") != "prefill" or seg is None:
+        return None
+    spent = seg.kernel_s("flash_fwd")
+    if not spent:
+        return None
+    model = run["model"]
+    least = 0.0
+    for S in run["segment_lengths"]:
+        flops, nbytes = peaks.flash_launch(model, S)
+        least += peaks.attention_layers(model) * peaks.bound_s(
+            nbytes, flops)[0]
+    return 100.0 * least / spent
