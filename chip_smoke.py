@@ -2525,30 +2525,6 @@ def moe_calls(keep_inputs: bool = False):
         lm.moe_ffn = original
 
 
-@contextmanager
-def profiler_ranges(targets):
-    """Run each function ``getattr(module, name)`` of ``targets`` ({label:
-    (module, name)}) inside a ``torch.profiler.record_function(label)``
-    range while the context is open (the callers look the names up in
-    their modules at each call)."""
-    import torch
-    saved = []
-    for label, (module, name) in targets.items():
-        fn = getattr(module, name)
-
-        def ranged(*args, _fn=fn, _label=label, **kw):
-            with torch.profiler.record_function(_label):
-                return _fn(*args, **kw)
-
-        saved.append((module, name, fn))
-        setattr(module, name, ranged)
-    try:
-        yield
-    finally:
-        for module, name, fn in saved:
-            setattr(module, name, fn)
-
-
 def kernel_class(name: str) -> str:
     """A device kernel's class: the SSD scan's (forward and backward), the
     flash forward's, the flash backward's, cuBLAS's GEMMs or the rest."""
@@ -2561,32 +2537,38 @@ def kernel_class(name: str) -> str:
 
 def lm_breakdown(fn, cfg, decode: bool = False):
     """``fn`` (warmed by the caller: a prefill or a training step of
-    ``cfg``, or with ``decode`` a decode step) traced with the host's ops,
-    each of the LM's parts inside a profiler range: device microseconds by
-    part and by kernel class.  A range holds the kernels its host ops
-    launched, ranges inside it included: the forward's, and in a training
-    step remat's recompute, never the backward's, which falls in "rest".
-    The hand-written kernels, launched through ctypes, are recorded under
-    no host op, so the SSD scan's and flash's (forward and backward) are
-    counted by kernel name, and the attention's range and, where ``cfg``
-    has Mamba layers, the Mamba mixer's are split by kernel class."""
+    ``cfg``, or with ``decode`` a decode step) traced with the host's ops
+    and the port's own spans on (``repro_torch.runtime.tracing``): device
+    microseconds by part and by kernel class.  A span holds the kernels
+    its host ops launched, spans inside it included: the forward's, and in
+    a training step remat's recompute, never the backward's, which falls
+    in "rest".  The hand-written kernels, launched through ctypes, are
+    recorded under no host op, so the SSD scan's and flash's (forward and
+    backward) are counted by kernel name, and the attention's span and,
+    where ``cfg`` has Mamba layers, the Mamba mixer's are split by kernel
+    class."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import lm, moe
+    from repro_torch.runtime import tracing
 
-    targets = {
-        "attention": (lm, "decode_attention" if decode else "attention"),
-        "moe.route": (moe, "route"), "moe.assign": (moe, "assign"),
-        "moe.experts": (moe, "experts"), "moe.ffn": (lm, "moe_ffn"),
-        "mlp": (lm, "_mlp"), "head": (lm, "_head")}
+    spans = {
+        "attention": "lm.decode_attention" if decode else "lm.attention",
+        "moe.route": "lm.moe.route", "moe.assign": "lm.moe.assign",
+        "moe.experts": "lm.moe.experts", "moe.ffn": "lm.moe",
+        "mlp": "lm.mlp", "head": "lm.head"}
     if cfg.has_ssm:
-        targets["mamba"] = (lm, "decode_ssm" if decode else "ssm_forward")
+        spans["mamba"] = "lm.mamba"
     torch.cuda.synchronize()
-    with profiler_ranges(targets), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+        tracing.drain()
 
     def kernels_under(e):
         yield from e.kernels
@@ -2595,18 +2577,19 @@ def lm_breakdown(fn, cfg, decode: bool = False):
 
     zero = dict.fromkeys(("ssd_scan", "flash_attention",
                           "flash_attention_bwd", "gemm", "other"), 0.0)
-    ranges = {t: dict(zero) for t in targets}
+    part_of = {name: part for part, name in spans.items()}
+    ranges = {part: dict(zero) for part in spans}
     for e in prof.events():
-        if e.name in ranges and e.device_type == DeviceType.CPU:
+        if e.name in part_of and e.device_type == DeviceType.CPU:
             for k in kernels_under(e):
-                ranges[e.name][kernel_class(k.name)] += k.duration
+                ranges[part_of[e.name]][kernel_class(k.name)] += k.duration
     classes = dict(zero)
     for e in prof.key_averages():
         us = e.self_device_time_total
         # the kernels' own rows: not the host ops that launched them, nor
-        # the ranges' device-side rows
+        # the spans' device-side rows
         if us > 0 and e.device_type == DeviceType.CUDA and \
-                e.key not in targets:
+                not e.key.startswith("lm."):
             classes[kernel_class(e.key)] += us
     busy = sum(classes.values())
     total = {t: sum(c.values()) for t, c in ranges.items()}

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --requests 8 --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --store-workload
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --trace
 
 Continuous-batching-lite, as in the JAX package: a fixed decode batch of
 slots; finished requests release their slot and queued requests claim it
@@ -18,6 +20,14 @@ coalescing serving plane with the closed-loop engine (``store/serving.py``)
 in each ``--store-mode`` and prints one JSON summary per mode, as the JAX
 package's launcher does.  ``--seed`` seeds the model's parameters (default
 0) or the store workload's draws (default 11).
+
+``--trace`` turns on the port's tracing (``runtime/tracing.py``) for the
+model's serving and prints ``tracing.snapshot()`` as one line of JSON
+after the summary line: per span (``serve.step``, its dispatch and sync,
+``serve.persist``, the model's ``lm.*`` parts, the store's ``store.*``)
+the count, total, longest and self seconds, the counters (MoE pairs routed
+and kept, replication messages queued and delivered, siblings returned),
+the kernels' launches and builds, and the store's plane calls.
 """
 from __future__ import annotations
 
@@ -33,6 +43,8 @@ import torch
 from ..configs import ARCH_IDS, get_config
 from ..core import DVV_MECHANISM
 from ..models import init_cache, init_params
+from ..runtime import tracing
+from ..runtime.tracing import span
 from ..store import ClosedLoopEngine, GossipDriver, KVCluster, SimNetwork
 from .steps import make_decode_step
 
@@ -72,36 +84,49 @@ class BatchScheduler:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def admit(self, queue: List[Request]) -> None:
-        for slot in self._free_slots():
-            if not queue:
-                break
-            req = queue.pop(0)
-            req.slot = slot
-            self.slot_req[slot] = req
+        with span("serve.admit"):
+            for slot in self._free_slots():
+                if not queue:
+                    break
+                req = queue.pop(0)
+                req.slot = slot
+                self.slot_req[slot] = req
 
     def step(self) -> None:
-        toks = torch.tensor(
-            [r.generated[-1] if (r and r.generated) else
-             (r.prompt_token if r else 0)
-             for r in self.slot_req], dtype=torch.int32, device=self.device)
-        logits, self.cache = self._step(self.params, self.cache, toks,
-                                        self.pos)
-        nxt = torch.argmax(logits, dim=-1).tolist()   # first maximal index
-        self.pos += 1
-        for i, req in enumerate(self.slot_req):
-            if req is None:
-                continue
-            req.generated.append(int(nxt[i]))
-            if req.done:
-                self._persist(req)
-                self.slot_req[i] = None
+        """One decode step of every slot, then each finished request's
+        session write.  Traced (``runtime/tracing.py``): ``serve.step``
+        holds ``serve.step.dispatch`` (the tokens' upload, the model's
+        step, the argmax: queued work, with whatever the host waits for on
+        the way), ``serve.step.sync`` (reading the tokens back) and the
+        ``serve.persist`` of each finished request."""
+        with span("serve.step", pos=self.pos):
+            with span("serve.step.dispatch"):
+                toks = torch.tensor(
+                    [r.generated[-1] if (r and r.generated) else
+                     (r.prompt_token if r else 0)
+                     for r in self.slot_req], dtype=torch.int32,
+                    device=self.device)
+                logits, self.cache = self._step(self.params, self.cache,
+                                                toks, self.pos)
+                nxt = torch.argmax(logits, dim=-1)    # first maximal index
+            with span("serve.step.sync"):
+                nxt = nxt.tolist()
+            self.pos += 1
+            for i, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                req.generated.append(int(nxt[i]))
+                if req.done:
+                    self._persist(req)
+                    self.slot_req[i] = None
 
     def _persist(self, req: Request) -> None:
-        key = f"session/{req.rid}"
-        res = self.store.get(key, via=self.node)
-        self.store.put(key, json.dumps(
-            {"tokens": req.generated, "pos": self.pos}),
-            context=res.context, via=self.node, client_id=self.node)
+        with span("serve.persist", rid=req.rid):
+            key = f"session/{req.rid}"
+            res = self.store.get(key, via=self.node)
+            self.store.put(key, json.dumps(
+                {"tokens": req.generated, "pos": self.pos}),
+                context=res.context, via=self.node, client_id=self.node)
 
 
 def serve_requests(sched: BatchScheduler, queue: List[Request]) -> int:
@@ -177,6 +202,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "with --store-workload, of the workload (default "
                          "11)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", action="store_true",
+                    help="trace the model's serving and print the spans "
+                         "and counters as JSON after the summary line")
     g = ap.add_argument_group("store workload (no model in the loop)")
     g.add_argument("--store-workload", action="store_true",
                    help="run the closed-loop store workload engine")
@@ -196,6 +224,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.seed = 11 if args.store_workload else 0
     if not args.store_workload and args.arch is None:
         ap.error("--arch is required unless --store-workload is given")
+    if args.store_workload and args.trace:
+        ap.error("--trace traces the model's serving, not --store-workload")
     return args
 
 
@@ -226,15 +256,20 @@ def main(argv=None) -> int:
     queue = [Request(rid=i, prompt_token=i % cfg.vocab_size,
                      max_tokens=args.tokens)
              for i in range(args.requests)]
+    if args.trace:
+        tracing.enable()
     t = time.perf_counter()
     steps = serve_requests(sched, queue)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     secs = time.perf_counter() - t
+    tracing.disable()
     print(f"served {args.requests} requests in {steps} decode steps "
           f"({args.batch_slots} slots, continuous batching) on {device}: "
           f"{secs / max(steps, 1):.4f} s per step, "
           f"{args.requests * args.tokens / secs:.1f} tokens/s")
+    if args.trace:
+        print(json.dumps(tracing.snapshot(store)))
     for i in range(args.requests):
         res = store.get(f"session/{i}", via="srv1")
         toks = json.loads(res.values[0])["tokens"] if res.values else []

@@ -19,6 +19,12 @@ package is ported, and so are its activation-sharding constraints
 input itself everywhere else.  ``param_specs`` builds the parameter tree
 on the meta device, for the dry run's partition rules and pricing.
 
+Each part runs inside a span of ``runtime/tracing.py`` (off unless
+enabled): ``lm.forward`` / ``lm.decode_step`` holding ``lm.embed``, one
+``lm.layer`` a layer (its norms and residuals, ``lm.attention`` /
+``lm.decode_attention`` or ``lm.mamba``, ``lm.mlp`` or ``lm.moe``) and
+``lm.head``.
+
 ``cfg.remat`` checkpoints each group when a gradient is recorded, as the
 JAX package wraps its scan body in ``jax.checkpoint``: the group's
 activations are dropped after the forward and recomputed in the backward
@@ -42,6 +48,7 @@ from .attention import (
 from .config import LayerSpec, ModelConfig
 from .layers import ACTIVATIONS, cross_entropy, rms_norm, softcap
 from .moe import MoESpec, init_moe_params, moe_ffn
+from ..runtime.tracing import span
 from .sharding_ctx import constrain
 from .ssm import (
     SSMSpec, decode_ssm, init_ssm_cache, init_ssm_params, ssm_forward,
@@ -257,9 +264,12 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, layer: Dict, x: torch.Tensor):
         return x, None
     h = rms_norm(x, layer["ffn_norm"], zero_centered=cfg.zero_centered_norm)
     if spec.ffn == "mlp":
-        return x + _mlp(layer["mlp"], h, cfg), None
+        with span("lm.mlp"):
+            out = _mlp(layer["mlp"], h, cfg)
+        return x + out, None
     if spec.ffn == "moe":
-        out, metrics = moe_ffn(layer["moe"], h, moe_spec(cfg))
+        with span("lm.moe"):
+            out, metrics = moe_ffn(layer["moe"], h, moe_spec(cfg))
         return x + out, metrics
     raise ValueError(spec.ffn)
 
@@ -272,19 +282,22 @@ def _apply_group(cfg: ModelConfig, group_params: Dict, x: torch.Tensor,
     x = constrain(x, "batch", "model" if cfg.seq_shard else None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.pattern):
-        layer = group_params[f"layer{i}"]
-        h = rms_norm(x, layer["pre_norm"],
-                     zero_centered=cfg.zero_centered_norm)
-        if spec.mixer.startswith("attn"):
-            mix = attention(layer["attn"], h, attn_spec(cfg, spec),
-                            positions=positions)
-        elif spec.mixer == "mamba":
-            mix = ssm_forward(layer["mamba"], h, ssm_spec(cfg))
-        else:
-            raise ValueError(spec.mixer)
-        x, metrics = _ffn(cfg, spec, layer, x + mix)
-        if metrics is not None:
-            aux = aux + metrics["aux_loss"] + metrics["z_loss"]
+        with span("lm.layer"):
+            layer = group_params[f"layer{i}"]
+            h = rms_norm(x, layer["pre_norm"],
+                         zero_centered=cfg.zero_centered_norm)
+            if spec.mixer.startswith("attn"):
+                with span("lm.attention"):
+                    mix = attention(layer["attn"], h, attn_spec(cfg, spec),
+                                    positions=positions)
+            elif spec.mixer == "mamba":
+                with span("lm.mamba"):
+                    mix = ssm_forward(layer["mamba"], h, ssm_spec(cfg))
+            else:
+                raise ValueError(spec.mixer)
+            x, metrics = _ffn(cfg, spec, layer, x + mix)
+            if metrics is not None:
+                aux = aux + metrics["aux_loss"] + metrics["z_loss"]
     return x, aux
 
 
@@ -333,26 +346,30 @@ def forward(params: Dict, batch: Dict, cfg: ModelConfig
     batch: {"tokens": [B,S] int} or {"embeddings": [B,S,d]};
     optional {"positions": [B,S] or [3,B,S] for mrope}.
     """
-    compute = _dtype(cfg.compute_dtype)
-    inputs = batch["tokens"] if cfg.input_mode == "tokens" \
-        else batch["embeddings"]
-    x = _embed(params, inputs, cfg, compute)
-    x = constrain(x, "batch", "model" if cfg.seq_shard else None, None)
-    positions = batch.get("positions")
-    body = partial(_apply_group, cfg)
-    if cfg.remat and torch.is_grad_enabled():
-        kw = dict(use_reentrant=False)
-        if cfg.remat_policy == "dots":
-            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
-                                       _SAVED_BY_DOTS)
-        body = partial(checkpoint, body, **kw)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for group in _unbind(params["blocks"], cfg.n_groups):
-        x, aux_g = body(group, x, positions)
-        aux = aux + aux_g
-    logical = (("batch", "model", None) if cfg.seq_shard
-               else ("batch", None, "model"))
-    return _head(params, x, cfg, logical), aux
+    with span("lm.forward"):
+        compute = _dtype(cfg.compute_dtype)
+        inputs = batch["tokens"] if cfg.input_mode == "tokens" \
+            else batch["embeddings"]
+        with span("lm.embed"):
+            x = _embed(params, inputs, cfg, compute)
+        x = constrain(x, "batch", "model" if cfg.seq_shard else None, None)
+        positions = batch.get("positions")
+        body = partial(_apply_group, cfg)
+        if cfg.remat and torch.is_grad_enabled():
+            kw = dict(use_reentrant=False)
+            if cfg.remat_policy == "dots":
+                kw["context_fn"] = partial(
+                    create_selective_checkpoint_contexts, _SAVED_BY_DOTS)
+            body = partial(checkpoint, body, **kw)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for group in _unbind(params["blocks"], cfg.n_groups):
+            x, aux_g = body(group, x, positions)
+            aux = aux + aux_g
+        logical = (("batch", "model", None) if cfg.seq_shard
+                   else ("batch", None, "model"))
+        with span("lm.head"):
+            logits = _head(params, x, cfg, logical)
+    return logits, aux
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: ModelConfig
@@ -388,17 +405,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _decode_group(cfg: ModelConfig, group_params: Dict, group_cache: Dict,
                   x: torch.Tensor, pos: int) -> torch.Tensor:
     for i, spec in enumerate(cfg.pattern):
-        layer = group_params[f"layer{i}"]
-        h = rms_norm(x, layer["pre_norm"],
-                     zero_centered=cfg.zero_centered_norm)
-        if spec.mixer.startswith("attn"):
-            mix, _ = decode_attention(layer["attn"], h,
-                                      group_cache[f"layer{i}"], pos,
-                                      attn_spec(cfg, spec))
-        else:
-            mix, _ = decode_ssm(layer["mamba"], h, group_cache[f"layer{i}"],
-                                ssm_spec(cfg))
-        x, _ = _ffn(cfg, spec, layer, x + mix)       # MoE: G = B, C = 8
+        with span("lm.layer"):
+            layer = group_params[f"layer{i}"]
+            h = rms_norm(x, layer["pre_norm"],
+                         zero_centered=cfg.zero_centered_norm)
+            if spec.mixer.startswith("attn"):
+                with span("lm.decode_attention"):
+                    mix, _ = decode_attention(layer["attn"], h,
+                                              group_cache[f"layer{i}"], pos,
+                                              attn_spec(cfg, spec))
+            else:
+                with span("lm.mamba"):
+                    mix, _ = decode_ssm(layer["mamba"], h,
+                                        group_cache[f"layer{i}"],
+                                        ssm_spec(cfg))
+            x, _ = _ffn(cfg, spec, layer, x + mix)   # MoE: G = B, C = 8
     return x
 
 
@@ -407,14 +428,18 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos: int,
     """One serve step. tokens [B] int (or embeddings [B,d]); pos int.
     Returns (logits [B,V] fp32, cache): the cache is updated in place (see
     ``attention.decode_attention`` and ``ssm.decode_ssm``) and returned."""
-    compute = _dtype(cfg.compute_dtype)
-    inputs = tokens if cfg.input_mode == "tokens" else tokens[:, None, :]
-    x = _embed(params, inputs, cfg, compute)
-    if cfg.input_mode == "tokens":
-        x = x[:, None, :]
-    x = constrain(x, "batch", None, None)
-    for g in range(cfg.n_groups):
+    with span("lm.decode_step"):
+        compute = _dtype(cfg.compute_dtype)
+        inputs = tokens if cfg.input_mode == "tokens" else tokens[:, None, :]
+        with span("lm.embed"):
+            x = _embed(params, inputs, cfg, compute)
+        if cfg.input_mode == "tokens":
+            x = x[:, None, :]
         x = constrain(x, "batch", None, None)
-        x = _decode_group(cfg, _index(params["blocks"], g),
-                          _index(cache, g), x, pos)
-    return _head(params, x, cfg)[:, 0], cache
+        for g in range(cfg.n_groups):
+            x = constrain(x, "batch", None, None)
+            x = _decode_group(cfg, _index(params["blocks"], g),
+                              _index(cache, g), x, pos)
+        with span("lm.head"):
+            logits = _head(params, x, cfg)[:, 0]
+    return logits, cache

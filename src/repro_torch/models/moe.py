@@ -12,6 +12,12 @@ probabilities (a stable descending sort; ``torch.topk`` promises no order
 for ties).
 
 Aux losses: load-balancing (Switch Transformer) + router z-loss (ST-MoE).
+
+Traced (``runtime/tracing.py``, off unless enabled): ``moe_ffn``'s parts
+run in the spans ``lm.moe.route``, ``lm.moe.assign``, ``lm.moe.dispatch``,
+``lm.moe.experts`` and ``lm.moe.combine`` (``models/lm.py`` holds them in
+``lm.moe``), and the counters ``moe.pairs_routed`` and ``moe.pairs_kept``
+count the (token, slot) pairs routed and those the capacity kept.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..runtime.tracing import count, span
 from .layers import ACTIVATIONS
 
 __all__ = ["MoESpec", "capacity", "init_moe_params", "route", "assign",
@@ -143,15 +150,23 @@ def moe_ffn(params: Dict, x: torch.Tensor, spec: MoESpec
     G, S, d = x.shape
     E, K = spec.n_experts, spec.top_k
     C = capacity(S, spec)
-    logits, probs, gate_vals, expert_idx = route(params, x, spec)
-    dispatch, combine, kept = assign(expert_idx, gate_vals, E, C, x.dtype)
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)       # [E,G,C,d]
-    expert_out = experts(params, expert_in, spec)                 # [E,G,C,d]
-    # "gsec,egcd->gsd" as one batched product over (e, c) in the order the
-    # tensors lie: torch.einsum would first copy both operands into (c, e)
-    # order
-    out = combine.view(G, S, E * C) @ expert_out.transpose(0, 1).reshape(
-        G, E * C, d)                                              # [G,S,d]
+    with span("lm.moe.route"):
+        logits, probs, gate_vals, expert_idx = route(params, x, spec)
+    with span("lm.moe.assign"):
+        dispatch, combine, kept = assign(expert_idx, gate_vals, E, C,
+                                         x.dtype)
+    count("moe.pairs_routed", G * S * K)
+    count("moe.pairs_kept", kept)
+    with span("lm.moe.dispatch"):
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)   # [E,G,C,d]
+    with span("lm.moe.experts"):
+        expert_out = experts(params, expert_in, spec)             # [E,G,C,d]
+    with span("lm.moe.combine"):
+        # "gsec,egcd->gsd" as one batched product over (e, c) in the order
+        # the tensors lie: torch.einsum would first copy both operands into
+        # (c, e) order
+        out = combine.view(G, S, E * C) @ expert_out.transpose(
+            0, 1).reshape(G, E * C, d)                            # [G,S,d]
 
     # -- aux losses -----------------------------------------------------------
     # load balance: E * sum_e (fraction_tokens_e * mean_prob_e)

@@ -21,6 +21,15 @@ raises at construction when there is no card), their plain torch versions
 on "cpu".  ``use_kernel=False`` asks for the numpy twin instead.  The
 single-key ``put``/``get`` stay on the numpy twins: a device dispatch per
 key would dominate them.
+
+Traced (``runtime/tracing.py``, off unless enabled): ``get`` runs in the
+span ``store.get`` (its quorum merge in ``store.get.merge``), ``put`` in
+``store.put`` (the coordinator's DVV update in ``store.put.coordinate``,
+the payload and its sends in ``store.put.replicate``).  The counters:
+``store.replication_queued``, replication messages queued on the network
+(those a PUT counts as acknowledgements, and read repairs);
+``store.replication_delivered``, those ``deliver_replication`` applied;
+``store.siblings_returned``, the values the GETs returned.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from ..core.kernel import Mechanism
+from ..runtime.tracing import count, span
 from ..kernels.dvv_ops import dvv_read_sweep_bucketed, \
     dvv_sync_mask_bucketed
 from .bulk import DeltaSyncStats, RangeBudget, \
@@ -664,27 +674,32 @@ class KVCluster:
 
     def get(self, key: str, *, via: Optional[str] = None,
             quorum: Optional[int] = None) -> GetResult:
-        proxy = via or next(iter(self.nodes))
-        if proxy in self.network.down:
-            raise Unavailable(f"proxy {proxy} is down")
-        quorum = quorum or self.read_quorum
-        reachable = self._reachable_replicas(proxy, key)
-        if len(reachable) < quorum:
-            raise Unavailable(
-                f"read quorum {quorum} unreachable for {key!r} via {proxy}")
-        chosen = [self.nodes[r] for r in reachable[:max(quorum, 1)]]
-        self.plane_reads += 1
-        if all(n.is_packed for n in chosen):
-            # Array-native read path: quorum merge + §5.4 ceiling token
-            # straight from the int32 columns (the key's shard store) —
-            # zero object-clock decodes.
-            values, walls, ckeys, entries = quorum_merge_key(
-                [n.store_for(key) for n in chosen], key)
-            return _merged_result(values, walls, ckeys, entries,
-                                  hlc=self._read_watermark(walls))
-        acc = self._object_read(key, chosen)
-        return _object_result(
-            acc, hlc=self._read_watermark(v.wall for v in acc))
+        with span("store.get"):
+            proxy = via or next(iter(self.nodes))
+            if proxy in self.network.down:
+                raise Unavailable(f"proxy {proxy} is down")
+            quorum = quorum or self.read_quorum
+            reachable = self._reachable_replicas(proxy, key)
+            if len(reachable) < quorum:
+                raise Unavailable(f"read quorum {quorum} unreachable for "
+                                  f"{key!r} via {proxy}")
+            chosen = [self.nodes[r] for r in reachable[:max(quorum, 1)]]
+            self.plane_reads += 1
+            with span("store.get.merge"):
+                if all(n.is_packed for n in chosen):
+                    # Array-native read path: quorum merge + §5.4 ceiling
+                    # token straight from the int32 columns (the key's shard
+                    # store) — zero object-clock decodes.
+                    values, walls, ckeys, entries = quorum_merge_key(
+                        [n.store_for(key) for n in chosen], key)
+                    res = _merged_result(values, walls, ckeys, entries,
+                                         hlc=self._read_watermark(walls))
+                else:
+                    acc = self._object_read(key, chosen)
+                    res = _object_result(
+                        acc, hlc=self._read_watermark(v.wall for v in acc))
+            count("store.siblings_returned", len(res.values))
+            return res
 
     def get_many(self, keys: Sequence[str], *, via: Optional[str] = None,
                  quorum: Optional[int] = None, repair: bool = False,
@@ -784,13 +799,13 @@ class KVCluster:
                 payload = _repair_payload(items)
                 if dst == proxy:
                     self.nodes[dst].receive_antientropy(payload)
-                else:
-                    self.network.send(proxy, dst, ("store", payload))
+                elif self.network.send(proxy, dst, ("store", payload)):
+                    count("store.replication_queued")
             for dst, payload in object_repairs.items():
                 if dst == proxy:
                     self.nodes[dst].receive_antientropy(payload)
-                else:
-                    self.network.send(proxy, dst, ("store", payload))
+                elif self.network.send(proxy, dst, ("store", payload)):
+                    count("store.replication_queued")
         return {k: results[k] for k in chosen}
 
     # -- causal snapshot reads (geo tier, DESIGN.md §12) --------------------
@@ -862,50 +877,57 @@ class KVCluster:
             client_counter: int = 0, wall_time: Optional[float] = None,
             coordinator: Optional[str] = None,
             quorum: Optional[int] = None) -> PutAck:
-        proxy = via or next(iter(self.nodes))
-        if proxy in self.network.down:
-            raise Unavailable(f"proxy {proxy} is down")
-        quorum = quorum or self.write_quorum
-        self.clock_time += 1.0
+        with span("store.put"):
+            proxy = via or next(iter(self.nodes))
+            if proxy in self.network.down:
+                raise Unavailable(f"proxy {proxy} is down")
+            quorum = quorum or self.write_quorum
+            self.clock_time += 1.0
 
-        ctx = CausalContext.coerce(context)
-        coordinator = self._pick_coordinator(proxy, key, coordinator)
-        wall = self._mint_wall(coordinator, ctx, wall_time)
-        self.plane_writes += 1
-        node = self.nodes[coordinator]
-        version = node.coordinate_update(
-            key, value, ctx, client_id=client_id,
-            client_counter=client_counter, wall_time=wall)
+            ctx = CausalContext.coerce(context)
+            coordinator = self._pick_coordinator(proxy, key, coordinator)
+            wall = self._mint_wall(coordinator, ctx, wall_time)
+            self.plane_writes += 1
+            node = self.nodes[coordinator]
+            with span("store.put.coordinate"):
+                version = node.coordinate_update(
+                    key, value, ctx, client_id=client_id,
+                    client_counter=client_counter, wall_time=wall)
 
-        # replicate S_C' to the other replicas (paper step 4): async
-        # messages carrying the wire payload (packed: int32 arrays, no
-        # object clocks on the control plane either).  Geo mode scopes this
-        # synchronous fan-out (and the write quorum) to the coordinator's
-        # own datacenter; mirrors in other DCs get the payload later via
-        # the WAN shipper's digest-diffed delta rounds.
-        geo = self.geo
-        cdc = geo.dc_of[coordinator] if geo is not None else None
-        payload = node.antientropy_payload([key])
-        acked = [coordinator]
-        for r in self.replicas_for(key):
-            if r == coordinator:
-                continue
-            if geo is not None and geo.dc_of[r] != cdc:
-                continue
-            sent = self.network.send(coordinator, r, ("store", payload))
-            if sent:
-                acked.append(r)
-            elif geo is not None:
-                geo.note_send_failed(coordinator, r, wall)
-        if geo is not None:
-            geo.on_commit(cdc, (wall,))
-        if len(acked) < quorum:
-            # The write is still durable at the coordinator (always-writable
-            # store) but the caller asked for more replicas than reachable.
-            raise Unavailable(
-                f"write quorum {quorum} > reachable replicas {len(acked)}")
-        return PutAck(clock=version.clock, coordinator=coordinator,
-                      replicated_to=tuple(acked))
+            # replicate S_C' to the other replicas (paper step 4): async
+            # messages carrying the wire payload (packed: int32 arrays, no
+            # object clocks on the control plane either).  Geo mode scopes
+            # this synchronous fan-out (and the write quorum) to the
+            # coordinator's own datacenter; mirrors in other DCs get the
+            # payload later via the WAN shipper's digest-diffed delta
+            # rounds.  A message queued counts as an acknowledgement.
+            with span("store.put.replicate"):
+                geo = self.geo
+                cdc = geo.dc_of[coordinator] if geo is not None else None
+                payload = node.antientropy_payload([key])
+                acked = [coordinator]
+                for r in self.replicas_for(key):
+                    if r == coordinator:
+                        continue
+                    if geo is not None and geo.dc_of[r] != cdc:
+                        continue
+                    sent = self.network.send(coordinator, r,
+                                             ("store", payload))
+                    if sent:
+                        acked.append(r)
+                    elif geo is not None:
+                        geo.note_send_failed(coordinator, r, wall)
+                if geo is not None:
+                    geo.on_commit(cdc, (wall,))
+            count("store.replication_queued", len(acked) - 1)
+            if len(acked) < quorum:
+                # The write is still durable at the coordinator (always-
+                # writable store) but the caller asked for more replicas
+                # than reachable.
+                raise Unavailable(f"write quorum {quorum} > reachable "
+                                  f"replicas {len(acked)}")
+            return PutAck(clock=version.clock, coordinator=coordinator,
+                          replicated_to=tuple(acked))
 
     def put_many(self, items: Mapping[str, Tuple[Any, Any]], *,
                  via: Optional[str] = None, client_id: str = "?",
@@ -986,6 +1008,7 @@ class KVCluster:
                     payload = payload_cache[sig] = \
                         node.antientropy_payload(ks)
                 if self.network.send(coord, dst, ("store", payload)):
+                    count("store.replication_queued")
                     for k in ks:
                         acked[k].append(dst)
                 elif geo is not None:
@@ -1014,8 +1037,10 @@ class KVCluster:
             self.nodes[msg.dst].receive_antientropy(payload)
             if self.geo is not None:
                 self.geo.note_receive(msg.dst, msg.payload)
-        return self.network.deliver(handler, until=until,
-                                    max_messages=max_messages)
+        delivered = self.network.deliver(handler, until=until,
+                                         max_messages=max_messages)
+        count("store.replication_delivered", delivered)
+        return delivered
 
     def antientropy(self, src: str, dst: str,
                     keys: Optional[Sequence[str]] = None) -> None:

@@ -56,7 +56,7 @@ MAPPED = {
 
 LAUNCHERS = ("launch/serve.py", "launch/train.py", "launch/dryrun.py")
 #: flags a port's script takes beyond the JAX package's
-PORT_ONLY_FLAGS = {"--device"}
+PORT_ONLY_FLAGS = {"--device", "--trace"}
 
 
 def ref_modules():
