@@ -105,6 +105,17 @@ script was loaded; a failure in any phase raises and exits non-zero:
            simple path's plain rounding (simple_rms_err_ratio: what the
            wgmma path's own roundings cost).  No PyTorch call computes
            the SSD gradient: no library yardstick.
+           decode_attention: one decode step's attention over the live
+           keys of a cache (no TPU kernel: the JAX package's is jnp) at
+           grok-1's decode shape (32 slots over 8,192, 48 heads over 8 of
+           128, softcap 30) at positions 600 and 8,191, and at jamba's
+           long_500k step (batch 1 over 524,288 slots, 64 heads over 8) at
+           its last position, bf16, to BF16_ROW_TOL of each output row's
+           RMS against the plain version (full cache, mask, softmax) in
+           fp32 on the upcast inputs; the bound is bytes (the live keys'
+           K and V once); beside it scaled_dot_product_attention over the
+           same live keys (without grok's softcap, which it cannot
+           apply), a yardstick the port never calls.
   store    the port's KVClient/KVCluster on the card, deployed as Riak KV's
            documented DVV setup (5 nodes, n_val=3, r=w=2, a 64-partition
            ring): put 262,144 keys with 64-byte values, partition
@@ -261,9 +272,10 @@ script was loaded; a failure in any phase raises and exits non-zero:
            SERVE_MAX_LEN's 256 slots (seconds a step only: the host sets
            a decode step's wall, so the cache's share is jamba_trace's,
            from device time).  Each with its bytes floor (every
-           parameter and the whole cache read once); decode_attention
-           scores every slot and masks those past the position, so the
-           work does not depend on how many slots hold keys.
+           parameter, the Mamba layers' state and the live keys and
+           values read once); the decode_attention kernel reads the keys
+           up to the position only, so a step at position 8,192 reads
+           the same attention bytes over either cache.
   jamba_trace  one prefill of [1, 8192] and one decode step over
            long_500k's 524,288 slots and over 256, each timed untraced,
            traced on the card alone (the idle share, against the traced and
@@ -1183,6 +1195,105 @@ def flash_rows(seed: int):
         row["library_ms"] = cuda_ms(library, 10)
         rows.append(row)
         del q, k, v, qt, kt, vt, got, lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: decode_attention's rows: (variant, (B, Smax, KV, G, D, softcap, window),
+#: pos): grok-1's decode shape in the benchmark's decode cells at a
+#: position its 30 s window reaches and at a full cache, and jamba's
+#: long_500k step at its last position
+DECODE_ROWS = (
+    ("grok_pos600", (32, 8192, 8, 6, 128, 30.0, 0), 600),
+    ("grok_pos8191", (32, 8192, 8, 6, 128, 30.0, 0), 8191),
+    ("jamba_long_500k", (1, 524288, 8, 8, 128, 0.0, 0), 524287),
+)
+
+
+def decode_attention_rows(seed: int):
+    """decode_attention against its plain version (full cache, mask,
+    softmax) run in fp32 on the upcast inputs, at DECODE_ROWS' shapes,
+    bf16, to BF16_ROW_TOL of each output row's RMS (beside it the bf16
+    plain version's own row error against the same); the bound is bytes
+    (the live keys' K and V rows, q and the output, each once).  Beside
+    each, scaled_dot_product_attention over
+    the same live keys (strided [B, KV, L, D] views of the cache), a
+    yardstick the port never calls; it takes no softcap, so at grok's rows
+    it times the attention without the cap."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, live_keys,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        BF16_ROW_TOL, row_scaled_err,
+    )
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for variant, (B, Smax, KV, G, D, cap, window), pos in DECODE_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(seed + pos)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((B, 1, KV, G, D), (B, Smax, KV, D),
+                                 (B, Smax, KV, D)))
+        kw = dict(window=window, softcap=cap)
+        DA.reset_launches()
+        got = DA.decode_attend(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        launched = dict(DA.launches)
+        # the gate: the plain version in fp32 on the upcast inputs; beside
+        # it the bf16 plain version, which rounds scores and p to bf16
+        want = decode_attention_ref(q.float(), k.float(), v.float(), pos,
+                                    **kw)
+        err = float((got.float() - want).abs().max())
+        row_err = row_scaled_err(got, want)
+        if not row_err <= BF16_ROW_TOL:
+            raise AssertionError(
+                f"decode_attention {variant} disagrees with its plain "
+                f"version: row-scaled err {row_err} (tolerance "
+                f"{BF16_ROW_TOL})")
+        plain = decode_attention_ref(q, k, v, pos, **kw)
+        plain_err = row_scaled_err(plain, want)
+        del want, plain
+        keys = live_keys(pos, window)
+        L = len(keys)
+        nbytes = 2 * B * L * KV * D * 2 + 2 * B * KV * G * D * 2
+        flops = 4 * B * KV * G * D * L
+        b_ms, b_by = bound(nbytes, flops, FLOPS_PER_S["bfloat16"])
+
+        def kernel():
+            return DA.decode_attend(q, k, v, pos, **kw)
+
+        row = {"name": "decode_attention", "variant": variant,
+               "shape": [B, Smax, KV * G, KV, D], "dtype": "bfloat16",
+               "pos": pos, "live_keys": L, **kw,
+               "splits": DA.decode_attention.splits(B, KV, L, sms)[0],
+               "launches_a_call": launched, "max_abs_err": err,
+               "row_scaled_err": row_err, "row_tol": BF16_ROW_TOL,
+               "plain_bf16_row_scaled_err": plain_err,
+               "ms": cuda_ms(kernel, 20),
+               "plain_ms": cuda_ms(
+                   lambda: decode_attention_ref(q, k, v, pos, **kw), 3),
+               **kernel_device_ms(kernel, 20, "decode_attention"),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "flops": flops}
+        row["bound_share"] = b_ms / row["device_ms"] \
+            if row["device_ms"] else None
+        qt = q.reshape(B, KV * G, 1, D)
+        kt, vt = (t[:, keys.start:keys.stop].transpose(1, 2) for t in (k, v))
+        library = partial(F.scaled_dot_product_attention, qt, kt, vt,
+                          enable_gqa=True)
+        lib = library().reshape(q.shape)
+        row["library"] = "scaled_dot_product_attention" + \
+            (" (without the softcap)" if cap else "")
+        row["library_row_scaled_diff"] = None if cap else \
+            row_scaled_err(lib, got)
+        row["library_ms"] = cuda_ms(library, 20)
+        rows.append(row)
+        del q, k, v, got, lib, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
 
@@ -2243,7 +2354,7 @@ def model_phase(cfg, params, seed: int, *, phase="model",
     path."""
     import torch
     from repro_torch.core import DVV_MECHANISM
-    from repro_torch.kernels import dvv_ops
+    from repro_torch.kernels import decode_attention as DA, dvv_ops
     from repro_torch.kernels.ssd_scan.ssd_scan import path_launches
     from repro_torch.launch.serve import BatchScheduler, serve_requests
     from repro_torch.launch.steps import make_prefill_step
@@ -2309,11 +2420,18 @@ def model_phase(cfg, params, seed: int, *, phase="model",
     done = list(queue)
     reset_model_kernels()
     dvv_ops.reset_launches()
+    DA.reset_launches()
     t = time.perf_counter()
     steps = serve_requests(sched, queue)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
-    serve_launches = {**model_launches(expect), **dvv_ops.launches}
+    serve_launches = {**model_launches(expect), **dvv_ops.launches,
+                      **DA.launches}
+    if DA.launches["decode_attention"] != steps * expect.get(
+            "flash_attention", 0):
+        raise AssertionError(f"decode_attention launched {DA.launches} in "
+                             f"{steps} steps, expected one an attention "
+                             f"layer a step")
     keys = [f"session/{r.rid}" for r in done]
     reads = store.get_many(keys, via="srv1")
     for r in done:
@@ -2323,9 +2441,10 @@ def model_phase(cfg, params, seed: int, *, phase="model",
             raise AssertionError(f"session/{r.rid} read back {got}, "
                                  f"expected {r.generated}")
     # a step reads every parameter at least once (the MoE's one-hot
-    # dispatch every expert's, a tied head the whole embedding) and the
-    # whole cache (decode_attention scores every slot under a mask)
-    floor = out["param_bytes"] + tree_bytes(sched.cache)
+    # dispatch every expert's, a tied head the whole embedding); the
+    # decode_attention kernel reads the cache's live keys only, which
+    # grow from none
+    floor = out["param_bytes"]
     out.update(serve={
         "requests": SERVE_REQUESTS, "tokens_each": SERVE_TOKENS,
         "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
@@ -3740,9 +3859,9 @@ def long_decode_phase(cfg, params, seed: int):
     param_bytes = tree_bytes(params)
     out = {"phase": "jamba_long", "arch": cfg.name, "shape": shape.name,
            "batch": B, "steps": n, "param_bytes": param_bytes,
-           "note": "decode_attention scores every slot of the cache and "
-                   "masks those past pos: a step's work does not depend "
-                   "on how many slots hold keys"}
+           "note": "the decode_attention kernel reads the keys up to "
+                   "pos only: a step at one position reads the same "
+                   "attention bytes over either cache"}
     for name, slots, first in (("long", shape.seq_len, JAMBA_LONG_POS),
                                ("short", SERVE_MAX_LEN,
                                 SERVE_MAX_LEN - n - 1)):
@@ -3760,12 +3879,14 @@ def long_decode_phase(cfg, params, seed: int):
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"decode logits {tuple(logits.shape)} "
                                  f"over {slots} slots are not finite")
-        floor = param_bytes + tree_bytes(cache)
+        kv_bytes = sum(tree_bytes(c) for c in cache.values() if "k" in c)
+        # every parameter, the Mamba state, and the keys 0..last position
+        floor = param_bytes + tree_bytes(cache) - kv_bytes + \
+            kv_bytes * (first + n + 1) // slots
         out[name] = {
             "slots": slots, "positions": [first + 1, first + n],
             "cache_bytes": tree_bytes(cache),
-            "kv_cache_bytes": sum(tree_bytes(c) for c in cache.values()
-                                  if "k" in c),
+            "kv_cache_bytes": kv_bytes,
             "seconds": secs, "s_per_step": secs / n,
             "bytes_floor_per_step": floor,
             "floor_s_per_step": floor / HBM_BYTES_PER_S,
@@ -4432,6 +4553,8 @@ def kernels_summary(rows, lines):
         # the gradient of that kernel's function, which the JAX package
         # takes by autodiff of its jnp ssd_chunked (models/ssm.py:106)
         "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
+        # none: the JAX package's decode attention is jnp
+        "decode_attention": "none (jnp: src/repro/models/attention.py:192)",
     }
     # the flash rows in the kernels line and the main-path run whose
     # launches each reads: the models' own, and at head_dim 16 and 32 the
@@ -4520,6 +4643,19 @@ def kernels_summary(rows, lines):
                      "simple_rms_err_ratio": r["simple_rms_err_ratio"],
                      "bwd_path_launches": ssm_train["bwd_path_launches"],
                      "device_kernels_ms": r["device_kernels_ms"]}
+        elif r["name"] == "decode_attention":
+            phase, line = ("grok_model", grok) if r["variant"].startswith(
+                "grok") else ("jamba_model", jamba)
+            launches = line["serve"]["launches_while_serving"][
+                "decode_attention"]
+            source = "src/repro_torch/kernels/decode_attention/csrc/" \
+                     "decode_attention.cu"
+            extra = {"variant": r["variant"], "dtype": r["dtype"],
+                     "pos": r["pos"], "library": r["library"],
+                     "main_path": f"{phase} (serving)",
+                     "row_scaled_err": r["row_scaled_err"],
+                     "bound_share": r["bound_share"],
+                     "device_kernels_ms": r["device_kernels_ms"]}
         elif tuple(r["shape"]) == SUMMARY_SHAPE and "variant" not in r:
             launches = store["launches"][r["name"]]
             source = "src/repro_torch/kernels/dvv_ops/csrc/dvv_ops.cu"
@@ -4555,6 +4691,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import build_info
+    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dvv_ops import dvv_ops
     from repro_torch.kernels import ssd_scan as SS
     from repro_torch.kernels.flash_attention import flash_attention
@@ -4566,7 +4703,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     start = t = time.perf_counter()
-    builds = (dvv_ops.build, flash_attention.build, build_ssd)
+    builds = (dvv_ops.build, flash_attention.build, build_ssd,
+              decode_attention.build)
     with ThreadPoolExecutor(len(builds)) as pool:   # one nvcc each, together
         list(pool.map(lambda build: build(), builds))
     emit({"phase": "device", "nvidia_smi": smi,
@@ -4578,7 +4716,8 @@ def main() -> int:
 
     rows = dvv_rows(args.seed) + flash_rows(args.seed) + \
         flash_mrope_row(args.seed) + flash_bwd_rows(args.seed) + \
-        ssd_rows(args.seed) + ssd_bwd_rows(args.seed)
+        ssd_rows(args.seed) + ssd_bwd_rows(args.seed) + \
+        decode_attention_rows(args.seed)
     emit({"phase": "kernels", "rows": rows})
     store = store_phase(STORE_KEYS, args.seed)
     emit(store)

@@ -21,11 +21,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..kernels.decode_attention import decode_attend
+from ..kernels.decode_attention.ref import NEG_INF
 from ..kernels.flash_attention import gqa_flash_attention
 from .layers import apply_mrope, apply_rope, rms_norm, softcap
 from .sharding_ctx import constrain
-
-NEG_INF = -2.0e38
 
 
 @dataclass(frozen=True)
@@ -187,33 +187,26 @@ def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
                      pos: int, spec: AttnSpec
                      ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. x: [B, 1, d]; cache k/v [B, Smax, KV, Dh];
-    pos: the index being written.
+    pos: the index being written (a host int).
+
+    The attention over the cache is ``kernels.decode_attention``'s front
+    end: the CUDA kernel on the card, which reads the live keys where they
+    lie, and the JAX package's full-cache masked math on the CPU.
 
     Unlike the JAX package, which returns an updated copy, the port writes
     the new key and value into ``cache`` in place (a slot of the stacked
     cache) and returns the same dict: a copy per step would move the whole
     cache."""
     B = x.shape[0]
-    Smax = cache["k"].shape[1]
     pos_t = torch.full((3, B, 1) if spec.mrope else (B, 1), int(pos),
                        dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, spec, pos_t)
     cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
     qg = _group_q(q, spec.n_kv_heads)                        # [B,1,KV,G,Dh]
-    scale = spec.query_scale or spec.head_dim ** -0.5
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg,
-                          cache["k"].to(x.dtype)).float() * scale
-    if spec.attn_softcap:
-        scores = softcap(scores, spec.attn_softcap)
-    kpos = torch.arange(Smax, dtype=torch.int32, device=x.device)
-    ok = kpos <= pos
-    if spec.sliding_window:
-        ok &= kpos > pos - spec.sliding_window
-    scores = torch.where(ok, scores, torch.tensor(
-        NEG_INF, dtype=torch.float32, device=x.device))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bkgqs,bskh->bqkgh", probs, cache["v"].to(x.dtype))
+    ctx = decode_attend(qg, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
+                        int(pos), window=spec.sliding_window,
+                        softcap=spec.attn_softcap, scale=spec.query_scale)
     ctx = ctx.reshape(B, 1, spec.n_heads, spec.head_dim)
     # decode_tp: heads over "model", head_dim over the data axes — matches
     # wo's stationary layout so the output contraction reduces activations

@@ -38,7 +38,11 @@ int, or a device tensor, kept as it is and summed once, in ``snapshot()``
   ``store.replication_delivered``: those ``deliver_replication`` applied;
   their difference is the backlog of acknowledged copies not yet on their
   replicas;
-* ``store.siblings_returned``: values the GETs returned.
+* ``store.siblings_returned``: values the GETs returned;
+* ``decode_attention.keys_read``, ``decode_attention.keys_cached``: the
+  live keys decode attention read and the keys its caches held
+  (``kernels/decode_attention/ops.py``); their ratio is the share of the
+  cache read.
 
 ``snapshot()`` also reads, where they are kept, the kernels' launch
 counters (``kernels/*``'s ``launches`` dicts), the seconds of their
@@ -167,6 +171,7 @@ def drain() -> List[Record]:
 
 #: The kernels' launch counters: {module under ``kernels``: its dicts}.
 _LAUNCH_DICTS = {
+    "decode_attention.decode_attention": ("launches",),
     "dvv_ops.dvv_ops": ("launches", "path_launches"),
     "flash_attention.flash_attention": ("launches", "instance_launches",
                                         "bwd_launches"),

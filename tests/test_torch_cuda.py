@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (dvv_ops, flash_attention and its
-backward, ssd_scan and its backward) against their plain torch versions,
-on the card.
+backward, ssd_scan and its backward, decode_attention) against their plain
+torch versions, on the card.
 Imports neither jax nor the JAX package, so it runs on a machine that has
 only the port:
 
@@ -18,6 +18,10 @@ import torch
 from repro_torch.core import DVV_MECHANISM
 from repro_torch.core import batched as TB
 from repro_torch.data import image_positions
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, live_keys as decode_live_keys,
+)
 from repro_torch.kernels.dvv_ops import ops, ref
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels.flash_attention.ref import (
@@ -2155,3 +2159,209 @@ def test_scheduler_flush_and_gossip_round_on_the_card(cuda):
     assert launches["dvv_sync_mask"] > 0
     assert launches["dvv_read_sweep"] > 0
     assert set(cpu_launches.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# decode_attention: one decode step over the live keys of a cache
+# ---------------------------------------------------------------------------
+
+#: grok-1's decode shape in the benchmark's decode cells: 32 slots over
+#: 8,192 positions, 48 query heads over 8 KV heads of 128 (G 6), softcap
+#: 30, a stacked cache of 6 layers
+GROK_DECODE = dict(B=32, Smax=8192, KV=8, G=6, D=128, layers=6, cap=30.0)
+
+
+def _decode_q(B, KV, G, D, dtype, device, seed, std=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((B, 1, KV, G, D), generator=gen, device=device)
+            * std).to(dtype)
+
+
+def _decode_cache(lead, B, Smax, KV, D, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(lead + (B, Smax, KV, D), generator=gen,
+                        device=device, dtype=dtype) for _ in "kv"]
+
+
+def _assert_decode_close(got, q, k, v, pos, **kw):
+    """Against the plain version run in fp32 on the upcast inputs (the
+    attention the bf16 plain version approximates with scores and p
+    rounded to bf16): bf16 within BF16_ROW_TOL of each output row's RMS,
+    fp32 within 1e-5 of the largest output."""
+    want = decode_attention_ref(q.float(), k.float(), v.float(), pos, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    if got.dtype == torch.bfloat16:
+        assert row_scaled_err(got, want) < BF16_ROW_TOL
+    else:
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) < 1e-5 * scale
+
+
+def _decode_checked(q, k, v, pos, **kw):
+    """One kernel call, its launches counted, against the plain version."""
+    DA.reset_launches()
+    got = DA.decode_attend(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    nsplit, _ = DA.decode_attention.splits(
+        q.shape[0], q.shape[2],
+        len(decode_live_keys(pos, kw.get("window", 0))),
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    assert DA.launches == {"decode_attention": 1,
+                           "decode_attention_combine": int(nsplit > 1)}
+    _assert_decode_close(got, q, k, v, pos, **kw)
+    return got, nsplit
+
+
+@pytest.fixture(scope="module")
+def grok_decode_cache():
+    """Keys and values of grok's stacked 6-layer cache, bf16 (6.4 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode_attention kernel has "
+                    "no CPU mode")
+    g = GROK_DECODE
+    kv = _decode_cache((g["layers"],), g["B"], g["Smax"], g["KV"], g["D"],
+                       torch.bfloat16, torch.device("cuda"), seed=21)
+    yield kv
+    del kv
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("pos", [0, 1, 63, 64, 600, 8191])
+def test_decode_kernel_at_grok_decode_shape(cuda, grok_decode_cache, pos):
+    """B 32 over 8,192 slots, G 6 of 128, softcap 30 (q drawn 4 times
+    larger, so the cap bends), read from layer 3's [g] view of the
+    stacked cache: one launch (and the combine where the keys are split)
+    against the plain version."""
+    g = GROK_DECODE
+    k, v = (t[3] for t in grok_decode_cache)
+    q = _decode_q(g["B"], g["KV"], g["G"], g["D"], torch.bfloat16, cuda,
+                  seed=pos, std=4.0)
+    _, nsplit = _decode_checked(q, k, v, pos, softcap=g["cap"])
+    assert (nsplit > 1) == (pos >= 2 * DA.decode_attention.MIN_SPLIT_KEYS - 1)
+
+
+@pytest.mark.parametrize("pos", [4095, 4096, 6000])
+def test_decode_kernel_at_gemma2_sliding_window(cuda, pos):
+    """gemma2-9b's local layer: D 256, 16 heads over 8, window 4,096,
+    softcap 50, over 8,192 slots: the keys before the window are left
+    out."""
+    k, v = _decode_cache((), 4, 8192, 8, 256, torch.bfloat16, cuda, seed=22)
+    q = _decode_q(4, 8, 2, 256, torch.bfloat16, cuda, seed=pos, std=4.0)
+    _decode_checked(q, k, v, pos, window=4096, softcap=50.0)
+
+
+def test_decode_kernel_at_jamba_long_500k(cuda):
+    """jamba's attention layer at long_500k: batch 1, 64 heads over 8 of
+    128, over 524,288 slots at the last position (split-KV fills the
+    card)."""
+    k, v = _decode_cache((), 1, 524288, 8, 128, torch.bfloat16, cuda,
+                         seed=23)
+    q = _decode_q(1, 8, 8, 128, torch.bfloat16, cuda, seed=23)
+    _, nsplit = _decode_checked(q, k, v, 524287)
+    assert nsplit > 32
+
+
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("window", [0, 512])
+def test_decode_kernel_group_sizes(cuda, G, window):
+    """GQA groups of 1, 4 (granite) and 5 (qwen3-14b), with and without a
+    window."""
+    k, v = _decode_cache((), 4, 2048, 8, 128, torch.bfloat16, cuda, seed=G)
+    q = _decode_q(4, 8, G, 128, torch.bfloat16, cuda, seed=G)
+    _decode_checked(q, k, v, 1500, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 6, 7, 8])
+@pytest.mark.parametrize("pos", [100, 650])
+def test_decode_kernel_every_instance(cuda, ieee_fp32, dtype, D, G, pos):
+    """Every dtype and head width, groups of 1 to 8, one split (pos 100)
+    and two (pos 650), softcap 30."""
+    k, v = _decode_cache((), 3, 700, 2, D, dtype, cuda, seed=D + G)
+    q = _decode_q(3, 2, G, D, dtype, cuda, seed=pos, std=3.0)
+    _decode_checked(q, k, v, pos, softcap=30.0)
+
+
+@pytest.mark.parametrize("pos", [0, 5, 33, 63])
+def test_decode_kernel_fp32_smoke_width(cuda, ieee_fp32, pos):
+    """fp32 at D 16 (every .smoke() config), 4 heads over 2, a cache of
+    64 slots, with a window of 16 and softcap 50."""
+    k, v = _decode_cache((), 2, 64, 2, 16, torch.float32, cuda, seed=pos)
+    q = _decode_q(2, 2, 2, 16, torch.float32, cuda, seed=pos)
+    _decode_checked(q, k, v, pos)
+    _decode_checked(q, k, v, pos, window=16, softcap=50.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_reads_only_live_keys(cuda, ieee_fp32, dtype):
+    """NaN in every slot before the window and past the position changes
+    nothing: the kernel never reads them."""
+    pos, window = 3000, 1024
+    k, v = _decode_cache((), 2, 4096, 8, 128, dtype, cuda, seed=24)
+    q = _decode_q(2, 8, 6, 128, dtype, cuda, seed=24)
+    clean = k.clone(), v.clone()
+    dead = torch.ones(4096, dtype=torch.bool, device=cuda)
+    dead[pos - window + 1:pos + 1] = False
+    for t in (k, v):
+        t[:, dead] = float("nan")
+    got = DA.decode_attend(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    _assert_decode_close(got, q, *clean, pos, window=window)
+
+
+def test_decode_kernel_is_deterministic(cuda):
+    """The splits' partials are summed in split order: two calls give the
+    same bits."""
+    k, v = _decode_cache((), 1, 65536, 8, 128, torch.bfloat16, cuda,
+                         seed=25)
+    q = _decode_q(1, 8, 8, 128, torch.bfloat16, cuda, seed=25)
+    first = DA.decode_attend(q, k, v, 60000)
+    assert torch.equal(first, DA.decode_attend(q, k, v, 60000))
+
+
+def test_decode_wrapper_rejects_bad_inputs(cuda):
+    k, v = _decode_cache((), 2, 64, 2, 128, torch.bfloat16, cuda, seed=26)
+    q = _decode_q(2, 2, 4, 128, torch.bfloat16, cuda, seed=26)
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.decode_attend(q[..., :64], k[..., :64], v[..., :64], 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.decode_attend(q[..., :80], k[..., :80], v[..., :80], 3)
+    big = _decode_q(2, 2, 9, 128, torch.bfloat16, cuda, seed=26)
+    with pytest.raises(ValueError, match="query heads"):
+        DA.decode_attend(big, k, v, 3)
+    with pytest.raises(ValueError, match="outside"):
+        DA.decode_attend(q, k, v, 64)
+    with pytest.raises(TypeError):
+        DA.decode_attend(q.half(), k.half(), v.half(), 3)
+    with pytest.raises(ValueError):
+        DA.decode_attend(q, k.cpu(), v, 3)
+    shifted = torch.zeros(v.numel() + 4, dtype=v.dtype, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        DA.decode_attend(q, k, shifted[4:].view_as(v), 3)
+
+
+def test_decode_step_on_the_card_runs_the_kernel_once_per_layer(cuda,
+                                                                ieee_fp32):
+    """gemma2-9b's smoke config (global and windowed layers, softcap),
+    fp32: 20 decode steps on the card, one kernel launch a layer a step,
+    logits within 1e-4 of the CPU run of the same parameters (the plain
+    version there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_cache, init_params
+
+    cfg = replace(get_config("gemma2-9b").smoke(), compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    on_card = _to(params, cuda)
+    step = make_decode_step(cfg)
+    caches = [init_cache(cfg, 2, 24, device=d) for d in ("cpu", cuda)]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    DA.reset_launches()
+    for pos in range(20):
+        want, _ = step(params, caches[0], toks[:, pos], pos)
+        got, _ = step(on_card, caches[1], toks[:, pos].to(cuda), pos)
+        assert float((got.cpu() - want).abs().max()) < 1e-4, pos
+    assert DA.launches["decode_attention"] == 20 * cfg.n_layers

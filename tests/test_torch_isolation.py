@@ -41,7 +41,8 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
                          capture_output=True, text=True, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.store.cluster" in got["modules"]
-    for name in ("repro_torch.kernels.dvv_ops.dvv_ops",
+    for name in ("repro_torch.kernels.decode_attention.decode_attention",
+                 "repro_torch.kernels.dvv_ops.dvv_ops",
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.ssd_scan.ssd_scan",
                  "repro_torch.models.lm", "repro_torch.models.ssm",
