@@ -59,6 +59,9 @@ def trace_targets(cfg):
                         "moe.experts": (moe, "experts")})
     if any(s.ffn == "mlp" for s in cfg.pattern):
         targets["mlp"] = (lm, "_mlp")
+    if any(s.mixer == "mamba" for s in cfg.pattern):
+        # ``ssm.ssm_forward`` as ``lm`` looks it up at each call
+        targets["mamba"] = (lm, "ssm_forward")
     return targets
 
 

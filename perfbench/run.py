@@ -25,7 +25,9 @@ the warm-up), the window, the traced segment and the comparison ended.
 
 Every cache the run writes is inside the checkout: the kernels' nvcc
 builds in ``build/repro_torch/`` (the port's own), Triton's, the CUDA
-driver's and PyTorch's under ``build/``.
+driver's and PyTorch's under ``build/``.  The host's math libraries get
+one thread (``OMP_NUM_THREADS`` and its kin), so that the run loads the
+host from one process with few threads.
 """
 import time
 
@@ -43,7 +45,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
 def cache_env(root: Path) -> None:
     """Fixed cache directories inside the checkout, set before torch
-    loads; USE_FLAX=0 keeps a library that could load JAX from doing so."""
+    loads; USE_FLAX=0 keeps a library that could load JAX from doing so;
+    one thread for the host's math libraries, so that the run's own
+    threads take no core from the thread that dispatches the steps."""
+    for name in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                 "OPENBLAS_NUM_THREADS"):
+        os.environ[name] = "1"
     build = root / "build"
     os.environ["TRITON_CACHE_DIR"] = str(build / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(build / "torch_extensions")

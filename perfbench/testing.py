@@ -29,15 +29,21 @@ TOY_MOE_MODEL = dict(
     moe_experts=8, moe_topk=2, moe_d_ff=256, capacity_factor=1.25,
     embed_scale=True, act="geglu")
 TOY_MOE_EMBED_STD = 0.02 / 128 ** 0.5
+#: The toy decode cache holds 16,384 positions: on the CPU the decode
+#: step's attention reads the whole cache, so a step's cost grows with
+#: ``max_len``, and a 5 s window on one core reaches some 300 positions
+#: (at 1,024, a run whose session writes were left out filled the cache
+#: within the window)
 TOY_MIXES = {
     "toy_prefill": {"kind": "prefill", "prompt": {
         "dist": "lognormal", "median": 64, "sigma": 0.5, "min": 16,
         "max": 160}, "strata": 4},
-    "toy_decode": {"kind": "decode", "slots": 4, "max_len": 1024, "output": {
-        "dist": "uniform", "min": 2, "max": 9}, "strata": 8, "sessions": 50,
-        "zipf": 0.9, "store": {"nodes": 5, "n_val": 3, "r": 2, "w": 2,
-                               "via": "n0"}, "trace_steps": 3,
-        "record_every": 2},
+    "toy_decode": {"kind": "decode", "slots": 4, "max_len": 16384,
+                   "output": {"dist": "uniform", "min": 2, "max": 9},
+                   "strata": 8, "sessions": 50, "zipf": 0.9,
+                   "store": {"nodes": 5, "n_val": 3, "r": 2, "w": 2,
+                             "via": "n0"},
+                   "trace_steps": 3, "record_every": 2},
 }
 #: Limits for the toy cells, from their CPU readings on five or six
 #: seeds.  Dense: the bf16 program reads 0.008-0.011 (median logit error),
